@@ -1,0 +1,17 @@
+"""PyTorch/CUDA port of `mink_octtree_stablediffusion_tpu`.
+
+The JAX package stays the reference; this package mirrors its module names
+and runs the generation path (VAE encode → DDIM on the fixed latent grid →
+pruning decode) with PyTorch, and every bounded-grid sparse conv that is
+not densified goes through a hand-written CUDA kernel
+(`ops/fused_conv.py`, `csrc/fused_sparse_conv.cu`).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.  It imports neither
+JAX nor anything of the JAX package.
+"""
+
+from . import data, diffusion, models, nn, ops, serve, utils
+from .ops.coords import SparseGrid
+from .tensor import SparseTensor, cat, sparse_tensor
+
+__all__ = ["data", "diffusion", "models", "nn", "ops", "serve", "utils",
+           "SparseGrid", "SparseTensor", "cat", "sparse_tensor"]

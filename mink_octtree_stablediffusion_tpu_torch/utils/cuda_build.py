@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources (`csrc/*.cu`) into shared libraries.
+
+Each source has a plain C interface and is compiled by ``nvcc`` for
+``sm_90a`` into ``_build/lib<name>_<hash>.so`` inside the package (a
+directory that git ignores), then loaded with ``ctypes``.  The file name
+carries a hash of the source, so an edited source is rebuilt.  ``build``
+starts one ``nvcc`` per source, all together, and waits for all of them.
+Nothing is built when a module is imported: only the first launch on a
+CUDA tensor (or an explicit ``build``) compiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(source: str) -> Path:
+    src = CSRC_DIR / source
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+
+
+def build(sources: Iterable[str]) -> Dict[str, str]:
+    """Compile every source not built yet, one ``nvcc`` each, in parallel.
+    Returns the compiler output (``-Xptxas -v``: registers, shared memory,
+    spills) per source built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / source)]
+        jobs.append((source, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = {}
+    for source, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        os.replace(tmp, out)
+        logs[source] = log
+    return logs
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built at first use."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        build([source])
+        lib = ctypes.CDLL(str(library_path(source)))
+        _LIBS[source] = lib
+    return lib

@@ -35,6 +35,9 @@ def pytest_configure(config):
         "markers", "fast: auto-applied to every test not marked slow — "
         "`pytest -m fast` is the <5 min iteration subset; the full suite "
         "remains the gate")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (a CUDA kernel of the PyTorch "
+        "port); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
