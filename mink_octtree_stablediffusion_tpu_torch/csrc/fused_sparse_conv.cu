@@ -3,14 +3,18 @@
 //
 // Replaces the TPU kernel `ops/onehot_conv.py::_fused_impl` of the JAX
 // package (Pallas `pallas_call`), reached there through
-// `fused_sparse_conv`.  For every output row j and kernel offset k:
-//   q = out_coord_j + delta_k must lie on the input lattice
-//       (q - floor(q / s_in) * s_in == 0), inside the extent, and row j must
-//       be valid; then its int32 flat key b*prod(cells) + row-major(pos) is
-//       searched in the sorted input keys, and
-//   out_j = sum_k f[match_k(j)] . W_k   (a miss adds zero).
+// `fused_sparse_conv`, in both of its directions:
+//   - the forward conv (B1): for every output row j and kernel offset k,
+//     out_j = sum_k f[match_k(j)] . W_k   (a miss adds zero), with the match
+//     rule of `sparse_conv_common.cuh`;
+//   - the dF backward (B2, `_FusedStatic.flipped`): the same search run in
+//     the transpose direction -- the grids swap roles, the offsets negate,
+//     the searched lattice is the forward's output lattice -- over the
+//     cotangent g with W_k read transposed (`transpose_weight`: the weight
+//     stays the forward's [k, Cout, Cin] in memory, no transposed copy).
 // One kernel covers plain k3s1, strided k3s2, pinned transpose k2s2 and
-// generative k2s2 convs: only the offsets and strides differ.
+// generative k2s2 convs in both directions: only the offsets and strides
+// differ.
 //
 // What bounds it on the H100: at the widths of the main path (Cin, Cout in
 // 1..512, a few thousand to 131072 rows) the arithmetic intensity of one
@@ -33,11 +37,13 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "sparse_conv_common.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using sparse_conv::Geom;
 
-constexpr int MAX_K = 125;  // up to a 5x5x5 cube
 constexpr int BM = 64;      // output rows per block
 constexpr int BN = 64;      // output channels per block
 constexpr int BK = 32;      // input channels per chunk
@@ -46,18 +52,9 @@ constexpr int LDA = BK + 8;  // bf16 elements, multiple of 8 for wmma
 constexpr int LDB = BN + 8;
 constexpr int LDC = BN + 4;  // floats, multiple of 4 for wmma
 
-struct Geom {
-  int k;               // number of offsets
-  int s_in[3];         // input lattice stride
-  int cells[3];        // input lattice cells per axis
-  int offs[MAX_K * 3]; // absolute offsets (sign applied for transposes)
-};
-
-__device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
-  const int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
-
+// kTransW: W_k is stored [cout][cin] (the forward's weight, read by dF)
+// instead of [cin][cout].
+template <bool kTransW>
 __global__ void __launch_bounds__(NTHREADS) fused_sparse_conv_kernel(
     const float* __restrict__ feat, const float* __restrict__ weight,
     const int* __restrict__ in_keys, const int* __restrict__ out_coords,
@@ -67,49 +64,22 @@ __global__ void __launch_bounds__(NTHREADS) fused_sparse_conv_kernel(
   __shared__ __align__(128) __nv_bfloat16 sB[BK * LDB];
   __shared__ __align__(128) float sC[BM * LDC];
   __shared__ int sIdx[BM];
-  __shared__ int sCoord[BM][4];  // batch (-1 = invalid row), x, y, z
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
 
-  if (tid < BM) {
-    const int r = row0 + tid;
-    if (r < n_out && out_valid[r]) {
-      for (int d = 0; d < 4; ++d) sCoord[tid][d] = out_coords[(size_t)r * 4 + d];
-    } else {
-      sCoord[tid][0] = -1;
-    }
-  }
+  int coord[4] = {-1, 0, 0, 0};  // this thread's output row (tid < BM)
+  if (tid < BM) sparse_conv::load_coord(coord, row0 + tid, n_out, out_coords, out_valid);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
 #pragma unroll
   for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  __syncthreads();
 
   for (int k = 0; k < g.k; ++k) {
     // 1. each row searches its query key in the sorted input keys
-    int found = -1;
-    if (tid < BM && sCoord[tid][0] >= 0) {
-      int key = sCoord[tid][0];
-      bool ok = true;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const int q = sCoord[tid][1 + d] + g.offs[k * 3 + d];
-        const int p = floor_div(q, g.s_in[d]);
-        ok = ok && (q == p * g.s_in[d]) && p >= 0 && p < g.cells[d];
-        key = key * g.cells[d] + p;
-      }
-      if (ok) {
-        int lo = 0, hi = n_in;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (__ldg(in_keys + mid) < key) lo = mid + 1; else hi = mid;
-        }
-        if (lo < n_in && __ldg(in_keys + lo) == key) found = lo;
-      }
-    }
+    const int found = tid < BM ? sparse_conv::find_neighbor(coord, k, g, in_keys, n_in) : -1;
     if (tid < BM) sIdx[tid] = found;
     if (!__syncthreads_or(found >= 0)) continue;  // no neighbour in the tile
 
@@ -121,10 +91,15 @@ __global__ void __launch_bounds__(NTHREADS) fused_sparse_conv_kernel(
         const float v = (src >= 0 && cc < cin) ? __ldg(feat + (size_t)src * cin + cc) : 0.0f;
         sA[r * LDA + c] = __float2bfloat16(v);
       }
-      // ... and the W_k chunk (bf16, zero past Cin / Cout)
+      // ... and the W_k chunk (bf16, zero past Cin / Cout); neighbouring
+      // threads read neighbouring addresses in either layout
       for (int e = tid; e < BK * BN; e += NTHREADS) {
-        const int r = e / BN, c = e % BN, cr = c0 + r, cc = col0 + c;
-        const float v = (cr < cin && cc < cout) ? __ldg(wk + (size_t)cr * cout + cc) : 0.0f;
+        const int r = kTransW ? e % BK : e / BN;
+        const int c = kTransW ? e / BK : e % BN;
+        const int cr = c0 + r, cc = col0 + c;
+        float v = 0.0f;
+        if (cr < cin && cc < cout)
+          v = __ldg(wk + (kTransW ? (size_t)cc * cin + cr : (size_t)cr * cout + cc));
         sB[r * LDB + c] = __float2bfloat16(v);
       }
       __syncthreads();
@@ -157,25 +132,21 @@ __global__ void __launch_bounds__(NTHREADS) fused_sparse_conv_kernel(
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() right after the launch.
-// feat fp32 [n_in, cin], weight fp32 [k, cin, cout], in_keys int32 [n_in]
-// (sorted, INT32_MAX on padding rows), out_coords int32 [n_out, 4],
-// out_valid bool [n_out], out fp32 [n_out, cout]; offs [k*3], s_in [3] and
-// cells [3] are host arrays.
+// feat fp32 [n_in, cin], weight fp32 [k, cin, cout] ([k, cout, cin] when
+// transpose_weight != 0), in_keys int32 [n_in] (sorted, INT32_MAX on
+// padding rows), out_coords int32 [n_out, 4], out_valid bool [n_out], out
+// fp32 [n_out, cout]; offs [k*3], s_in [3] and cells [3] are host arrays.
 extern "C" int fused_sparse_conv_forward(
     const void* feat, const void* weight, const void* in_keys,
     const void* out_coords, const void* out_valid, void* out, int n_in,
     int n_out, int cin, int cout, int k, const int* offs, const int* s_in,
-    const int* cells, void* stream) {
-  if (k < 1 || k > MAX_K || n_out < 1 || cout < 1 || cin < 1) return (int)cudaErrorInvalidValue;
-  Geom g;
-  g.k = k;
-  for (int d = 0; d < 3; ++d) {
-    g.s_in[d] = s_in[d];
-    g.cells[d] = cells[d];
-  }
-  for (int i = 0; i < k * 3; ++i) g.offs[i] = offs[i];
+    const int* cells, int transpose_weight, void* stream) {
+  if (k < 1 || k > sparse_conv::MAX_K || n_out < 1 || cout < 1 || cin < 1)
+    return (int)cudaErrorInvalidValue;
+  const Geom g = sparse_conv::make_geom(k, offs, s_in, cells);
   const dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN);
-  fused_sparse_conv_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = transpose_weight ? fused_sparse_conv_kernel<true> : fused_sparse_conv_kernel<false>;
+  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const float*)feat, (const float*)weight, (const int*)in_keys,
       (const int*)out_coords, (const unsigned char*)out_valid, (float*)out,
       n_in, n_out, cin, cout, g);

@@ -1,4 +1,4 @@
-"""Host-side data: synthetic shapes and collation."""
+"""Host-side data: synthetic shapes, batching and collation."""
 
 from .collate import collate_pointclouds
-from .datasets import SyntheticShapes, normalize_to_resolution
+from .datasets import SyntheticShapes, batch_iterator, normalize_to_resolution

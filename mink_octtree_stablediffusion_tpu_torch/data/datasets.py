@@ -1,9 +1,10 @@
 """Synthetic shapes (host-side numpy).
 
-Port of `SyntheticShapes` from `mink_octtree_stablediffusion_tpu/data/
-datasets.py` and `normalize_to_resolution` from `data/mesh.py`:
-parametric surfaces (sphere / torus / box / cylinder) voxelized like the
-mesh datasets.  The same seed gives the same voxels as the JAX package.
+Port of `SyntheticShapes` and `batch_iterator` from
+`mink_octtree_stablediffusion_tpu/data/datasets.py` and
+`normalize_to_resolution` from `data/mesh.py`: parametric surfaces (sphere /
+torus / box / cylinder) voxelized like the mesh datasets.  The same seed
+gives the same voxels as the JAX package.
 """
 
 from __future__ import annotations
@@ -68,3 +69,14 @@ class SyntheticShapes:
         if self.with_class:
             out["caption"] = f"a picture of a {self.CLASSES[label]}"
         return out
+
+
+def batch_iterator(dataset, batch_size: int, rng: np.random.RandomState,
+                   shuffle: bool = True):
+    """Minimal epoch iterator yielding lists of samples (a ragged tail is
+    dropped)."""
+    idx = np.arange(len(dataset))
+    if shuffle:
+        rng.shuffle(idx)
+    for i in range(0, len(idx) - batch_size + 1, batch_size):
+        yield [dataset[int(j)] for j in idx[i:i + batch_size]]

@@ -1,4 +1,4 @@
-"""Models of the generation path: the octree VAE and the latent UNet."""
+"""Models: the octree VAE (with its loss) and the latent UNet."""
 
 from .unet import UNet
-from .vae import VAE, Decoder, Encoder
+from .vae import VAE, Decoder, Encoder, vae_loss

@@ -1,12 +1,15 @@
 """Octree sparse VAE: residual encoder + pruning/growing decoder.
 
-Port of `Encoder`, `Decoder` and `VAE.encode`/`decode` from
-`mink_octtree_stablediffusion_tpu/models/vae.py` (inference: BatchNorm on
-running statistics).  Encoder = three stride-2 ResNet2 stages + two
-same-stride stages + mean/log-var conv heads (stride-8 latent).  Decoder =
-one same-stride ResNet2 then three generative-upsample ResNet2 stages,
-each followed by a 1x1 occupancy head, a membership test against the
-strided target set, a top-k capacity clamp and pruning.
+Port of `Encoder`, `Decoder`, `VAE` and `vae_loss` from
+`mink_octtree_stablediffusion_tpu/models/vae.py`.  Encoder = three
+stride-2 ResNet2 stages + two same-stride stages + mean/log-var conv heads
+(stride-8 latent).  Decoder = one same-stride ResNet2 then three
+generative-upsample ResNet2 stages, each followed by a 1x1 occupancy head,
+a membership test against the strided target set, a top-k capacity clamp
+and pruning; in ``.train()`` the target voxels of levels 0–2 are
+force-kept so that deeper levels always receive supervision.  A new `VAE`
+is in ``.eval()`` (BatchNorm on running statistics, as generation needs);
+a trainer calls ``.train()``.
 
 Not ported yet (raise): the Morton-window attention of the encoder and the
 dense latent canvas (``latent_canvas``, `ops/canvas.py`).
@@ -94,6 +97,8 @@ class Decoder(nn.Module):
             keep = top_k_mask(logits_t.features[:, 0], out.valid,
                               self.max_keep or
                               self.level_capacities[min(lvl + 1, 3)])
+            if self.training and lvl < 3:
+                keep = keep | targets[-1]
             grid, feats = prune(out.grid, out.features, keep)
             out = SparseTensor(grid=grid, features=feats)
         return out_clss, targets, out
@@ -128,11 +133,37 @@ class VAE(nn.Module):
         return self.decoder(z, target_grid)
 
     def forward(self, sinput: SparseTensor, target_grid: SparseGrid,
-                eps: torch.Tensor):
-        """encode → reparameterize with the given N(0,1) ``eps`` → decode.
-        Returns (out_clss, targets, sout, mean, log_var, z)."""
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """encode → reparameterize → decode.  ``eps`` is the N(0,1) noise
+        of the reparameterisation, shaped like the latent's features; when
+        it is not given it is drawn from ``generator``.  Returns (out_clss,
+        targets, sout, mean, log_var, z)."""
         mean, log_var = self.encode(sinput)
+        if eps is None:
+            eps = torch.randn(log_var.features.shape, generator=generator,
+                              device=log_var.features.device)
         z = mean.with_features(mean.features +
                                torch.exp(0.5 * log_var.features) * eps)
         out_clss, targets, sout = self.decode(z, target_grid)
         return out_clss, targets, sout, mean, log_var, z
+
+
+def vae_loss(out_clss, targets, mean: SparseTensor, log_var: SparseTensor,
+             kld_weight: float = 1e-6):
+    """Per-level masked BCE-with-logits averaged over levels + KLD over the
+    valid latent rows → (loss, {"bce", "kld"})."""
+    bce = 0.0
+    for logits_t, target in zip(out_clss, targets):
+        lo = logits_t.features[:, 0]
+        v = logits_t.valid
+        t = target.to(lo.dtype)
+        per = lo.clamp(min=0.0) - lo * t + torch.log1p(torch.exp(-lo.abs()))
+        bce = bce + torch.where(v, per, 0.0).sum() / v.to(lo.dtype).sum(
+        ).clamp(min=1.0)
+    bce = bce / float(len(out_clss))
+    vmask = mean.valid[:, None].to(mean.features.dtype)
+    kld = -0.5 * ((1 + log_var.features - mean.features ** 2 -
+                   torch.exp(log_var.features)) * vmask).sum() / (
+        vmask.sum().clamp(min=1.0))
+    return bce + kld_weight * kld, {"bce": bce, "kld": kld}

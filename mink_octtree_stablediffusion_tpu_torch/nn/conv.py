@@ -8,10 +8,11 @@ dense-volume branch sits behind a gate that is off by default and is not
 ported.  Kernel layout is (K, Cin, Cout) with kaiming-normal
 initialisation over K·Cin.
 
-``record_routes()`` collects, for every conv call, the branch it took and
-its shape ``(N_out, Cin, Cout, K)``, independently of the kernel's own
-launch counter — so a run can check that every fused-route conv launched
-the kernel.
+``record_routes()`` collects, for every conv call, the branch it took, its
+shape ``(N_out, Cin, Cout, K)`` and whether its input carries a gradient,
+independently of the kernels' own launch counters — so a run can check
+that every fused-route conv launched the forward kernel and, in training,
+the dW kernel and (where its input carries a gradient) the dF kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ class Route(NamedTuple):
     cin: int
     cout: int
     k: int
+    # the input features carry a gradient (their conv's backward needs dF)
+    grad_in: bool = False
 
 
 _ROUTES: Optional[list] = None
@@ -112,7 +115,8 @@ class _ConvBase(nn.Module):
                                     self.bias, compute_dtype=cd)
         if _ROUTES is not None:
             _ROUTES.append(Route(self._layer_name(), branch, out_grid.capacity,
-                                 cin, self.out_channels, spec.volume))
+                                 cin, self.out_channels, spec.volume,
+                                 x.features.requires_grad))
         return SparseTensor(grid=out_grid, features=out).mask_features()
 
 

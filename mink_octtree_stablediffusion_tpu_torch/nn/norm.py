@@ -1,10 +1,9 @@
 """Normalization layers over sparse tensors.
 
-Port of `BatchNorm` (eval mode: running statistics) and
-`StableInstanceNorm` from `mink_octtree_stablediffusion_tpu/nn/norm.py`.
-Statistics are masked: padding rows never contribute.  BatchNorm's train
-mode (batch statistics and running-average updates) belongs to the
-training path, which is not ported yet (ROADMAP.md queue A, item 8).
+Port of `BatchNorm` and `StableInstanceNorm` from
+`mink_octtree_stablediffusion_tpu/nn/norm.py`.  Statistics are masked:
+padding rows never contribute.  The cross-replica sync of `BatchNorm`
+(``axis_name``, SyncBN) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +16,13 @@ from ..tensor import SparseTensor
 
 
 class BatchNorm(nn.Module):
-    """Masked BatchNorm, evaluated with its running statistics."""
+    """Masked BatchNorm over all valid rows.
+
+    In ``.train()`` it normalises with the batch's mean and **biased**
+    variance ``max(E[x²] − mean², 0)`` over the valid rows and moves the
+    running buffers in place, ``r = momentum·r + (1 − momentum)·stat`` with
+    the same biased variance (``torch.nn.BatchNorm1d`` would store the
+    unbiased one).  In ``.eval()`` it uses the running statistics."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, device=None):
@@ -40,12 +45,19 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: SparseTensor) -> SparseTensor:
+        f = x.features
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm train mode is not ported yet (ROADMAP.md queue A, "
-                "item 8); call .eval()")
-        y = ((x.features - self.running_mean) *
-             torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias)
+            w = x.valid.to(f.dtype)[:, None]
+            n = w.sum().clamp(min=1.0)
+            mean = (f * w).sum(0) / n
+            var = ((f ** 2 * w).sum(0) / n - mean ** 2).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (f - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return x.with_features(y)
 
 

@@ -3,7 +3,8 @@
 Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into ``_build/lib<name>_<hash>.so`` inside the package (a
 directory that git ignores), then loaded with ``ctypes``.  The file name
-carries a hash of the source, so an edited source is rebuilt.  ``build``
+carries a hash of the source and of the shared headers, so an edited
+source or header is rebuilt.  ``build``
 starts one ``nvcc`` per source, all together, and waits for all of them.
 Nothing is built when a module is imported: only the first launch on a
 CUDA tensor (or an explicit ``build``) compiles.
@@ -38,9 +39,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """Where ``source`` builds to; the name hashes the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
