@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py               # from the root of a checkout
-    python3 chip_smoke.py --profile     # also profile a request, a step
+    python3 chip_smoke.py --profile     # also profile a request and steps
     python3 chip_smoke.py --max-keep 0  # no generation clamp (MAX_KEEP)
 
 Builds the port's CUDA kernels from `mink_octtree_stablediffusion_tpu_torch/
-csrc/` (one ``nvcc`` per source, all at once) and drives the port's two
+csrc/` (one ``nvcc`` per source, all at once) and drives the port's three
 paths, each with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -16,27 +16,51 @@ read just after:
   requests (seeds 0, 1, 2).  Each request must give finite features and
   > 0 voxels per instance, and every fused-route conv must launch the
   forward kernel (B1).
-- **training** — `examples/train_vae.py`'s default configuration (the same
-  VAE with the `capacities()` schedule, Adam at lr 1e-3, ``kld_weight``
-  1e-6, random weights from seed 0): 10 steps of ``train.make_train_step``
-  on one fixed batch of 4 `SyntheticShapes` at resolution 128.  Every loss
-  and gradient must be finite, every parameter must get a gradient, every
-  fused-route conv must launch B1 and dW (B3) and, where its input carries
-  a gradient, dF (B2), and the loss must fall (see ``train_phase``).
+- **VAE training** — `examples/train_vae.py`'s default configuration (the
+  same VAE with the `capacities()` schedule, Adam at lr 1e-3,
+  ``kld_weight`` 1e-6, random weights from seed 0): 10 steps of
+  ``train.make_train_step`` on one fixed batch of 4 `SyntheticShapes` at
+  resolution 128.  Every loss and gradient must be finite, every parameter
+  must get a gradient, every fused-route conv must launch B1 and dW (B3)
+  and, where its input carries a gradient, dF (B2), and the loss must fall
+  (see ``train_phase``).  Before the steps, step 1 runs with the brick
+  gate (``ops.enable_brick_conv``) off and then on, the BatchNorm
+  statistics restored in between: the loss and the gradients must agree
+  (``gate_compare``), and must not with a fault planted in the dF pass
+  (``planted_fault``); the gate-on step puts the brick kernels (B5, its
+  dF pass, B6) at the VAE's widths.
+- **diffusion training** — `examples/train_diffusion.py`'s default
+  configuration through ``train.diffusion.setup`` (the frozen VAE and the
+  UNet above, DDPM with 1000 steps, AdamW at lr 1e-4 with global-norm
+  clipping 0.5 and weight decay 1e-2, the coordinate NLL, seed 0) with the
+  brick gate on: 10 steps on one fixed batch of 4 `SyntheticShapes`
+  (samples 0-3).  Cut to size: one (timesteps, noise) draw replayed at
+  every step and the warmup cut from 1000 steps to 1, so that the
+  denoise loss can be seen to fall.  Every loss and gradient must be
+  finite, every UNet and NLL parameter must get a gradient, every
+  brick-route conv must launch B5, every fused-route conv B1, and, where
+  the conv's kernel is trained (not the frozen VAE's) and its input
+  carries a gradient, B6/B3 and the dF pass/B2; each step's lr must equal
+  ``warmup_cosine``'s; the denoise loss of step 10 must be below step
+  1's.  Before the steps, step 1 runs with the gate off and then on
+  (``gate_compare``, with its planted fault).
 
 Then every kernel is held against its plain PyTorch version on the same
-bf16-rounded operands, at the shapes its path gave it (B1 also at a few
-extra cases; B2 and B3 with the captured cotangent scaled by a power of
-two to unit RMS, see ``unit_rms``), within ``1e-3·max|ref| + 1e-5``, and
-timed (CUDA events, median of 25 after warm-up) beside its bound and its
-plain version.  Last,
-tiny configurations run on the card and on the CPU (plain versions under
-the same bf16 compute policy) with the same weights, inputs and noise: a
-generation (``tiny_reference``) and one train step
-(``tiny_train_reference``) must agree within the tolerances stated there.
+bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
+extra cases; the backward kernels with the captured cotangent scaled by a
+power of two to unit RMS, see ``unit_rms``), within ``1e-3·max|ref| +
+1e-5``, and timed (CUDA events, median of 25 after warm-up) beside its
+bound, its plain version and, for the brick kernels, one cuDNN call that
+computes the same function.  Last, tiny configurations run on the card
+and on the CPU (plain versions under the same bf16 compute policy) with
+the same weights, inputs and noise: a generation (``tiny_reference``), a
+VAE train step (``tiny_train_reference``) and a diffusion train step with
+the brick gate on (``tiny_diffusion_reference``, which also runs the card
+with the gate off and with the planted fault) must agree within the
+tolerances stated there.
 
 The generation decoder clamps each level to ``MAX_KEEP`` rows (see there);
-training runs unclamped (see ``train_phase``).
+VAE training runs unclamped (see ``train_phase``).
 
 Prints one JSON line per case, request and step, the launch-shape
 histograms, the card's name and power limit, a ``{"kernels": [...]}`` line
@@ -47,6 +71,7 @@ result, without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -75,17 +100,40 @@ MAX_KEEP = 2048
 # gradient and of each running-statistic update (see there)
 TINY_GRAD_RTOL, TINY_STAT_RTOL = 0.075, 0.02
 TRAIN_STEPS, TRAIN_LR, TRAIN_KLD = 10, 1e-3, 1e-6  # train_vae.py's defaults
+# diffusion phase: 10 steps; the warmup cut from 1000 to 1 (see the module
+# docstring); seed 0 for the weights, as the other paths
+DIFF_STEPS, DIFF_FLAGS = 10, ["--seed", "0", "--warmup", "1"]
+# gate_compare's bounds, gate off vs gate on at step 1 (see there): the
+# loss's relative difference, and the relative RMS of the gradients at the
+# median tensor and at the worst.  Measured on the H100 (80GB HBM3, 700 W):
+# VAE 6.6e-5, 0.019, 0.034; diffusion 1.9e-5, 0.078, 0.33
+GATE_TOL = {"vae": {"loss": 1e-3, "grad_median": 0.05, "grad_max": 1.0},
+            "diffusion": {"loss": 1e-3, "grad_median": 0.25,
+                          "grad_max": 1.0}}
+# tiny_diffusion_reference's bounds (see there): the loss, card vs CPU,
+# relative; the UNet gradients' median relative RMS against a control's
+TINY_DIFF_LOSS_RTOL, TINY_DIFF_RATIO = 1e-2, 3.0
 CSRC = "mink_octtree_stablediffusion_tpu_torch/csrc/"
 JAX_CONV = "mink_octtree_stablediffusion_tpu/ops/onehot_conv.py"
-# kernel: (wrapper in ops/fused_conv.py, source, the TPU kernel it replaces)
+JAX_VOL = "mink_octtree_stablediffusion_tpu/ops/vol_conv.py"
+# kernel: (module in ops/, wrapper, source, the TPU kernel it replaces)
 KERNELS = {
-    "B1": ("fused_sparse_conv", CSRC + "fused_sparse_conv.cu",
+    "B1": ("fused_conv", "fused_sparse_conv", CSRC + "fused_sparse_conv.cu",
            JAX_CONV + ":553"),  # _fused_impl, pallas_call :831
-    "B2": ("fused_conv_dfeatures", CSRC + "fused_sparse_conv.cu",
+    "B2": ("fused_conv", "fused_conv_dfeatures",
+           CSRC + "fused_sparse_conv.cu",
            JAX_CONV + ":1186"),  # _fused_impl on _FusedStatic.flipped
-    "B3": ("fused_conv_dkernel", CSRC + "fused_sparse_conv_dw.cu",
+    "B3": ("fused_conv", "fused_conv_dkernel",
+           CSRC + "fused_sparse_conv_dw.cu",
            JAX_CONV + ":935"),  # _dkernel_fused, pallas_call :1146
+    "B5": ("vol_conv", "vol_conv_tiles", CSRC + "brick_conv.cu",
+           JAX_VOL + ":98"),  # vol_conv_tiles, pallas_call :132
+    "B5-dF": ("vol_conv", "vol_conv_dfeatures", CSRC + "brick_conv.cu",
+              JAX_VOL + ":333"),  # vol_conv_tiles in _brick_bwd's dF
+    "B6": ("vol_conv", "vol_conv_dw", CSRC + "brick_conv_dw.cu",
+           JAX_VOL + ":228"),  # vol_conv_dw, pallas_call :254
 }
+FUSED, BRICK = ("B1", "B2", "B3"), ("B5", "B5-dF", "B6")
 
 
 def emit(obj) -> None:
@@ -132,25 +180,48 @@ def decoder_levels(out_clss, batch: int) -> list:
 
 
 class LaunchCapture:
-    """Wraps the launchers of B1 and B2 (``_launch``, B2 with
-    ``transpose_weight``) and B3 (``_launch_dkernel``) and keeps the
-    operands (features or cotangent, weight or cotangent, keys, output
-    coordinates and valid mask, offsets, stride, cells) of the first call
-    of each launch shape, keyed by the forward conv's (N_out, Cin, Cout, K),
-    for the kernels named in ``on`` (no extra launches)."""
+    """Wraps the launchers of B1 and B2 (``fused_conv._launch``, B2 with
+    ``transpose_weight``), B3 (``_launch_dkernel``), B5 and its dF pass
+    (``vol_conv._launch``, dF with ``mirror``) and B6 (``_launch_dw``).
+    While ``path`` is set (``at``), it counts each kernel's launches by
+    launch shape (``counts[path][kernel]``), lists B5's forward launch
+    shapes in order (``b5_order[path]``) and, for the kernels in ``on``,
+    keeps the operands of the first launch of each shape
+    (``cases[path][kernel]``), with no extra launches.  A fused-conv shape
+    is the forward conv's (N_out, Cin, Cout, K); a brick shape the forward
+    conv's (B, X, Y, Z, Cin, Cout)."""
 
-    def __init__(self, fc):
-        self.fc = fc
-        self.orig = (fc._launch, fc._launch_dkernel)
-        self.cases = {name: {} for name in KERNELS}
-        self.on = ()
+    def __init__(self, mp):
+        self.fc, self.vc = mp.ops.fused_conv, mp.ops.vol_conv
+        self.orig = (self.fc._launch, self.fc._launch_dkernel,
+                     self.vc._launch, self.vc._launch_dw)
+        self.cases, self.counts, self.b5_order = {}, {}, {}
+        self.path, self.on = None, ()
+
+    def at(self, path, on=()):
+        self.path, self.on = path, tuple(on)
+
+    def case(self, path, name) -> dict:
+        return self.cases.get(path, {}).get(name, {})
+
+    def per_step(self, path, name, steps: int) -> Counter:
+        total = self.counts.get(path, {}).get(name, Counter())
+        assert all(c % steps == 0 for c in total.values()), (path, name)
+        return Counter({k: c // steps for k, c in total.items()})
 
     def keep(self, name, key, ops):
+        if self.path is None:
+            return
+        self.counts.setdefault(self.path, {}).setdefault(
+            name, Counter())[key] += 1
+        if name == "B5":
+            self.b5_order.setdefault(self.path, []).append(key)
         if name in self.on:
-            self.cases[name].setdefault(key, ops)
+            self.cases.setdefault(self.path, {}).setdefault(
+                name, {}).setdefault(key, ops)
 
     def __enter__(self):
-        launch, launch_dkernel = self.orig
+        launch, launch_dkernel, vlaunch, vlaunch_dw = self.orig
 
         def b1_b2(*a, transpose_weight=False):
             w = a[1]  # the forward's [K, Cin, Cout]
@@ -165,11 +236,27 @@ class LaunchCapture:
                              offs.shape[0]), a[:8])
             return launch_dkernel(*a)
 
-        self.fc._launch, self.fc._launch_dkernel = b1_b2, b3
+        def b5(volp, kernel, mirror):
+            b, xp, yp, zp, _ = volp.shape
+            self.keep("B5-dF" if mirror else "B5",
+                      (b, xp - 2, yp - 2, zp - 2) + tuple(kernel.shape[1:]),
+                      (volp, kernel, mirror))
+            return vlaunch(volp, kernel, mirror)
+
+        def b6(volp, gvolp, cin, cout):
+            b, xp, yp, zp, _ = volp.shape
+            self.keep("B6", (b, xp - 2, yp - 2, zp - 2, cin, cout),
+                      (volp, gvolp, cin, cout))
+            return vlaunch_dw(volp, gvolp, cin, cout)
+
+        (self.fc._launch, self.fc._launch_dkernel, self.vc._launch,
+         self.vc._launch_dw) = (b1_b2, b3, b5, b6)
         return self
 
     def __exit__(self, *exc):
-        self.fc._launch, self.fc._launch_dkernel = self.orig
+        (self.fc._launch, self.fc._launch_dkernel, self.vc._launch,
+         self.vc._launch_dw) = self.orig
+        self.path = None
 
 
 def unit_rms(g):
@@ -179,8 +266,14 @@ def unit_rms(g):
     captured operands up to an exact scale.  Step 1's cotangents are tiny
     (an RMS of 1e-9 to 1e-4), and unscaled the ``1e-5`` term of the
     tolerance would pass a kernel that returned zeros."""
-    rms = g.square().mean().sqrt().item()
+    rms = g.float().square().mean().sqrt().item()
     return (g * 2.0 ** -round(math.log2(rms)) if rms > 0 else g), rms
+
+
+def rel_rms(a: dict, ref: dict) -> dict:
+    """‖a − ref‖ / ‖ref‖ per name."""
+    return {n: float((a[n] - ref[n]).norm() / ref[n].norm().clamp(
+        min=1e-30)) for n in ref}
 
 
 def matched_pairs(fc, keys, out_coords, out_valid, offs, s, cells) -> int:
@@ -189,24 +282,28 @@ def matched_pairs(fc, keys, out_coords, out_valid, offs, s, cells) -> int:
 
 
 def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
-                min_ref=0.0, **shape):
+                min_ref=0.0, library=None, work_pairs=None, **shape):
     """Kernel vs plain version: max|Δ| ≤ 1e-3·max|ref| + 1e-5, and max|ref|
     ≥ ``min_ref`` (so that a kernel returning zeros fails); CUDA-event
-    times of both; the bound max(2·Cin·Cout·pairs / peak bf16, bytes /
-    peak HBM)."""
+    times of both and of ``library`` (one PyTorch call computing the same
+    function), where there is one; the bound max(2·Cin·Cout·pairs / peak
+    bf16, bytes / peak HBM), with ``work_pairs`` in place of the matched
+    ``pairs`` where the kernel's work is dense."""
     import torch
     out, ref = run(), plain()
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item() if out.numel() else 0.0
     ref_max = ref.abs().max().item() if ref.numel() else 0.0
     tol = 1e-3 * ref_max + 1e-5
-    flops = 2.0 * cin * cout * pairs
+    del out, ref
+    flops = 2.0 * cin * cout * (work_pairs or pairs)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     rec = {"kernel": kernel, "case": case, "kind": kind, **shape,
            "cin": cin, "cout": cout, "matched_pairs": pairs,
            "max_abs_err": err, "max_abs_ref": ref_max, "tol": tol,
            "rel_err": err / ref_max if ref_max else 0.0,
            "ms": cuda_time_ms(run), "plain_ms": cuda_time_ms(plain),
+           "library_ms": cuda_time_ms(library) if library else None,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
@@ -281,6 +378,74 @@ def check_dkernel_launch(mp, case, kind, ops):
                                   torch.float32),
         matched_pairs(fc, keys, oc, ov, offs, s, cells), cin, cout, nbytes,
         min_ref=MIN_REF_GRAD, n_out=n_out, n_in=n_in, k=k, g_rms=g_rms)
+
+
+def occupied_pairs(occ_out, occ_in) -> int:
+    """(output cell, neighbour) pairs of a k=3 s=1 conv where both are
+    occupied: ``occ_*`` are [B, X+2, Y+2, Z+2] occupancy of padded
+    volumes (a cell is occupied where any channel is nonzero)."""
+    x, y, z = (occ_in.shape[1] - 2, occ_in.shape[2] - 2,
+               occ_in.shape[3] - 2)
+    inner = occ_out[:, 1:-1, 1:-1, 1:-1]
+    return sum(int((inner & occ_in[:, dx:dx + x, dy:dy + y,
+                                   dz:dz + z]).sum().item())
+               for dx in range(3) for dy in range(3) for dz in range(3))
+
+
+def check_brick_launch(mp, kernel, path, key, ops):
+    """B5 (forward), its dF pass or B6 on one launch's operands (``key``:
+    the forward conv's (B, X, Y, Z, Cin, Cout)); the dF pass and B6 with
+    the cotangent volume at unit RMS.  Bound: the dense work, 2·27·cells·
+    Cin·Cout operations, against the bytes the function must move at the
+    conv's own widths: the bf16 input (and, for B6, cotangent) values of
+    the volume's cells read once, the float32 weight read once (B5, dF) or
+    written once (B6), the float32 output written once.  The 1-cell zero
+    shell and the channel padding to 16 are the port's layout and are not
+    counted.  ``matched_pairs`` beside it counts the occupied (cell,
+    neighbour) pairs, B1's work for the same conv.  Yardstick
+    (``library_ms``): one cuDNN call on a dense, contiguous bf16 copy of
+    the volume at the conv's widths, made before the timing: ``F.conv3d``
+    (B5 and the dF pass) or ``torch.nn.grad.conv3d_weight`` (B6)."""
+    import torch
+    import torch.nn.functional as F
+    vc = mp.ops.vol_conv
+    b, x, y, z = key[:4]
+    cells = b * x * y * z
+    extra, min_ref = {}, 0.0
+    if kernel == "B6":
+        volp, gvolp, cin, cout = ops
+        gvolp, extra["g_rms"] = unit_rms(gvolp)
+        min_ref = MIN_REF_GRAD
+        xin = volp[..., :cin].permute(0, 4, 1, 2, 3).contiguous()
+        gout = gvolp[:, 1:-1, 1:-1, 1:-1, :cout].permute(
+            0, 4, 1, 2, 3).contiguous()
+        run = lambda: vc._launch_dw(volp, gvolp, cin, cout)  # noqa: E731
+        plain = lambda: vc._vol_conv_dw_plain(  # noqa: E731
+            volp, gvolp, cin, cout)
+        library = lambda: torch.nn.grad.conv3d_weight(  # noqa: E731
+            xin, (cout, cin, 3, 3, 3), gout)
+        nbytes = 2 * cells * (cin + cout) + 4 * 27 * cin * cout
+        pairs = occupied_pairs(gvolp.ne(0).any(-1), volp.ne(0).any(-1))
+    else:
+        volp, w, mirror = ops
+        if mirror:
+            volp, extra["g_rms"] = unit_rms(volp)
+            min_ref = MIN_REF_GRAD
+        wk = vc._mirror_transpose(w) if mirror else w
+        cin, cout = wk.shape[1], wk.shape[2]
+        xin = volp[..., :cin].permute(0, 4, 1, 2, 3).contiguous()
+        wl = wk.to(volp.dtype).reshape(3, 3, 3, cin, cout).permute(
+            4, 3, 0, 1, 2).contiguous()
+        run = lambda: vc._launch(volp, w, mirror)  # noqa: E731
+        plain = lambda: vc._vol_conv_plain(volp, w, mirror)  # noqa: E731
+        library = lambda: F.conv3d(xin, wl)  # noqa: E731
+        nbytes = 2 * cells * cin + 4 * w.numel() + 4 * cells * cout
+        occ = volp.ne(0).any(-1)
+        pairs = occupied_pairs(occ, occ)
+    return timed_check(kernel, path, "k3s1", run, plain, pairs, cin, cout,
+                       nbytes, min_ref=min_ref, library=library,
+                       work_pairs=27 * cells, volume=[b, x, y, z],
+                       cells=cells, forward_shape=list(key), **extra)
 
 
 def extra_cases(mp, st, dev):
@@ -414,20 +579,31 @@ def voxel_set(coords, valid) -> set:
     return {tuple(r) for r in coords[valid].cpu().tolist()}
 
 
-def shape_totals(hist, cases) -> dict:
-    """Sum over a path's launches (``hist``: launch shape → count) of each
-    launch shape's measured time, plain time and bound."""
-    by_shape = {(c["n_out"], c["cin"], c["cout"], c["k"]): c for c in cases}
+def totals(per_key, recs) -> dict:
+    """Sum over a path's launches (``per_key``: launch shape → count per
+    request or step) of each shape's measured times and bound (``recs``:
+    launch shape → its check's record)."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops": 0.0,
-           "bytes": 0.0}
-    for key, count in hist.items():
-        c = by_shape[key[:4]]
-        tot["ms"] += count * c["ms"]
-        tot["plain_ms"] += count * c["plain_ms"]
-        tot["bound_ms"] += count * c["bound_ms"]
-        tot["ops"] += count * c["bound_ops_ms"]
-        tot["bytes"] += count * c["bound_bytes_ms"]
+           "bytes": 0.0, "library_ms": 0.0}
+    for key, count in per_key.items():
+        c = recs[key]
+        for out, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                           ("bound_ms", "bound_ms"), ("ops", "bound_ops_ms"),
+                           ("bytes", "bound_bytes_ms")):
+            tot[out] += count * c[field]
+        if tot["library_ms"] is not None and c["library_ms"] is not None:
+            tot["library_ms"] += count * c["library_ms"]
+        else:
+            tot["library_ms"] = None
     return tot
+
+
+def by_shape(hist) -> Counter:
+    """A ``histogram``'s counts by launch shape (N_out, Cin, Cout, K)."""
+    out = Counter()
+    for key, count in hist.items():
+        out[key[:4]] += count
+    return out
 
 
 def histogram(routes, keep) -> Counter:
@@ -442,15 +618,29 @@ def emit_histogram(label, hist) -> None:
 
 
 def counters(mp) -> dict:
-    fc = mp.ops.fused_conv
-    return {name: getattr(fc, wrapper)
-            for name, (wrapper, _, _) in KERNELS.items()}
+    return {name: getattr(getattr(mp.ops, module), wrapper)
+            for name, (module, wrapper, _, _) in KERNELS.items()}
+
+
+def expected_launches(routes) -> dict:
+    """Each kernel's launches that ``routes`` call for: B1 (B5) for every
+    fused-route (brick-route) conv, B3 (B6) where its kernel is trained,
+    B2 (the dF pass) where its input carries a gradient."""
+    out = {}
+    for names, branch in ((FUSED, "fused"), (BRICK, "brick")):
+        rs = [r for r in routes if r.branch == branch]
+        out.update(zip(names, (len(rs), sum(r.grad_in for r in rs),
+                               sum(r.grad_w for r in rs))))
+    return out
 
 
 def train_phase(mp, dev, cap):
     """10 steps of `examples/train_vae.py`'s default configuration through
     ``train.make_train_step``, on one fixed batch of 4 synthetic shapes;
-    ``cap`` keeps step 1's B2 and B3 operands.
+    ``cap`` keeps step 1's B2 and B3 operands.  Before them, step 1's loss
+    and gradients with the brick gate off and on (``gate_compare``, the
+    running statistics restored after each), which also keeps the brick
+    kernels' operands at the VAE's widths.
 
     Unclamped (``max_keep`` None), as train_vae.py runs.  No clamp could
     make the decoder's levels fit their buffers here: training force-keeps
@@ -474,7 +664,7 @@ def train_phase(mp, dev, cap):
     noise, follow it within 0.3% of the loss for 8 steps: the spike belongs
     to the configuration, not to the kernels.  Returns (ok, step
     records, routes of step 1, launches over the path, a callable that runs
-    one more step)."""
+    one more step, the gate comparison's record and routes)."""
     import torch
     from mink_octtree_stablediffusion_tpu_torch.train import vae as tv
     enc, dec = mp.serve.capacities(CAP)
@@ -483,9 +673,10 @@ def train_phase(mp, dev, cap):
                         decoder_capacities=dec, device=dev, seed=0)
     state = mp.train.TrainState(vae, mp.train.vae_optimizer(
         vae.parameters(), TRAIN_LR))
-    step = mp.train.make_train_step(tv.build_loss_fn(
+    loss_fn = tv.build_loss_fn(
         input_capacity=CAP, batch_size=BATCH, resolution=RES,
-        kld_weight=TRAIN_KLD, device=dev))
+        kld_weight=TRAIN_KLD, device=dev)
+    step = mp.train.make_train_step(loss_fn)
     ds = mp.data.SyntheticShapes(resolution=RES, num_samples=256)
     batch = mp.data.collate_pointclouds(
         [ds[i]["coords"] for i in range(BATCH)], CAP, 200_000)[:3]
@@ -493,6 +684,19 @@ def train_phase(mp, dev, cap):
     emit({"train_model_built_s": time.perf_counter() - t0,
           "vae_params": sum(p.numel() for p in vae.parameters()),
           "input_voxels": int(batch[1].sum()), "max_keep": None})
+    stats = {n: b.clone() for n, b in vae.named_buffers()}
+
+    def restore():
+        with torch.no_grad():
+            for n, b in vae.named_buffers():
+                b.copy_(stats[n])
+
+    eps = torch.randn((enc[2], VAE_CH[4]), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    vae.train()
+    compare = gate_compare(mp, "vae", vae, lambda perturb: loss_fn(
+        vae, batch, eps=eps.bfloat16().float() if perturb else eps), cap,
+        restore)
     outputs = []  # (out_clss, mean, log_var) of each forward
     hook = vae.register_forward_hook(
         lambda m, i, o: outputs.append((o[0], o[3], o[4])))
@@ -501,7 +705,7 @@ def train_phase(mp, dev, cap):
     for c in count.values():
         c.launches = 0  # counts from here on are the train path's
     for i in range(TRAIN_STEPS):
-        cap.on = ("B2", "B3") if i == 0 else ()
+        cap.at("vae_train", ("B2", "B3") if i == 0 else ())
         before = {n: c.launches for n, c in count.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -531,10 +735,9 @@ def train_phase(mp, dev, cap):
         emit(rec)
         steps.append(rec)
         first_routes = first_routes or routes
-        ok = ok and finite and not missing and launched == {
-            "B1": len(fused), "B2": rec["fused_with_input_grad"],
-            "B3": len(fused)}
-    cap.on = ()
+        ok = ok and finite and not missing and (
+            launched == expected_launches(routes))
+    cap.at(None)
     hook.remove()
     totals = {n: c.launches for n, c in count.items()}
     loss = [r["loss"] for r in steps]
@@ -548,7 +751,7 @@ def train_phase(mp, dev, cap):
           "bce_last": steps[-1]["bce"], "loss_falls": falls,
           "loss_last_below_step1": loss[-1] < loss[0]})
     return (ok and falls, steps, first_routes, totals,
-            lambda: step(state, batch, generator=gen))
+            lambda: step(state, batch, generator=gen), compare)
 
 
 def tiny_train_reference(mp, dev) -> dict:
@@ -612,10 +815,6 @@ def tiny_train_reference(mp, dev) -> dict:
     finally:
         mp.ops.set_default_compute_dtype(None)
     (lc, gc, sc, lvc), (lg, gg, sg, lvg) = got
-
-    def rel_rms(a, ref):
-        return {n: float((a[n] - ref[n]).norm() / ref[n].norm().clamp(
-            min=1e-30)) for n in ref}
     grad_rel, stat_rel = rel_rms(gg, gc), rel_rms(sg, sc)
     worst_g = max(grad_rel, key=grad_rel.get)
     worst_s = max(stat_rel, key=stat_rel.get)
@@ -633,6 +832,355 @@ def tiny_train_reference(mp, dev) -> dict:
            "ok": bool(loss_rel <= 1e-2 and
                       grad_rel[worst_g] <= TINY_GRAD_RTOL and
                       stat_rel[worst_s] <= TINY_STAT_RTOL)}
+    emit(rec)
+    return rec
+
+
+@contextlib.contextmanager
+def planted_fault(mp):
+    """A layout fault planted in the brick route's backward, to show that
+    the checks that hold the route end to end can see one: inside this
+    block the dF pass reads the taps in forward order, ``W[k]ᵀ`` for
+    ``W[26-k]ᵀ`` (its launcher is handed the kernel flipped)."""
+    vc = mp.ops.vol_conv
+    launch = vc._launch
+
+    def wrong_taps(volp, kernel, mirror):
+        return launch(volp, kernel.flip(0).contiguous() if mirror else kernel,
+                      mirror)
+    vc._launch = wrong_taps
+    try:
+        yield
+    finally:
+        vc._launch = launch
+
+
+def gate_compare(mp, label, model, run_loss, cap, restore=None):
+    """Step 1 of a path with the brick gate off, then off again on an input
+    rounded to bf16 (the control), then on, then on with a fault planted
+    in the dF pass (``planted_fault``), from the same weights, batch and
+    draws: ``run_loss(perturb)`` gives the (loss, aux) of one forward,
+    whose backward fills ``model``'s gradients, with its Gaussian draw
+    rounded to bf16 (a relative change of at most 2^-9) where ``perturb``;
+    ``restore`` puts back what a forward moves (the VAE's BatchNorm
+    statistics).  ``cap`` keeps B1's operands of the gate-off run and the
+    brick kernels' of the gate-on run (paths ``<label>_gate_off`` and
+    ``<label>_gate_on``).
+
+    The gate moves the convs that ``brick_preferred`` accepts from B1 to
+    B5 (and their backward from B2/B3 to the dF pass and B6): the same
+    bf16 operands, float32 sums in another order.  Each kernel is held to
+    its plain version within 1e-3 of max|ref| elsewhere in this script;
+    here the question is whether the route changes the step beyond that
+    rounding, which bf16 re-rounding amplifies downstream.  The control
+    measures that amplification in the same run: how far the gradients
+    move when nothing but the input's rounding changes.  Bounds
+    (``GATE_TOL[label]``): the loss relative, the gradients' relative RMS
+    at the median tensor and at the worst.  The diffusion UNet amplifies
+    rounding more than the VAE (its instance norms over the few voxels of
+    the coarse levels), so its median bound is wider.  The planted fault
+    must fail the same bounds (``fault_detected``), or they are too wide
+    to see a layout fault in the brick route's backward."""
+    import torch
+    got = {}
+    for name, gate, perturb in (("off", False, False),
+                                ("control", False, True),
+                                ("on", True, False),
+                                ("fault", True, False)):
+        mp.ops.enable_brick_conv(gate)
+        if name in ("off", "on"):
+            cap.at(f"{label}_gate_{name}", BRICK if gate else ("B1",))
+        model.zero_grad(set_to_none=True)
+        try:
+            with contextlib.ExitStack() as stack:
+                if name == "fault":
+                    stack.enter_context(planted_fault(mp))
+                routes = stack.enter_context(mp.nn.record_routes())
+                loss, _ = run_loss(perturb)
+                loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            cap.at(None)
+            mp.ops.enable_brick_conv(False)
+        got[name] = (float(loss), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()
+                                   if p.grad is not None}, routes)
+        if restore is not None:
+            restore()
+    model.zero_grad(set_to_none=True)
+    (l0, g0, r0), (l1, g1, r1) = got["off"], got["on"]
+    lc, gc, _ = got["control"]
+    tol = GATE_TOL[label]
+
+    def against_off(loss, grads):
+        rel = (rel_rms(grads, g0) if set(g0) == set(grads)
+               else {"(names differ)": 1e9})
+        worst = max(rel, key=rel.get)
+        return {"loss_rel_err": abs(loss - l0) / abs(l0),
+                "grad_rel_rms_median": statistics.median(rel.values()),
+                "grad_rel_rms_max": rel[worst], "grad_worst": worst}
+
+    def holds(d):
+        return (d["loss_rel_err"] <= tol["loss"] and
+                d["grad_rel_rms_median"] <= tol["grad_median"] and
+                d["grad_rel_rms_max"] <= tol["grad_max"])
+    on, control = against_off(l1, g1), against_off(lc, gc)
+    fault = against_off(*got["fault"][:2])
+    brick = [r for r in r1 if r.branch == "brick"]
+    rec = {"gate_compare": label, "loss_gate_off": l0, "loss_gate_on": l1,
+           **on, **{"control_" + k: v for k, v in control.items()},
+           **{"fault_" + k: v for k, v in fault.items()},
+           "fault_detected": not holds(fault),
+           "params_with_grad": len(g0),
+           "branches_gate_off": dict(Counter(r.branch for r in r0)),
+           "branches_gate_on": dict(Counter(r.branch for r in r1)),
+           "tol": tol,
+           "ok": bool(brick and len(g0) == sum(
+               1 for _ in model.parameters() if _.requires_grad) and
+               holds(on) and not holds(fault))}
+    emit(rec)
+    del got
+    return rec, r0, r1
+
+
+def b5_vs_b1(cap, label, routes_off, routes_on) -> list:
+    """(B5 launch shape, B1 launch shape, layer) of each brick-route conv of
+    ``gate_compare``'s step, the same conv's route with the gate off."""
+    order = iter(cap.b5_order.get(f"{label}_gate_on", []))
+    pairs = []
+    for off, on in zip(routes_off, routes_on):
+        if on.branch == "brick":
+            b5 = next(order)
+            if off.branch == "fused":
+                pairs.append((b5, (off.n_out, off.cin, off.cout, off.k),
+                              on.layer))
+    return pairs
+
+
+def diffusion_phase(mp, dev, cap) -> dict:
+    """`examples/train_diffusion.py`'s default configuration through
+    ``train.diffusion.setup`` with the brick gate on, for ``DIFF_STEPS``
+    steps on one fixed batch with one (timesteps, noise) draw and the
+    warmup cut to 1 step (``DIFF_FLAGS``).  Before them, step 1 with the
+    gate off and on (``gate_compare``).  ``cap`` keeps step 1's operands of
+    every kernel.  Returns the step records, step 1's routes, the path's
+    launches, the gate comparison, the peak memory and the run."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
+    cfg = td.parse_args(DIFF_FLAGS)
+    t0 = time.perf_counter()
+    run = td.setup(cfg, dev)
+    torch.cuda.synchronize()
+    ds = mp.data.SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(cfg.batch_size)],
+        cfg.input_capacity, cfg.max_batch_len)
+    batch = (cpad, valid)
+    g = torch.Generator(device=dev).manual_seed(0)
+    t = torch.randint(0, cfg.ddpm_num_steps, (cfg.batch_size,), generator=g,
+                      device=dev, dtype=torch.int32)
+    noise = torch.randn((mp.serve.capacities(cfg.input_capacity)[0][2],
+                         cfg.unet_channel[0]), generator=g, device=dev)
+    model, opt = run.model, run.state.optimizer
+    emit({"diffusion_model_built_s": time.perf_counter() - t0,
+          "unet_params": sum(p.numel() for p in run.unet.parameters()),
+          "nll_params": sum(p.numel() for p in model["nll"].parameters()),
+          "input_voxels": int(valid.sum()), "timesteps": t.tolist(),
+          "flags": DIFF_FLAGS})
+    model.train()
+    compare = gate_compare(
+        mp, "diffusion", model, lambda perturb: run.loss_fn(
+            model, batch, timesteps=t,
+            noise=noise.bfloat16().float() if perturb else noise), cap)
+    schedule = mp.train.warmup_cosine(cfg.lr, cfg.warmup, cfg.total_steps)
+    count = counters(mp)
+    steps, first_routes, ok = [], None, True
+    torch.cuda.reset_peak_memory_stats()
+    mp.ops.enable_brick_conv(True)
+    for c in count.values():
+        c.launches = 0  # counts from here on are the diffusion path's
+    try:
+        for i in range(DIFF_STEPS):
+            cap.at("diffusion", KERNELS if i == 0 else ())
+            before = {n: c.launches for n, c in count.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mp.nn.record_routes() as routes:
+                loss, aux = run.step_fn(run.state, batch, timesteps=t,
+                                        noise=noise)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {n: c.launches - before[n] for n, c in count.items()}
+            missing = [n for n, p in model.named_parameters()
+                       if p.grad is None]
+            finite = bool(torch.stack(
+                [torch.isfinite(loss)] +
+                [torch.isfinite(p.grad).all() for p in model.parameters()
+                 if p.grad is not None]).all().item())
+            lr = opt.param_groups[0]["lr"]
+            rec = {"diffusion_step": i + 1, "wall_s": wall,
+                   "loss": float(loss),
+                   "denoise_loss": float(aux["denoise_loss"]),
+                   "nll_loss": float(aux["nll_loss"]), "lr": lr,
+                   "lr_schedule": schedule(i), "launches": launched,
+                   "expected_launches": expected_launches(routes),
+                   "convs": len(routes),
+                   "branches": dict(Counter(r.branch for r in routes)),
+                   "params_without_grad": missing[:5], "all_finite": finite}
+            emit(rec)
+            steps.append(rec)
+            first_routes = first_routes or routes
+            ok = ok and finite and not missing and lr == schedule(i) and (
+                launched == rec["expected_launches"])
+    finally:
+        cap.at(None)
+        mp.ops.enable_brick_conv(False)
+    peak = torch.cuda.max_memory_allocated()
+    totals = {n: c.launches for n, c in count.items()}
+    den = [r["denoise_loss"] for r in steps]
+    emit({"diffusion_path_launches": totals, "denoise_step1": den[0],
+          "denoise_last": den[-1], "denoise_falls": den[-1] < den[0],
+          "peak_memory_bytes": peak,
+          "wall_s_steps_2_on": [r["wall_s"] for r in steps[1:]]})
+
+    def one_more_step():
+        mp.ops.enable_brick_conv(True)
+        try:
+            return run.step_fn(run.state, batch, timesteps=t, noise=noise)
+        finally:
+            mp.ops.enable_brick_conv(False)
+
+    return {"ok": ok and den[-1] < den[0] and all(totals.values()),
+            "steps": steps, "routes": first_routes, "launches": totals,
+            "compare": compare, "peak_memory_bytes": peak,
+            "one_more_step": one_more_step}
+
+
+def tiny_diffusion_reference(mp, dev) -> dict:
+    """One diffusion train step (``train.diffusion.setup`` at widths VAE (8,
+    16, 32, 32, 4), UNet (4, 64, 64, 64), group 32, batch 2 of 6000-point
+    shapes, resolution 128, 16384 input rows; every UNet width is ≤ 128,
+    so the brick gate routes its level-0 k3s1 convs, forward and backward)
+    with the same weights, batch, timesteps and noise, under the card's
+    compute policy (bf16 conv operands, float32 accumulation), six times:
+    on the CPU (where the gate routes nothing: the plain fused-route
+    versions) with the noise as drawn and rounded to bf16 (the CPU
+    control), and on the card with the gate off, off on the rounded noise
+    (the card control), on, and on with a fault planted in the dF pass
+    (``planted_fault``).  Held:
+
+    - the frozen encoder's latent, card vs CPU: max|Δ| ≤ 1e-2·max|ref|;
+    - the loss, card (gate on) vs CPU: |Δ| ≤ ``TINY_DIFF_LOSS_RTOL``·|ref|;
+    - the NLL's gradients (μ, Σ: no conv below them), card vs CPU:
+      relative RMS ≤ 1e-4;
+    - the UNet's gradients, at the median tensor's relative RMS: card
+      gate on vs gate off within ``TINY_DIFF_RATIO`` times the card
+      control's, and card (gate on) vs CPU within ``TINY_DIFF_RATIO``
+      times the CPU control's;
+    - every gradient finite, on the same parameters;
+    - the planted fault fails the gate-on vs gate-off bound.
+
+    Why relative to a control: bf16 re-rounding in a random UNet moves
+    the gradients by far more than the kernels' own rounding, and how far
+    depends on the widths and the voxel counts (at UNet (4, 8, 16, 16) on
+    1500-point shapes the CPU control moved them by 0.38 at the median).
+    At these widths the controls move them by about a tenth, and a layout
+    fault in the brick route's backward moves them by order one.
+    """
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
+    cfg = td.parse_args(["--input_capacity", "16384", "--batch_size", "2",
+                         "--vae_channel", "8", "16", "32", "32", "4",
+                         "--unet_channel", "4", "64", "64", "64",
+                         "--group", "32", "--seed", "3"])
+    runs = [td.setup(cfg, "cpu"), td.setup(cfg, dev)]
+    runs[1].model.load_state_dict(runs[0].model.state_dict())
+    runs[1].vae.load_state_dict(runs[0].vae.state_dict())
+    ds = mp.data.SyntheticShapes(resolution=cfg.resolution, num_samples=2,
+                                 points_per_shape=6000)
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(2)], cfg.input_capacity)
+    t = torch.tensor([600, 40], dtype=torch.int32)
+    noise = torch.randn((mp.serve.capacities(cfg.input_capacity)[0][2], 4),
+                        generator=torch.Generator().manual_seed(5))
+    rounded = noise.bfloat16().float()
+    got = {}
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        for name, run, nz, gate in (("cpu", runs[0], noise, True),
+                                    ("cpu_control", runs[0], rounded, True),
+                                    ("off", runs[1], noise, False),
+                                    ("control", runs[1], rounded, False),
+                                    ("on", runs[1], noise, True),
+                                    ("fault", runs[1], noise, True)):
+            d = run.device
+            mp.ops.enable_brick_conv(gate)
+            st = mp.sparse_tensor(
+                torch.as_tensor(cpad, device=d),
+                torch.as_tensor(valid, device=d)[:, None].float(),
+                capacity=cfg.input_capacity, batch_size=2,
+                valid=torch.as_tensor(valid, device=d),
+                extent=(cfg.resolution,) * 3)
+            with torch.no_grad():
+                latent = run.vae.eval().encode(st)[0].features.cpu()
+            run.model.train()
+            run.model.zero_grad(set_to_none=True)
+            with contextlib.ExitStack() as stack:
+                if name == "fault":
+                    stack.enter_context(planted_fault(mp))
+                routes = stack.enter_context(mp.nn.record_routes())
+                loss, _ = run.loss_fn(run.model, (cpad, valid),
+                                      timesteps=t.to(d), noise=nz.to(d))
+                loss.backward()
+            got[name] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                       run.model.named_parameters()},
+                         Counter(r.branch for r in routes), latent)
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+        mp.ops.enable_brick_conv(False)
+    lc, gc, bc, zc = got["cpu"]
+    lg, gg, bg, zg = got["on"]
+
+    def unet_median(a, ref):
+        rel = rel_rms({n: v for n, v in a.items() if n.startswith("unet.")},
+                      {n: v for n, v in ref.items() if n.startswith("unet.")})
+        return statistics.median(rel.values())
+    off = got["off"][1]
+    med = {"on_vs_off": unet_median(gg, off),
+           "card_control": unet_median(got["control"][1], off),
+           "fault_vs_off": unet_median(got["fault"][1], off),
+           "on_vs_cpu": unet_median(gg, gc),
+           "off_vs_cpu": unet_median(off, gc),
+           "cpu_control": unet_median(got["cpu_control"][1], gc)}
+    rel = rel_rms(gg, gc)
+    worst = max(rel, key=rel.get)
+    nll = max(v for n, v in rel.items() if n.startswith("nll."))
+    latent_rel = float((zg - zc).abs().max() / zc.abs().max())
+    loss_rel = abs(lg - lc) / abs(lc)
+    finite = all(bool(torch.isfinite(g).all()) for g in gg.values())
+    gate_holds = med["on_vs_off"] <= TINY_DIFF_RATIO * med["card_control"]
+    fault_detected = (med["fault_vs_off"] >
+                      TINY_DIFF_RATIO * med["card_control"])
+    rec = {"tiny_diffusion_reference": True,
+           "vs": "cpu (fused route) and the card with the gate off, same "
+                 "bf16 policy",
+           "latent_rel_err": latent_rel, "loss_cpu": lc, "loss_gpu": lg,
+           "loss_rel_err": loss_rel,
+           "loss_gate_off_rel_err": abs(got["off"][0] - lg) / abs(lg),
+           "nll_grad_rel_rms_max": nll,
+           "unet_grad_rel_rms_median": med,
+           "grad_rel_rms_max_vs_cpu": rel[worst], "grad_worst": worst,
+           "fault_detected": fault_detected,
+           "branches_cpu": dict(bc), "branches_gpu": dict(bg),
+           "branches_gpu_gate_off": dict(got["off"][2]),
+           "tol": {"latent": 1e-2, "loss": TINY_DIFF_LOSS_RTOL,
+                   "nll_grad": 1e-4, "unet_grad_vs_control": TINY_DIFF_RATIO},
+           "ok": bool(bg.get("brick", 0) > 0 and finite and
+                      set(gg) == set(gc) and latent_rel <= 1e-2 and
+                      loss_rel <= TINY_DIFF_LOSS_RTOL and nll <= 1e-4 and
+                      gate_holds and fault_detected and
+                      med["on_vs_cpu"] <= TINY_DIFF_RATIO *
+                      med["cpu_control"])}
     emit(rec)
     return rec
 
@@ -656,15 +1204,19 @@ def main(argv) -> int:
         return fail("the port package imported is not this checkout's")
     dev = torch.device(DEVICE)
     power = nvidia_smi()
-    ok = True
+    failed = []  # the checks that did not hold
+
+    def need(cond, what: str) -> None:
+        if not cond:
+            failed.append(what)
 
     # -- build ---------------------------------------------------------
     t0 = time.perf_counter()
-    logs = mp.utils.cuda_build.build(mp.ops.fused_conv.SOURCES)
+    logs = mp.utils.cuda_build.build()
     emit({"build_s": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for log in logs.values()
-                    for ln in log.splitlines() if "Used" in ln
-                    or "spill" in ln]})
+          "ptxas": {src: [ln.strip() for ln in log.splitlines()
+                          if "Used" in ln or "spill" in ln]
+                    for src, log in logs.items()}})
 
     # -- path 1: 3 requests of full-width generation --------------------
     t0 = time.perf_counter()
@@ -692,12 +1244,12 @@ def main(argv) -> int:
     count = counters(mp)
     kernel = count["B1"]
     requests, per_request_routes = [], []
-    cap = LaunchCapture(mp.ops.fused_conv)
+    cap = LaunchCapture(mp)
     with cap:
         for c in count.values():
             c.launches = 0  # counts from here on are the generation path's
         for seed in (0, 1, 2):
-            cap.on = ("B1",) if seed == 0 else ()
+            cap.at("generation", ("B1",) if seed == 0 else ())
             before = kernel.launches
             gen = torch.Generator(device=dev).manual_seed(seed)
             torch.cuda.synchronize()
@@ -722,108 +1274,209 @@ def main(argv) -> int:
             emit(rec)
             requests.append(rec)
             per_request_routes.append(routes)
-            if min(per_inst) <= 0 or launched != len(fused):
-                ok = False
+            need(min(per_inst) > 0, f"request {seed}: an empty instance")
+            need(launched == len(fused), f"request {seed}: B1 launches")
+        cap.at(None)
         gen_launches = {n: c.launches for n, c in count.items()}
     for h in hooks:
         h.remove()
     all_finite = bool(torch.stack(finite).all().item())
     emit({"generation_path_launches": gen_launches,
           "all_finite": all_finite})
-    # generation runs no backward: B2 and B3 must not launch there
-    ok = (ok and all_finite and gen_launches["B1"] > 0 and
-          gen_launches["B2"] == gen_launches["B3"] == 0)
+    # generation runs B1 only: no backward, and the brick gate is off
+    need(all_finite and gen_launches["B1"] > 0 and
+         not any(gen_launches[n] for n in KERNELS if n != "B1"),
+         "generation path")
     hist = histogram(per_request_routes[0], lambda r: r.branch == "fused")
     emit_histogram("fused_launch_shapes_per_request", hist)
     emit_histogram("dense_route_shapes_per_request", histogram(
         per_request_routes[0], lambda r: r.branch == "dense"))
+    wall_request = statistics.median(r["wall_s"] for r in requests[1:])
+    if args.profile:
+        gen = torch.Generator(device=dev).manual_seed(9)
+        profile_run("one request", lambda: fn(cpad, valid, generator=gen),
+                    wall_request)
+    del vae, unet, fn, hooks, decoded
+    torch.cuda.empty_cache()
 
     # -- path 2: 10 steps of full-width VAE training --------------------
     with cap:
-        train_ok, steps, train_routes, train_launches, one_more_step = \
-            train_phase(mp, dev, cap)
-    ok = ok and train_ok
+        (train_ok, steps, train_routes, train_launches, one_more_step,
+         (vae_cmp, vae_off, vae_on)) = train_phase(mp, dev, cap)
+    need(train_ok, "VAE training path")
+    need(vae_cmp["ok"], "VAE gate comparison")
     hist_b3 = histogram(train_routes, lambda r: r.branch == "fused")
     hist_b2 = histogram(train_routes,
                         lambda r: r.branch == "fused" and r.grad_in)
     emit_histogram("train_fused_launch_shapes_per_step", hist_b3)
+    if args.profile:
+        profile_run("one VAE train step", one_more_step,
+                    statistics.median(r["wall_s"] for r in steps[1:]))
+    del one_more_step
+    torch.cuda.empty_cache()
+
+    # -- path 3: 10 steps of full-width diffusion training --------------
+    with cap:
+        diff = diffusion_phase(mp, dev, cap)
+    diff_cmp, diff_off, diff_on = diff["compare"]
+    need(diff["ok"], "diffusion training path")
+    need(diff_cmp["ok"], "diffusion gate comparison")
+    droutes = diff["routes"]
+    emit_histogram("diffusion_fused_launch_shapes_per_step", histogram(
+        droutes, lambda r: r.branch == "fused"))
+    emit_histogram("diffusion_brick_route_convs_per_step", histogram(
+        droutes, lambda r: r.branch == "brick"))
+    if args.profile:
+        profile_run("one diffusion train step", diff["one_more_step"],
+                    statistics.median(r["wall_s"] for r in diff["steps"][1:]))
+    del diff["one_more_step"]
+    torch.cuda.empty_cache()
 
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
-    cases = []
+    recs = {}  # (kernel, path) -> {launch shape: record}
+
+    def check_all(kernel, path, check, kinds):
+        got = recs.setdefault((kernel, path), {})
+        for key, ops in sorted(cap.case(path, kernel).items()):
+            got[key] = check(key, ops, kinds.get(key[:4], "?"))
+        return got
+
+    def fused_check(kernel, path):
+        if kernel == "B3":
+            return lambda key, ops, kind: check_dkernel_launch(
+                mp, path, kind, ops)
+        # a B2 record carries its launch's own shape (N_out = the
+        # forward's N_in, Cin and Cout swapped) and the forward's shape
+        return lambda key, ops, kind: check_conv_launch(
+            mp, kernel, path, kind, ops, transpose_weight=kernel == "B2",
+            forward_shape=list(key))
+
+    def brick_check(kernel, path):
+        return lambda key, ops, kind: check_brick_launch(
+            mp, kernel, path, key, ops)
+
     kinds = {(r.n_out, r.cin, r.cout, r.k): r.layer
-             for r in per_request_routes[0] if r.branch == "fused"}
-    for key, ops in sorted(cap.cases["B1"].items()):
-        cases.append(check_conv_launch(mp, "B1", "main_path",
-                                       kinds.get(key, "?"), ops))
+             for rs in (per_request_routes[0], train_routes, droutes,
+                        vae_off, diff_off) for r in rs}
+    check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     st = mp.sparse_tensor(torch.as_tensor(cpad, device=dev),
                           torch.as_tensor(valid, device=dev)[:, None].float(),
                           capacity=CAP, batch_size=BATCH,
                           valid=torch.as_tensor(valid, device=dev),
                           extent=(RES,) * 3)
-    for case in extra_cases(mp, st, dev):
-        cases.append(check_case(mp, *case))
-    train_kinds = {k[:4]: k[4] for k in hist_b3}
-    # a B2 record carries its launch's own shape (N_out = the forward's
-    # N_in, Cin and Cout swapped) and the forward conv's shape
-    b2_cases = [check_conv_launch(mp, "B2", "train_path", train_kinds[key],
-                                  ops, transpose_weight=True,
-                                  forward_shape=list(key))
-                for key, ops in sorted(cap.cases["B2"].items())]
-    b3_cases = [check_dkernel_launch(mp, "train_path", train_kinds[key], ops)
-                for key, ops in sorted(cap.cases["B3"].items())]
-    ok = (ok and all(c["ok"] for c in cases + b2_cases + b3_cases) and
-          set(cap.cases["B1"]) == {k[:4] for k in hist} and
-          set(cap.cases["B2"]) == {k[:4] for k in hist_b2} and
-          set(cap.cases["B3"]) == {k[:4] for k in hist_b3})
-    tot = shape_totals(hist, [c for c in cases if c["case"] == "main_path"])
-    tot2 = shape_totals(hist_b2, [dict(c, n_out=c["forward_shape"][0],
-                                       cin=c["forward_shape"][1],
-                                       cout=c["forward_shape"][2])
-                                  for c in b2_cases])
-    tot3 = shape_totals(hist_b3, b3_cases)
+    extras = [check_case(mp, *case) for case in extra_cases(mp, st, dev)]
+    for kernel in ("B2", "B3"):
+        check_all(kernel, "vae_train", fused_check(kernel, "train_path"),
+                  kinds)
+    for kernel in FUSED:
+        check_all(kernel, "diffusion", fused_check(kernel, "diffusion_path"),
+                  kinds)
+    for path in ("diffusion", "vae_gate_on"):
+        for kernel in BRICK:
+            check_all(kernel, path, brick_check(kernel, path), kinds)
+    for path in ("diffusion_gate_off", "vae_gate_off"):
+        check_all("B1", path, fused_check("B1", path), kinds)
+    all_recs = [r for got in recs.values() for r in got.values()] + extras
+    emit({"kernel_checks": len(all_recs),
+          "failed": [(r["kernel"], r["case"], r.get("forward_shape"))
+                     for r in all_recs if not r["ok"]]})
+    need(all(r["ok"] for r in all_recs), "kernel checks")
+
+    # every launch shape of each path was checked
+    def shapes(path, kernel):
+        return set(cap.counts.get(path, {}).get(kernel, {}))
+    for path, kernels in (("generation", ("B1",)),
+                          ("vae_train", ("B2", "B3")),
+                          ("diffusion", KERNELS),
+                          ("vae_gate_on", BRICK)):
+        for kernel in kernels:
+            need(shapes(path, kernel) == set(recs[(kernel, path)]),
+                 f"{kernel} checked at every launch shape of {path}")
+
+    # per request / step: each launch shape's time x its launches
+    per_request = {"B1": by_shape(hist)}
+    per_vae_step = {"B2": by_shape(hist_b2), "B3": by_shape(hist_b3)}
+    per_diff_step = {n: cap.per_step("diffusion", n, DIFF_STEPS)
+                     for n in KERNELS}
+    tot = {"B1": totals(per_request["B1"], recs[("B1", "generation")])}
+    for n in ("B2", "B3"):
+        tot[n] = totals(per_vae_step[n], recs[(n, "vae_train")])
+    tot_diff = {n: totals(per_diff_step[n], recs[(n, "diffusion")])
+                for n in KERNELS}
+    emit({"per_diffusion_step": {
+        n: {"launch_shapes": [{"shape": list(k), "count": c}
+                              for k, c in sorted(per_diff_step[n].items())],
+            **tot_diff[n]} for n in KERNELS}})
+
+    # B5 against B1 on the same convs (gate on vs gate off at step 1)
+    for label, off, on in (("diffusion", diff_off, diff_on),
+                           ("vae", vae_off, vae_on)):
+        rows = []
+        for b5, b1, layer in sorted(set(b5_vs_b1(cap, label, off, on))):
+            r5 = recs[("B5", "diffusion")].get(b5) or recs[(
+                "B5", "vae_gate_on")][b5]
+            r1 = recs[("B1", f"{label}_gate_off")][b1]
+            rows.append({"layer": layer, "volume": r5["volume"],
+                         "n_out": b1[0], "cin": b1[1], "cout": b1[2],
+                         "b5_ms": r5["ms"], "b1_ms": r1["ms"],
+                         "b5_dense_bound_ms": r5["bound_ms"],
+                         "b1_bound_ms": r1["bound_ms"],
+                         "occupied_pairs": r1["matched_pairs"],
+                         "dense_pairs": 27 * r5["cells"],
+                         "cudnn_ms": r5["library_ms"]})
+        emit({"b5_vs_b1": label, "convs": rows})
 
     # -- end-to-end references on a small input --------------------------
-    for ref in (tiny_reference, tiny_train_reference):
+    for ref in (tiny_reference, tiny_train_reference,
+                tiny_diffusion_reference):
         try:
-            ref_ok = ref(mp, dev)["ok"]
+            need(ref(mp, dev)["ok"], ref.__name__)
         except Exception:
             traceback.print_exc()
-            ref_ok = False
-        ok = ok and ref_ok
-
-    if args.profile:
-        gen = torch.Generator(device=dev).manual_seed(9)
-        profile_run("one request", lambda: fn(cpad, valid, generator=gen),
-                    statistics.median(r["wall_s"] for r in requests[1:]))
-        profile_run("one VAE train step", one_more_step,
-                    statistics.median(r["wall_s"] for r in steps[1:]))
+            need(False, ref.__name__)
 
     emit({"card": power, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     print(power, flush=True)
-    if not ok:
-        return fail("a phase failed (see the JSON lines above)")
+    if failed:
+        return fail("a phase failed (see the JSON lines above): " +
+                    "; ".join(failed))
 
-    def entry(name, launches, per, t, all_cases, per_what):
-        wrapper, source, replaces = KERNELS[name]
+    def entry(name, launches, t, per):
+        _, wrapper, source, replaces = KERNELS[name]
+        cases = [r for (k, _), got in recs.items() if k == name
+                 for r in got.values()]
+        cases += [r for r in extras if name == "B1"]
         return {"name": f"{name} {wrapper}", "route": "cuda",
                 "source": source, "replaces": replaces,
-                "launches": launches, per_what: per,
-                "max_abs_err": max(c["max_abs_err"] for c in all_cases),
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"],
                 "bound_by": "operations" if t["ops"] > t["bytes"]
-                else "bytes", "library_ms": None,
-                "per": ("one generation request" if name == "B1" else
-                        "one VAE train step") + " (sum over its launches)"}
-    emit({"kernels": [
-        dict(entry("B1", gen_launches["B1"], sum(hist.values()), tot, cases,
-                   "launches_per_request"),
-             launches_train_path=train_launches["B1"]),
-        entry("B2", train_launches["B2"], sum(hist_b2.values()), tot2,
-              b2_cases, "launches_per_step"),
-        entry("B3", train_launches["B3"], sum(hist_b3.values()), tot3,
-              b3_cases, "launches_per_step")]})
+                else "bytes", "library_ms": t["library_ms"],
+                "per": per + " (sum over its launches)"}
+
+    kernels = []
+    for name in FUSED:
+        main_path = "generation" if name == "B1" else "vae_train"
+        launches = gen_launches[name] if name == "B1" else \
+            train_launches[name]
+        per = ("one generation request" if name == "B1" else
+               "one VAE train step")
+        e = entry(name, launches, tot[name], per)
+        e.update({"path": main_path,
+                  "launches_vae_train_path": train_launches[name],
+                  "launches_diffusion_path": diff["launches"][name],
+                  "ms_per_diffusion_step": tot_diff[name]["ms"],
+                  "bound_ms_per_diffusion_step": tot_diff[name]["bound_ms"]})
+        kernels.append(e)
+    for name in BRICK:
+        e = entry(name, diff["launches"][name], tot_diff[name],
+                  "one diffusion train step")
+        e["path"] = "diffusion"
+        kernels.append(e)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -833,7 +1486,9 @@ def main(argv) -> int:
 def profile_run(label: str, run, wall_unprofiled: float) -> None:
     """Device time by kernel name for one call of ``run`` (torch.profiler).
     The profiler slows the host down many times, so the device's busy
-    share is taken against the wall time of an unprofiled call."""
+    share is taken against the wall time of an unprofiled call.  User
+    annotations (``Optimizer.step#…``) span kernels that are counted
+    themselves, so they are left out of the sum."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -845,6 +1500,7 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
     rows = sorted(((e.self_device_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
 
@@ -855,6 +1511,8 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
           "B1_s": kernel_s("fused_sparse_conv_kernel<false>"),
           "B2_s": kernel_s("fused_sparse_conv_kernel<true>"),
           "B3_s": kernel_s("fused_sparse_conv_dw_kernel"),
+          "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
+          "B6_s": kernel_s("brick_conv_dw_kernel"),
           "wall_s_unprofiled": wall_unprofiled,
           "device_busy_share": busy_s / wall_unprofiled,
           "top_kernels": [{"name": n[:90], "device_ms": d / 1e3, "calls": c}

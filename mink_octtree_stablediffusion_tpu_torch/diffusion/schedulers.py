@@ -5,7 +5,8 @@ Port of `mink_octtree_stablediffusion_tpu/diffusion/schedulers.py`.  The
 sampling loop are plain Python ints, so a step's coefficients are float32
 host scalars: the loop never reads the device.  The arithmetic on the
 coefficients is done in float32, as the JAX package does on its float32
-tables.
+tables.  Training's ``add_noise`` and ``get_velocity`` take per-row
+timesteps as a tensor and gather ᾱ on the device.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..ops.coords import device_const
 
 _F = np.float32
 
@@ -60,6 +63,27 @@ class DDPMScheduler(NamedTuple):
         ac = np.cumprod(1.0 - betas)
         return cls(betas.astype(_F), ac.astype(_F), num_train_timesteps,
                    prediction_type, clip_sample, variance_type)
+
+    def _sqrt_ac(self, timesteps: torch.Tensor, ndim: int):
+        """(sqrt(ᾱ_t), sqrt(1 − ᾱ_t)) in float32 for each timestep, with
+        trailing unit axes up to ``ndim``."""
+        ac = device_const(self.alphas_cumprod, torch.float32,
+                          timesteps.device)[timesteps.long()]
+        ac = ac.reshape(ac.shape + (1,) * (ndim - ac.dim()))
+        return ac.sqrt(), (1.0 - ac).sqrt()
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(ᾱ_t)·x_0 + sqrt(1−ᾱ_t)·ε; ``timesteps`` indexes
+        original's leading axis (one per row, or one for all)."""
+        a, b = self._sqrt_ac(timesteps, original.dim())
+        return a * original + b * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """v = sqrt(ᾱ_t)·ε − sqrt(1−ᾱ_t)·x_0."""
+        a, b = self._sqrt_ac(timesteps, sample.dim())
+        return a * noise - b * sample
 
     def _predict_x0_eps(self, model_output: torch.Tensor,
                         sample: torch.Tensor, t: int):

@@ -2,17 +2,18 @@
 
 Port of `SparseConv`, `SparseConvTranspose` and `GenerativeConvTranspose`
 from `mink_octtree_stablediffusion_tpu/nn/conv.py`, with the same branch
-order: identity (k1 s1) → dense no-growth → fused kernel (bounded grids)
-→ plain gather-GEMM over a kernel map.  The JAX package's brick
-dense-volume branch sits behind a gate that is off by default and is not
-ported.  Kernel layout is (K, Cin, Cout) with kaiming-normal
-initialisation over K·Cin.
+order: identity (k1 s1) → dense no-growth → brick dense volume (behind
+``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
+kernel (bounded grids) → plain gather-GEMM over a kernel map.  Kernel
+layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
 
 ``record_routes()`` collects, for every conv call, the branch it took, its
-shape ``(N_out, Cin, Cout, K)`` and whether its input carries a gradient,
+shape ``(N_out, Cin, Cout, K)`` and whether its input and its kernel get a
+gradient,
 independently of the kernels' own launch counters — so a run can check
-that every fused-route conv launched the forward kernel and, in training,
-the dW kernel and (where its input carries a gradient) the dF kernel.
+that every fused-route (brick-route) conv launched the forward kernel and,
+in training, the dW kernel and (where its input carries a gradient) the
+dF kernel.
 """
 
 from __future__ import annotations
@@ -31,19 +32,23 @@ from ..ops.dense_conv import (dense_conv_apply, dense_conv_general_apply,
                               dense_no_growth_preferred2)
 from ..ops.fused_conv import fused_sparse_conv
 from ..ops.kernels import KernelSpec, RegionType
+from ..ops.vol_conv import brick_pallas_conv, brick_preferred
 from ..ops.neighbors import kernel_map
 from ..tensor import SparseTensor
 
 
 class Route(NamedTuple):
     layer: str  # e.g. "k3s1", "k3s2", "k2s2T" (pinned), "k2s2G" (generative)
-    branch: str  # "identity" | "dense" | "fused" | "plain"
+    branch: str  # "identity" | "dense" | "brick" | "fused" | "plain"
     n_out: int
     cin: int
     cout: int
     k: int
     # the input features carry a gradient (their conv's backward needs dF)
     grad_in: bool = False
+    # the kernel gets a gradient (the conv's backward needs dW); false for
+    # a frozen model and under ``torch.no_grad``
+    grad_w: bool = False
 
 
 _ROUTES: Optional[list] = None
@@ -86,6 +91,9 @@ class _ConvBase(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
+    def _grad_w(self) -> bool:
+        return torch.is_grad_enabled() and self.kernel.requires_grad
+
     def _layer_name(self) -> str:
         ks, st = self.spec.kernel_size[0], self.spec.stride[0]
         return f"k{ks}s{st}{self.tag}"
@@ -105,6 +113,13 @@ class _ConvBase(nn.Module):
             branch = "dense"
             out = dense_conv_general_apply(*args, x.grid, out_grid, spec,
                                            self.bias, compute_dtype=cd)
+        elif (allow_same_grid_dense and out_grid is x.grid and
+              brick_preferred(spec, x.grid, cin, self.out_channels,
+                              x.features.device)):
+            branch = "brick"
+            out = brick_pallas_conv(*args, x.grid, compute_dtype=cd)
+            if self.bias is not None:
+                out = out + self.bias
         elif x.grid.extent is not None:
             branch = "fused"
             out = fused_sparse_conv(*args, x.grid, out_grid, spec, self.bias,
@@ -116,7 +131,7 @@ class _ConvBase(nn.Module):
         if _ROUTES is not None:
             _ROUTES.append(Route(self._layer_name(), branch, out_grid.capacity,
                                  cin, self.out_channels, spec.volume,
-                                 x.features.requires_grad))
+                                 x.features.requires_grad, self._grad_w()))
         return SparseTensor(grid=out_grid, features=out).mask_features()
 
 
@@ -143,7 +158,9 @@ class SparseConv(_ConvBase):
             if _ROUTES is not None:
                 _ROUTES.append(Route(self._layer_name(), "identity",
                                      x.capacity, x.num_channels,
-                                     self.out_channels, 1))
+                                     self.out_channels, 1,
+                                     x.features.requires_grad,
+                                     self._grad_w()))
             return x.with_features(linear_apply(x.features, self.kernel,
                                                 self.bias))
         if out_grid is None:

@@ -15,3 +15,7 @@ from .pool import broadcast_batch, global_pool
 from .pruning import prune, top_k_mask
 from .reduce import reduce_by_inverse
 from .search import lookup_sorted
+# the dense entry is exported as vol_conv3d, as in the JAX package: the
+# name vol_conv stays the submodule
+from .vol_conv import brick_pallas_conv, enable_brick_conv
+from .vol_conv import vol_conv as vol_conv3d

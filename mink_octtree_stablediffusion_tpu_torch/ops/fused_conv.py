@@ -149,22 +149,14 @@ _ENTRIES = {
     DW_SOURCE: ("fused_sparse_conv_dkernel", _ARGS + [ctypes.c_void_p],
                 "fused_sparse_conv_dw_error_string"),
 }
-_bound: dict = {}
 
 
 def _lib(source: str):
     """(kernel entry, error-string function) of ``csrc/<source>``, built
     and bound at first use."""
-    if source not in _bound:
-        from ..utils import cuda_build
+    from ..utils import cuda_build
 
-        lib = cuda_build.load(source)
-        fn_name, argtypes, err_name = _ENTRIES[source]
-        fn, err = getattr(lib, fn_name), getattr(lib, err_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        _bound[source] = (fn, err)
-    return _bound[source]
+    return cuda_build.bind(source, *_ENTRIES[source])
 
 
 def _check_operands(dev, compute_dtype, offs, k, *named):
@@ -280,7 +272,8 @@ def fused_conv_dfeatures(g: torch.Tensor, kernel: torch.Tensor,
         return _fused_sparse_conv_plain(args[0], kernel.transpose(1, 2),
                                         *args[1:])
     out = _launch(args[0], kernel, *args[1:], transpose_weight=True)
-    fused_conv_dfeatures.launches += 1
+    if out.numel() and g.numel():  # an empty conv launches nothing
+        fused_conv_dfeatures.launches += 1
     return out
 
 
@@ -295,7 +288,8 @@ def fused_conv_dkernel(features: torch.Tensor, g: torch.Tensor,
     if features.device.type == "cpu":
         return _dkernel_plain(*args)
     out = _launch_dkernel(*args)
-    fused_conv_dkernel.launches += 1
+    if features.numel() and g.numel():
+        fused_conv_dkernel.launches += 1
     return out
 
 
@@ -315,7 +309,8 @@ class FusedSparseConv(torch.autograd.Function):
         if features.device.type == "cpu":
             return _fused_sparse_conv_plain(*args)
         out = _launch(*args)
-        fused_sparse_conv.launches += 1
+        if out.numel() and features.numel():
+            fused_sparse_conv.launches += 1
         return out
 
     @staticmethod

@@ -41,11 +41,13 @@ def generation_models(*, input_capacity: int, batch_size: int,
                       vae_channel: Sequence[int] = (32, 128, 512, 512, 4),
                       unet_channel: Sequence[int] = (4, 320, 640, 960),
                       group: int = 32, attn_max_len: int = 0,
+                      time_embedding_norm: str = "default",
                       max_keep: Optional[int] = None, device=None,
                       seed: int = 0):
-    """(vae, unet) of `examples/generate.py`'s configuration, with weights
-    from the port's initialisers and a seeded generator on ``device``.
-    ``max_keep`` is the decoder's per-level top-k clamp (`VAE.max_keep`)."""
+    """(vae, unet) of `examples/generate.py`'s configuration (and of
+    `examples/train_diffusion.py`'s), with weights from the port's
+    initialisers and a seeded generator on ``device``.  ``max_keep`` is
+    the decoder's per-level top-k clamp (`VAE.max_keep`)."""
     enc_caps, dec_caps = capacities(input_capacity)
     latent_cap = enc_caps[2]
     attn_max_len = attn_max_len or max(
@@ -55,6 +57,7 @@ def generation_models(*, input_capacity: int, batch_size: int,
               seed=seed)
     unet = UNet(channels=tuple(unet_channel), group=group,
                 attn_max_len=attn_max_len,
+                time_embedding_norm=time_embedding_norm,
                 down_capacities=(max(latent_cap // 2, 16),
                                  max(latent_cap // 4, 8),
                                  max(latent_cap // 8, 8)),

@@ -32,7 +32,10 @@ def make_train_step(loss_fn: Callable):
     ``loss_fn(module, batch, *args, **kw) -> (loss, aux)``: zero the
     gradients, run the forward in train mode (BatchNorm layers move their
     running statistics in place) and the loss, backward, one optimizer
-    step.  The returned loss and aux are detached; nothing waits for the
+    step.  The module is whatever the optimizer updates: the VAE, or for
+    diffusion a ``ModuleDict`` of the UNet and the coordinate NLL (a
+    frozen VAE stays outside it, in the loss); gradient clipping is the
+    optimizer's (``DiffusionOptimizer``).  The returned loss and aux are detached; nothing waits for the
     device."""
 
     def step(state: TrainState, batch, *args, **kw):

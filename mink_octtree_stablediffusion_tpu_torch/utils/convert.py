@@ -9,7 +9,9 @@ returns a ``state_dict`` for the matching port module:
 - ``BatchNorm_0`` → ``bn``: ``params/{scale,bias}`` → ``weight``/``bias``,
   ``batch_stats/{mean,var}`` → ``running_mean``/``running_var``;
 - ``StableInstanceNorm_0`` → ``inorm``, ``weight``/``bias`` 1:1;
-- ``SparseAttention_0`` → ``attn``.
+- ``SparseAttention_0`` → ``attn``;
+- the diffusion trainer's ``CoordNLLParams`` (a NamedTuple leaf of the
+  params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1.
 
 Every other module name is the same in both trees.  Given the module, the
 cover is checked one to one: every flax leaf lands on a port parameter or
@@ -32,6 +34,8 @@ _STATS = {"mean": "running_mean", "var": "running_var"}
 
 def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
     for k, v in tree.items():
+        if hasattr(v, "_asdict"):  # a NamedTuple of arrays
+            v = v._asdict()
         if hasattr(v, "items"):
             yield from _leaves(v, prefix + (str(k),))
         else:
@@ -49,7 +53,7 @@ def _translate(collection: str, path: Tuple[str, ...], value):
             return ".".join(name + ["kernel"]), arr
         if leaf == "kernel" and arr.ndim == 2:
             return ".".join(name + ["weight"]), arr.T
-        if leaf in ("bias", "weight"):
+        if leaf in ("bias", "weight", "mu", "sigma"):
             return ".".join(name + [leaf]), arr
         if leaf == "scale":
             return ".".join(name + ["weight"]), arr

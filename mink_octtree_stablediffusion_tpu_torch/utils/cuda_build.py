@@ -7,7 +7,9 @@ carries a hash of the source and of the shared headers, so an edited
 source or header is rebuilt.  ``build``
 starts one ``nvcc`` per source, all together, and waits for all of them.
 Nothing is built when a module is imported: only the first launch on a
-CUDA tensor (or an explicit ``build``) compiles.
+CUDA tensor (or an explicit ``build``) compiles.  ``bind`` gives a
+source's kernel entry and error-string function with their ctypes
+signatures.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -27,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[Tuple[str, str], tuple] = {}
 
 
 def nvcc_path() -> str:
@@ -49,11 +52,17 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 
-def build(sources: Iterable[str]) -> Dict[str, str]:
-    """Compile every source not built yet, one ``nvcc`` each, in parallel.
-    Returns the compiler output (``-Xptxas -v``: registers, shared memory,
-    spills) per source built."""
+def all_sources() -> Tuple[str, ...]:
+    """Every kernel source of the port (``csrc/*.cu``)."""
+    return tuple(sorted(p.name for p in CSRC_DIR.glob("*.cu")))
+
+
+def build(sources: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every source (default: all of them) not built yet, one
+    ``nvcc`` each, in parallel.  Returns the compiler output (``-Xptxas
+    -v``: registers, shared memory, spills) per source built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = all_sources() if sources is None else sources
     jobs = []
     for source in sources:
         out = library_path(source)
@@ -83,3 +92,16 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(source)))
         _LIBS[source] = lib
     return lib
+
+
+def bind(source: str, fn_name: str, argtypes: Sequence, err_name: str):
+    """(kernel entry, error-string function) of ``csrc/<source>``, built
+    and loaded at first use; the entry returns a CUDA error code (int)."""
+    key = (source, fn_name)
+    if key not in _BOUND:
+        lib = load(source)
+        fn, err = getattr(lib, fn_name), getattr(lib, err_name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        _BOUND[key] = (fn, err)
+    return _BOUND[key]

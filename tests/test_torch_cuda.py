@@ -1,5 +1,6 @@
-"""Tests of the port's CUDA kernels (B1 forward, B2 dF, B3 dW) and of a
-small VAE train step through them; they need an NVIDIA GPU.
+"""Tests of the port's CUDA kernels (B1 forward, B2 dF, B3 dW of the fused
+conv; B5 forward and dF pass, B6 dW of the brick conv) and of small VAE
+and diffusion train steps through them; they need an NVIDIA GPU.
 
 Marked ``cuda``: without a card each test skips (the decision is made
 inside the test).  This file imports neither JAX nor the JAX package, so on
@@ -15,6 +16,7 @@ import torch
 
 import mink_octtree_stablediffusion_tpu_torch as mp
 from mink_octtree_stablediffusion_tpu_torch.ops import fused_conv
+from mink_octtree_stablediffusion_tpu_torch.ops import vol_conv
 
 
 def _card() -> torch.device:
@@ -186,3 +188,129 @@ def test_kernel_raises_instead_of_falling_back():
                                  compute_dtype=torch.float32)
     with pytest.raises(ValueError):
         mp.ops.fused_sparse_conv(f.double(), k, g, g, spec)
+
+
+def _close_to(got, ref):
+    """Kernel vs plain version on the same bf16 operands: 1e-3·max|ref| +
+    1e-5 (summation order, and B6's fp32 atomics across blocks)."""
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-3 * ref.abs().max().item() + 1e-5, err
+
+
+def _brick_counts():
+    return (vol_conv.vol_conv_tiles.launches,
+            vol_conv.vol_conv_dfeatures.launches,
+            vol_conv.vol_conv_dw.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (32, 32), (128, 128),
+                                      (5, 70), (96, 17)])
+def test_brick_kernels_match_plain(cin, cout):
+    """B5, its dF pass and B6 through ``brick_pallas_conv`` and its
+    backward, each launched once, against their plain versions on the
+    same bf16 volumes (the cotangent scattered as the backward does)."""
+    dev = _card()
+    g = _grid(dev, n=900, cap=2048, ext=16, bsz=2)
+    f = (torch.randn(g.capacity, cin, device=dev) *
+         g.valid[:, None]).requires_grad_()
+    k = (torch.randn(27, cin, cout, device=dev) * 0.1).requires_grad_()
+    gout = torch.randn(g.capacity, cout, device=dev) * g.valid[:, None]
+    before = _brick_counts()
+    out = mp.ops.brick_pallas_conv(f, k, g)
+    out.backward(gout)
+    assert [a - b for a, b in zip(_brick_counts(), before)] == [1, 1, 1]
+    cells = [16, 16, 16]
+    volp = vol_conv._scatter(f.detach(), g, cells, torch.bfloat16)
+    gvolp = vol_conv._scatter(gout, g, cells, torch.bfloat16)
+    _close_to(out, vol_conv._gather(vol_conv._vol_conv_plain(volp, k.detach()),
+                                    g, cells))
+    _close_to(f.grad, vol_conv._gather(vol_conv._vol_conv_plain(
+        gvolp, k.detach(), mirror=True), g, cells))
+    _close_to(k.grad, vol_conv._vol_conv_dw_plain(volp, gvolp, cin, cout))
+
+
+@pytest.mark.cuda
+def test_brick_conv_ragged_dense_and_empty_volumes():
+    """B5 and B6 on dense random volumes whose sides are not multiples of
+    the 4 x 4 x 16 tile (the edge masks), and on an all-zero volume (the
+    skipped chunks and tiles still write zeros)."""
+    dev = _card()
+    vol = torch.randn(2, 5, 7, 19, 24, device=dev)
+    volp = vol_conv.pad_volume(vol)
+    k = torch.randn(27, 24, 40, device=dev) * 0.1
+    _close_to(vol_conv.vol_conv_tiles(volp, k),
+              vol_conv._vol_conv_plain(volp, k))
+    gvolp = vol_conv.pad_volume(torch.randn(2, 5, 7, 19, 40, device=dev))
+    _close_to(vol_conv.vol_conv_dw(volp, gvolp, 24, 40),
+              vol_conv._vol_conv_dw_plain(volp, gvolp, 24, 40))
+    _close_to(vol_conv.vol_conv_dfeatures(gvolp, k),
+              vol_conv._vol_conv_plain(gvolp, k, mirror=True))
+    zero = torch.zeros_like(volp)
+    assert torch.all(vol_conv.vol_conv_tiles(zero, k) == 0)
+    assert torch.all(vol_conv.vol_conv_dw(zero, gvolp, 24, 40) == 0)
+    with pytest.raises(NotImplementedError):
+        vol_conv.vol_conv_tiles(volp.float(), k)
+
+
+@pytest.mark.cuda
+def test_empty_convs_count_no_launch():
+    """A conv with no input channels (fused) or no output channels (brick)
+    launches no kernel, and its wrapper counts none."""
+    dev = _card()
+    g = _grid(dev)
+    before = fused_conv.fused_sparse_conv.launches
+    out = mp.ops.fused_sparse_conv(torch.zeros(g.capacity, 0, device=dev),
+                                   torch.zeros(27, 0, 7, device=dev), g, g,
+                                   mp.ops.KernelSpec(3, 1, ndim=3))
+    assert torch.all(out == 0)
+    assert fused_conv.fused_sparse_conv.launches == before
+    volp = vol_conv.pad_volume(torch.randn(1, 4, 4, 16, 8, device=dev))
+    before = _brick_counts()
+    assert vol_conv.vol_conv_tiles(
+        volp, torch.zeros(27, 8, 0, device=dev)).numel() == 0
+    assert _brick_counts() == before
+
+
+@pytest.mark.cuda
+def test_diffusion_train_step_with_brick_gate_on_card():
+    """A small diffusion train step on the card with the brick gate on:
+    brick-route convs launch B5, B6 and (where their input carries a
+    gradient) the dF pass, fused-route convs B1, B3 and B2, and every UNet
+    and NLL parameter gets a finite gradient."""
+    dev = _card()
+    from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
+    cfg = td.parse_args(["--input_capacity", "4096", "--batch_size", "2",
+                         "--vae_channel", "8", "16", "32", "32", "4",
+                         "--unet_channel", "4", "8", "16", "16",
+                         "--group", "4"])
+    ds = mp.data.SyntheticShapes(resolution=128, num_samples=2,
+                                 points_per_shape=1500)
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(2)], 4096)
+    mp.ops.enable_brick_conv(True)
+    try:
+        run = td.setup(cfg, dev)
+        fused = (fused_conv.fused_sparse_conv,
+                 fused_conv.fused_conv_dfeatures,
+                 fused_conv.fused_conv_dkernel)
+        brick = (vol_conv.vol_conv_tiles, vol_conv.vol_conv_dfeatures,
+                 vol_conv.vol_conv_dw)
+        before = [c.launches for c in fused + brick]
+        with mp.nn.record_routes() as routes:
+            loss, _ = run.step_fn(run.state, (cpad, valid),
+                                  torch.Generator(device=dev).manual_seed(0))
+        after = [c.launches for c in fused + brick]
+    finally:
+        mp.ops.enable_brick_conv(False)
+    by = {b: [r for r in routes if r.branch == b] for b in ("fused", "brick")}
+    assert by["brick"], {r.branch for r in routes}
+    want = []
+    for b in ("fused", "brick"):  # the frozen VAE's convs run no backward
+        want += [len(by[b]), sum(r.grad_in for r in by[b]),
+                 sum(r.grad_w for r in by[b])]
+    assert [a - b for a, b in zip(after, before)] == want
+    assert torch.isfinite(loss)
+    for name, p in run.model.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
