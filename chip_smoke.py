@@ -44,6 +44,13 @@ read just after:
   ``warmup_cosine``'s; the denoise loss of step 10 must be below step
   1's.  Before the steps, step 1 runs with the gate off and then on
   (``gate_compare``, with its planted fault).
+- **the library path** — `bench_conv`, the counterpart of `bench.py`'s
+  conv metric and its stage scripts, on its three workloads (seed 0): the
+  room (26,098 points, 3→32), the finest octree level (131,072 rows,
+  32→32) and a 512→512 encoder level, driven once per workload (the
+  room's pipeline through B1, B4 and B7; B4 and B7 alone on the others;
+  B1's stages, B8 on the room and B9 on the finest level).  Every kernel
+  of the path must launch; see ``library_phase`` for what it holds.
 
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
@@ -75,7 +82,6 @@ import contextlib
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 import traceback
@@ -85,6 +91,11 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# B7 on float32 features against its float32 plain version: max|Δ| ≤
+# B7_F32_RTOL·max|ref|, above float32 summation-order error and below
+# what TF32 (10-bit mantissa) or bf16 rounding of the operands gives
+B7_F32_RTOL = 2e-5
 RES, BATCH, CAP, STEPS = 128, 4, 65536, 8
 VAE_CH, UNET_CH, GROUP = (32, 128, 512, 512, 4), (4, 320, 640, 960), 32
 DEVICE = "cuda"
@@ -134,6 +145,19 @@ KERNELS = {
            JAX_VOL + ":228"),  # vol_conv_dw, pallas_call :254
 }
 FUSED, BRICK = ("B1", "B2", "B3"), ("B5", "B5-dF", "B6")
+# the library path's kernels (`bench_conv`), in KERNELS' form
+LIBRARY_KERNELS = {
+    "B4": ("onehot_conv", "onehot_sparse_conv",
+           CSRC + "onehot_sparse_conv.cu",
+           JAX_CONV + ":306"),  # onehot_sparse_conv, pallas_call :385
+    "B7": ("pallas_conv", "pallas_sparse_conv",
+           CSRC + "pallas_sparse_conv.cu",
+           "mink_octtree_stablediffusion_tpu/ops/pallas_conv.py:37"),  # :78
+    "B8": ("fused_conv", "fused_conv_stage", CSRC + "fused_sparse_conv.cu",
+           "scripts/bench_kernel_parts.py:55"),  # variant_conv, :199
+    "B9": ("fused_conv", "fused_conv_stage", CSRC + "fused_sparse_conv.cu",
+           "scripts/bench_parts_finest.py:85"),  # variant, :189
+}
 
 
 def emit(obj) -> None:
@@ -143,30 +167,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
-
-
-def cuda_time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
-    """Median per-call time of ``fn`` in ms (CUDA events)."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "n/a"
 
 
 def decoder_levels(out_clss, batch: int) -> list:
@@ -282,22 +282,31 @@ def matched_pairs(fc, keys, out_coords, out_valid, offs, s, cells) -> int:
 
 
 def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
-                min_ref=0.0, library=None, work_pairs=None, **shape):
-    """Kernel vs plain version: max|Δ| ≤ 1e-3·max|ref| + 1e-5, and max|ref|
-    ≥ ``min_ref`` (so that a kernel returning zeros fails); CUDA-event
-    times of both and of ``library`` (one PyTorch call computing the same
-    function), where there is one; the bound max(2·Cin·Cout·pairs / peak
-    bf16, bytes / peak HBM), with ``work_pairs`` in place of the matched
-    ``pairs`` where the kernel's work is dense."""
+                min_ref=0.0, library=None, work_pairs=None, flops=None,
+                fp32_flops=False, rel_tol=1e-3, abs_tol=1e-5, **shape):
+    """Kernel vs plain version: max|Δ| ≤ ``rel_tol``·max|ref| +
+    ``abs_tol`` (by default 1e-3·max|ref| + 1e-5), and max|ref| ≥
+    ``min_ref`` (so that a kernel returning zeros fails); CUDA-event times
+    of both and of ``library`` (one PyTorch call computing the same
+    function), where there is one; the bound max(flops / peak bf16,
+    bytes / peak HBM), the flops being 2·Cin·Cout·``pairs`` (``work_pairs``
+    in place of the matched ``pairs`` where the kernel's work is dense)
+    unless ``flops`` is given.  Where the kernel does its operations as
+    float32 FMAs outside the tensor cores (``fp32_flops``), the record also
+    holds ``bound_fp32_ms``, the same bound at the float32 peak."""
+    from mink_octtree_stablediffusion_tpu_torch.bench_conv import cuda_time_ms
     import torch
     out, ref = run(), plain()
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item() if out.numel() else 0.0
-    ref_max = ref.abs().max().item() if ref.numel() else 0.0
-    tol = 1e-3 * ref_max + 1e-5
+    err = (out.float() - ref.float()).abs().max().item() if out.numel() \
+        else 0.0
+    ref_max = ref.float().abs().max().item() if ref.numel() else 0.0
+    tol = rel_tol * ref_max + abs_tol
     del out, ref
-    flops = 2.0 * cin * cout * (work_pairs or pairs)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    if flops is None:
+        flops = 2.0 * cin * cout * (work_pairs or pairs)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     rec = {"kernel": kernel, "case": case, "kind": kind, **shape,
            "cin": cin, "cout": cout, "matched_pairs": pairs,
            "max_abs_err": err, "max_abs_ref": ref_max, "tol": tol,
@@ -309,6 +318,8 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
            "ok": bool(err <= tol and math.isfinite(err) and
                       ref_max >= min_ref)}
+    if fp32_flops:
+        rec["bound_fp32_ms"] = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
     emit(rec)
     return rec
 
@@ -1185,6 +1196,209 @@ def tiny_diffusion_reference(mp, dev) -> dict:
     return rec
 
 
+def map_conv_bytes(w) -> int:
+    """B4's and B7's bytes on workload ``w``: the map, the features and
+    the float32 weight read once, the output written once."""
+    k, n_out = w.nbr.shape
+    f = w.features
+    return (4 * k * n_out + f.element_size() * f.numel() +
+            4 * w.kernel.numel() + f.element_size() * n_out *
+            w.kernel.shape[2])
+
+
+def check_map_conv(mp, kernel, w):
+    """B4 (bf16 operands) or B7 (the features' dtype) on workload ``w``
+    against its plain version on the card.  B7 on float32 features rounds
+    nothing to TF32 or bf16, so it is held at a float32 limit,
+    ``B7_F32_RTOL``·max|ref|; its bound is also given at the float32 peak
+    outside the tensor cores, where its FMAs run."""
+    import torch
+    oc, pc = mp.ops.onehot_conv, mp.ops.pallas_conv
+    f, k, nbr = w.features, w.kernel, w.nbr
+    cin, cout = k.shape[1], k.shape[2]
+    if kernel == "B4":
+        run = lambda: oc.onehot_sparse_conv(f, k, nbr)  # noqa: E731
+        plain = lambda: oc.map_conv_plain(  # noqa: E731
+            f, k, nbr, torch.bfloat16)
+        tols = {}
+    else:
+        run = lambda: pc.pallas_sparse_conv(f, k, nbr)  # noqa: E731
+        plain = lambda: oc.map_conv_plain(  # noqa: E731
+            f, k, nbr, f.dtype)
+        tols = ({"rel_tol": B7_F32_RTOL, "abs_tol": 0.0, "min_ref": 1e-2}
+                if f.dtype == torch.float32 else {})
+    return timed_check(kernel, w.name, "k3s1", run, plain, w.pairs, cin,
+                       cout, map_conv_bytes(w), fp32_flops=kernel == "B7",
+                       n_out=nbr.shape[1], n_in=f.shape[0], k=nbr.shape[0],
+                       dtype=str(f.dtype), **tols)
+
+
+def check_stage(mp, kernel, w, stage, b1_out):
+    """One stage of B1 (B8 on the room, B9 on the finest level) against its
+    plain version on the bf16-rounded operands; ``empty`` and ``search``
+    must also be exact, ``full`` equal to B1's output (``b1_out``) bit for
+    bit.  Bytes: each stage's reads and writes, cumulatively: the output;
+    + the input keys and the output coordinates and valid mask
+    (``search``); + the features (``gather``); + the weight (``full``).
+    Operations: none counted for ``empty`` and ``search``, the float32 adds
+    of ``gather`` (matched pairs × min(Cin, Cout)), B1's GEMM for
+    ``full``."""
+    import torch
+    fc = mp.ops.fused_conv
+    f, k, g, spec = w.features, w.kernel, w.grid, mp.ops.KernelSpec(3, 1,
+                                                                   ndim=3)
+    (n_in, cin), cout, n_out = f.shape, k.shape[2], g.capacity
+    offs, s_in, cells = fc.conv_geometry(g, spec)
+    plain_ops = (f.bfloat16().float(), k.bfloat16().float(), g.flat_keys(),
+                 g.coords, g.valid, offs, s_in, cells, torch.float32, stage)
+    out = fc.fused_conv_stage(f, k, g, g, spec, stage)
+    exact = bool(torch.equal(out, b1_out) if stage == "full" else
+                 torch.equal(out, fc._stage_plain(*plain_ops))
+                 if stage in ("empty", "search") else True)
+    del out
+    rank = ("empty", "search", "gather", "full").index(stage)
+    nbytes = 4 * n_out * cout + sum(
+        (4 * n_in + 17 * n_out, 4 * f.numel(), 4 * k.numel())[:rank])
+    flops = {"empty": 0.0, "search": 0.0,
+             "gather": float(w.pairs * min(cin, cout)), "full": None}[stage]
+    rec = timed_check(
+        kernel, w.name, stage,
+        lambda: fc.fused_conv_stage(f, k, g, g, spec, stage),
+        lambda: fc._stage_plain(*plain_ops), w.pairs, cin, cout, nbytes,
+        flops=flops, fp32_flops=stage == "gather", exact=exact, n_out=n_out,
+        n_in=n_in, k=offs.shape[0])
+    rec["ok"] = rec["ok"] and exact
+    return rec
+
+
+def library_phase(mp, dev, power) -> dict:
+    """The library path (`bench_conv`) at full size, seed 0.
+
+    - Builds the room, finest and wide workloads; the room's exact pair
+      count (``conv_pair_count``) must equal its map's matched pairs.
+    - Drives the path once per workload (``bench_conv.drive``) with the
+      launch counts set to 0 just before and read just after: B1, B4, B7
+      and B8 must launch on the room, B4, B7 and B9 on the finest level,
+      B4 and B7 on the wide case.
+    - Holds each kernel against its plain version on the card within
+      1e-3·max|ref| + 1e-5 (``timed_check``): B4 and B7 on every workload,
+      B1 on the room, every stage of B8/B9 (``check_stage``); and B4 and B1
+      (on bf16-rounded operands) and B7 (float32) against the room's
+      ``sparse_conv_apply`` (``conv_xla``) at the same bound.
+    - Holds ``onehot_conv``'s backward on the card (plain PyTorch, a
+      unit-RMS cotangent) against the same formula on the CPU, with
+      max|ref| ≥ 1e-2.
+    - Times `bench_conv.run` (CUDA events, and the device's busy time
+      from ``torch.profiler``): the room's pipeline stages, `bench.py`'s
+      points/sec on the fused and the kernel-map route, each conv alone,
+      and B1's stage attribution.
+
+    Returns ok, the failures, the kernel records by (kernel, "library"),
+    and each kernel's launches on the path."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    from mink_octtree_stablediffusion_tpu_torch.ops import pallas_conv as pc
+    fc, oc = mp.ops.fused_conv, mp.ops.onehot_conv
+    failures = []
+    t0 = time.perf_counter()
+    ws = bc.workloads(dev, seed=0)
+    room = ws["room"]
+    pair_count = bc.conv_pair_count(
+        room.grid.coords[room.grid.valid][:, 1:].cpu().numpy())
+    emit({"library_workloads_built_s": time.perf_counter() - t0,
+          "workloads": {n: {"rows": w.grid.capacity,
+                            "voxels": int(w.grid.valid.sum()),
+                            "input_points": w.points,
+                            "cin": w.kernel.shape[1],
+                            "cout": w.kernel.shape[2],
+                            "matched_pairs": w.pairs}
+                        for n, w in ws.items()},
+          "room_conv_pair_count": pair_count})
+    if pair_count != room.pairs:
+        failures.append("room pair count")
+
+    wrappers = {"B1": fc.fused_sparse_conv, "B4": oc.onehot_sparse_conv,
+                "B7": pc.pallas_sparse_conv, "stages": fc.fused_conv_stage}
+    per_workload = {}
+    for name, w in ws.items():
+        for c in wrappers.values():
+            c.launches = 0  # counts from here on are this workload's pass
+        bc.drive(w)
+        torch.cuda.synchronize()
+        per_workload[name] = {k: c.launches for k, c in wrappers.items()}
+    launches = {"B1": per_workload["room"]["B1"],
+                "B4": sum(p["B4"] for p in per_workload.values()),
+                "B7": sum(p["B7"] for p in per_workload.values()),
+                "B8": per_workload["room"]["stages"],
+                "B9": per_workload["finest"]["stages"]}
+    emit({"library_path_launches": per_workload, "per_kernel": launches})
+    if not all(launches.values()):
+        failures.append("a kernel of the library path did not launch")
+
+    recs = {(n, "library"): {} for n in ("B1", *LIBRARY_KERNELS)}
+    for w in ws.values():
+        for kernel in ("B4", "B7"):
+            recs[(kernel, "library")][w.name] = check_map_conv(mp, kernel, w)
+    spec = bc.K3
+    recs[("B1", "library")]["room"] = check_case(
+        mp, "library_room", "k3s1", room.features, room.kernel, room.grid,
+        room.grid, spec)
+    for kernel, w in (("B8", room), ("B9", ws["finest"])):
+        b1_out = fc.fused_sparse_conv(w.features, w.kernel, w.grid, w.grid,
+                                      spec)
+        for stage in bc.STAGE_ORDER:
+            recs[(kernel, "library")][stage] = check_stage(
+                mp, kernel, w, stage, b1_out)
+        del b1_out
+    if not all(r["ok"] for got in recs.values() for r in got.values()):
+        failures.append("library kernel checks")
+
+    # B4, B7 and B1 against the room's conv_xla (sparse_conv_apply)
+    f, k, nbr = room.features, room.kernel, room.nbr
+    xla = {"bf16": mp.ops.sparse_conv_apply(f.bfloat16().float(),
+                                            k.bfloat16().float(), nbr),
+           "f32": mp.ops.sparse_conv_apply(f, k, nbr)}
+    vs = {}
+    for name, out, ref in (
+            ("B4", oc.onehot_sparse_conv(f, k, nbr), xla["bf16"]),
+            ("B7", pc.pallas_sparse_conv(f, k, nbr), xla["f32"]),
+            ("B1", fc.fused_sparse_conv(f, k, room.grid, room.grid, spec),
+             xla["bf16"])):
+        err = (out - ref).abs().max().item()
+        tol = (B7_F32_RTOL if name == "B7" else 1e-3) * \
+            ref.abs().max().item() + (0.0 if name == "B7" else 1e-5)
+        vs[name] = {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+    emit({"library_vs_conv_xla": "room", **vs})
+    if not all(v["ok"] for v in vs.values()):
+        failures.append("library kernels vs conv_xla")
+
+    # onehot_conv's backward on the card against the CPU
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g, g_rms = unit_rms(torch.randn(nbr.shape[1], k.shape[2], device=dev,
+                                    generator=gen) * room.grid.valid[:, None])
+    fg, kg = f.clone().requires_grad_(), k.clone().requires_grad_()
+    grads = torch.autograd.grad(oc.onehot_conv(fg, kg, nbr), (fg, kg), g)
+    ref = oc._xla_backward(f.cpu(), k.cpu(), nbr.cpu(), g.cpu())
+    bwd = {}
+    for name, got, r in zip(("dF", "dW"), grads, ref):
+        err = (got.cpu() - r).abs().max().item()
+        ref_max = r.abs().max().item()
+        bwd[name] = {"max_abs_err": err, "max_abs_ref": ref_max,
+                     "ok": err <= 1e-3 * ref_max + 1e-5 and
+                     ref_max >= MIN_REF_GRAD}
+    emit({"library_onehot_conv_backward": "room, card vs cpu",
+          "g_rms": g_rms, **bwd})
+    if not all(v["ok"] for v in bwd.values()):
+        failures.append("onehot_conv backward")
+
+    for rec in bc.run(ws, bc.cuda_time_ms, bc.device_ms):
+        emit({"card": power, **rec})
+    del ws, room, f, k, nbr, xla, fg, kg, grads
+    torch.cuda.empty_cache()
+    return {"ok": not failures, "failures": failures, "recs": recs,
+            "launches": launches}
+
+
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -1203,7 +1417,8 @@ def main(argv) -> int:
     if HERE not in Path(mp.__file__).resolve().parents:
         return fail("the port package imported is not this checkout's")
     dev = torch.device(DEVICE)
-    power = nvidia_smi()
+    from mink_octtree_stablediffusion_tpu_torch.bench_conv import card
+    power = card()
     failed = []  # the checks that did not hold
 
     def need(cond, what: str) -> None:
@@ -1426,6 +1641,16 @@ def main(argv) -> int:
                          "cudnn_ms": r5["library_ms"]})
         emit({"b5_vs_b1": label, "convs": rows})
 
+    # -- path 4: the library path (bench_conv) ----------------------------
+    try:
+        lib = library_phase(mp, dev, power)
+    except Exception:
+        traceback.print_exc()
+        lib = {"ok": False, "failures": ["library phase raised"], "recs": {},
+               "launches": {}}
+    need(lib["ok"], "library path: " + ", ".join(lib["failures"]))
+    recs.update(lib["recs"])
+
     # -- end-to-end references on a small input --------------------------
     for ref in (tiny_reference, tiny_train_reference,
                 tiny_diffusion_reference):
@@ -1443,7 +1668,7 @@ def main(argv) -> int:
                     "; ".join(failed))
 
     def entry(name, launches, t, per):
-        _, wrapper, source, replaces = KERNELS[name]
+        _, wrapper, source, replaces = {**KERNELS, **LIBRARY_KERNELS}[name]
         cases = [r for (k, _), got in recs.items() if k == name
                  for r in got.values()]
         cases += [r for r in extras if name == "B1"]
@@ -1466,6 +1691,7 @@ def main(argv) -> int:
                "one VAE train step")
         e = entry(name, launches, tot[name], per)
         e.update({"path": main_path,
+                  "launches_library_path": lib["launches"].get(name, 0),
                   "launches_vae_train_path": train_launches[name],
                   "launches_diffusion_path": diff["launches"][name],
                   "ms_per_diffusion_step": tot_diff[name]["ms"],
@@ -1475,6 +1701,17 @@ def main(argv) -> int:
         e = entry(name, diff["launches"][name], tot_diff[name],
                   "one diffusion train step")
         e["path"] = "diffusion"
+        kernels.append(e)
+    for name in LIBRARY_KERNELS:  # one launch per record on the path
+        got = recs[(name, "library")]
+        e = entry(name, lib["launches"][name],
+                  totals(Counter(dict.fromkeys(got, 1)), got),
+                  "one pass of the library path")
+        e["path"] = "library"
+        if any("bound_fp32_ms" in r for r in got.values()):
+            # the same bound with the float32 FMAs at the float32 peak
+            e["bound_fp32_ms"] = sum(r.get("bound_fp32_ms", r["bound_ms"])
+                                     for r in got.values())
         kernels.append(e)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -1508,8 +1745,8 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
         return sum(r[0] for r in rows if all(n in r[1] for n in names)) / 1e6
     emit({"profile": label, "device_busy_s": busy_s,
           "device_kernels": sum(r[2] for r in rows),
-          "B1_s": kernel_s("fused_sparse_conv_kernel<false>"),
-          "B2_s": kernel_s("fused_sparse_conv_kernel<true>"),
+          "B1_s": kernel_s("fused_sparse_conv_kernel<false, 0>"),
+          "B2_s": kernel_s("fused_sparse_conv_kernel<true, 0>"),
           "B3_s": kernel_s("fused_sparse_conv_dw_kernel"),
           "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
           "B6_s": kernel_s("brick_conv_dw_kernel"),

@@ -4,7 +4,8 @@ Port of `SparseConv`, `SparseConvTranspose` and `GenerativeConvTranspose`
 from `mink_octtree_stablediffusion_tpu/nn/conv.py`, with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
 ``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
-kernel (bounded grids) → plain gather-GEMM over a kernel map.  Kernel
+kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → plain
+gather-GEMM over a kernel map.  Kernel
 layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
 
 ``record_routes()`` collects, for every conv call, the branch it took, its
@@ -32,6 +33,7 @@ from ..ops.dense_conv import (dense_conv_apply, dense_conv_general_apply,
                               dense_no_growth_preferred2)
 from ..ops.fused_conv import fused_sparse_conv
 from ..ops.kernels import KernelSpec, RegionType
+from ..ops.onehot_conv import enabled as onehot_enabled
 from ..ops.vol_conv import brick_pallas_conv, brick_preferred
 from ..ops.neighbors import kernel_map
 from ..tensor import SparseTensor
@@ -120,7 +122,7 @@ class _ConvBase(nn.Module):
             out = brick_pallas_conv(*args, x.grid, compute_dtype=cd)
             if self.bias is not None:
                 out = out + self.bias
-        elif x.grid.extent is not None:
+        elif onehot_enabled(x.grid):
             branch = "fused"
             out = fused_sparse_conv(*args, x.grid, out_grid, spec, self.bias,
                                     compute_dtype=cd)

@@ -11,6 +11,8 @@ from .fused_conv import fused_sparse_conv
 from .kernels import KernelSpec, RegionType, region_offsets
 from .lut import LUT_MAX_ENTRIES, build_lut, lut_lookup
 from .neighbors import grid_lookup, kernel_map, membership
+# as in the JAX package; the name onehot_conv stays the submodule
+from .onehot_conv import onehot_sparse_conv, use_onehot_conv
 from .pool import broadcast_batch, global_pool
 from .pruning import prune, top_k_mask
 from .reduce import reduce_by_inverse

@@ -8,7 +8,11 @@ onehot_conv.py` that ``fused_sparse_conv`` and its custom VJP
 - **B1**, ``_fused_impl``: the forward, ``csrc/fused_sparse_conv.cu``;
 - **B2**, ``_fused_impl`` in the flipped direction (``_FusedStatic.
   flipped``): dF, the same CUDA kernel reading ``W_k`` transposed;
-- **B3**, ``_dkernel_fused``: dW, ``csrc/fused_sparse_conv_dw.cu``.
+- **B3**, ``_dkernel_fused``: dW, ``csrc/fused_sparse_conv_dw.cu``;
+- **B8/B9**, B1 cut into stages by the repository's attribution scripts
+  (`scripts/bench_kernel_parts.py::variant_conv` on the room,
+  `scripts/bench_parts_finest.py::variant` on the finest octree level):
+  ``fused_conv_stage``, B1's kernel with a compile-time stage parameter.
 
 Each source is CUDA C++ for ``sm_90a`` (bf16 tensor-core GEMM with float32
 accumulation) whose header states what bounds it on the H100 and what its
@@ -26,7 +30,7 @@ lattice is the forward's output lattice -- and the forward's search for
 get no gradient; the bias add stays outside the Function, as in JAX.
 
 Each wrapper (``fused_sparse_conv``, ``fused_conv_dfeatures``,
-``fused_conv_dkernel``) launches its kernel for CUDA tensors (or raises)
+``fused_conv_dkernel``, ``fused_conv_stage``) launches its kernel for CUDA tensors (or raises)
 and takes its plain PyTorch version only for tensors on the CPU: there is
 no fallback.  Each counts its kernel launches in ``.launches``.  The
 Mosaic mechanics of the TPU kernels (one-hot gather as a matmul, lane
@@ -47,10 +51,14 @@ from .conv import default_compute_dtype, mm_f32
 from .coords import SparseGrid, _cells, _tuplize, device_const
 from .kernels import KernelSpec
 
-SOURCE = "fused_sparse_conv.cu"  # B1 and B2
+SOURCE = "fused_sparse_conv.cu"  # B1, B2 and the stages (B8/B9)
 DW_SOURCE = "fused_sparse_conv_dw.cu"  # B3
 SOURCES = (SOURCE, DW_SOURCE)
 MAX_K = 125  # offsets the kernels' geometry block holds (csrc MAX_K)
+# B1's pipeline cut at a stage (csrc ``Stage``, in its order): ``full`` the
+# conv, ``empty`` zeros, ``search`` the matches counted, ``gather`` the
+# matched rows summed (see ``_stage_plain``)
+STAGES = ("full", "empty", "search", "gather")
 
 
 def conv_geometry(in_grid: SparseGrid, spec: KernelSpec):
@@ -135,28 +143,58 @@ def _dkernel_plain(features: torch.Tensor, g: torch.Tensor,
     return mm_f32(a.permute(1, 2, 0), g.to(compute_dtype))
 
 
+def _stage_plain(features: torch.Tensor, kernel: torch.Tensor,
+                 in_keys: torch.Tensor, out_coords: torch.Tensor,
+                 out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
+                 compute_dtype, stage: str) -> torch.Tensor:
+    """Each stage of ``fused_conv_stage`` in plain PyTorch, float32
+    [N_out, Cout]: ``full`` B1's function; ``empty`` zeros; ``search``
+    column 0 = the number of offsets matched for the row; ``gather``
+    ``out[j, c] = Σ_k f[match_k(j), c]`` with the rows in the compute dtype,
+    for ``c < min(Cin, Cout)``, else 0."""
+    if stage == "full":
+        return _fused_sparse_conv_plain(features, kernel, in_keys, out_coords,
+                                        out_valid, offs, s_in, cells,
+                                        compute_dtype)
+    (n_out, _), cout = out_coords.shape, kernel.shape[2]
+    out = torch.zeros((n_out, cout), dtype=torch.float32,
+                      device=features.device)
+    if stage == "search" and cout:
+        match = neighbor_index(in_keys, query_keys(out_coords, out_valid,
+                                                   offs, s_in, cells))
+        out[:, 0] = (match >= 0).sum(1).float()
+    elif stage == "gather":
+        m = min(features.shape[1], cout)
+        out[:, :m] = _gathered(features[:, :m], in_keys, out_coords,
+                               out_valid, offs, s_in, cells,
+                               compute_dtype).float().sum(1)
+    return out
+
+
 # -- CUDA launches ------------------------------------------------------------
 
-# source → (kernel entry, its argtypes, error-string function): six device
+# kernel entry → (source, its argtypes, error-string function): six device
 # pointers, five ints, three host int arrays (offsets, strides, cells),
-# the forward's transpose_weight flag, the stream
+# the forward's transpose_weight flag and stage, the stream
 _ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
          [ctypes.POINTER(ctypes.c_int)] * 3)
 _ENTRIES = {
-    SOURCE: ("fused_sparse_conv_forward",
-             _ARGS + [ctypes.c_int, ctypes.c_void_p],
-             "fused_sparse_conv_error_string"),
-    DW_SOURCE: ("fused_sparse_conv_dkernel", _ARGS + [ctypes.c_void_p],
-                "fused_sparse_conv_dw_error_string"),
+    "fused_sparse_conv_forward": (SOURCE,
+                                  _ARGS + [ctypes.c_int] * 2
+                                  + [ctypes.c_void_p],
+                                  "fused_sparse_conv_error_string"),
+    "fused_sparse_conv_dkernel": (DW_SOURCE, _ARGS + [ctypes.c_void_p],
+                                  "fused_sparse_conv_dw_error_string"),
 }
 
 
-def _lib(source: str):
-    """(kernel entry, error-string function) of ``csrc/<source>``, built
-    and bound at first use."""
+def _lib(entry: str):
+    """(kernel entry, error-string function) of ``entry``, its source
+    built and bound at first use."""
     from ..utils import cuda_build
 
-    return cuda_build.bind(source, *_ENTRIES[source])
+    source, argtypes, err = _ENTRIES[entry]
+    return cuda_build.bind(source, entry, argtypes, err)
 
 
 def _check_operands(dev, compute_dtype, offs, k, *named):
@@ -184,11 +222,15 @@ def _geometry_args(offs, s_in, cells):
 def _launch(features: torch.Tensor, kernel: torch.Tensor,
             in_keys: torch.Tensor, out_coords: torch.Tensor,
             out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
-            compute_dtype, transpose_weight: bool = False) -> torch.Tensor:
+            compute_dtype, transpose_weight: bool = False,
+            stage: str = "full") -> torch.Tensor:
     """Check the operands, allocate the output and launch
     ``fused_sparse_conv.cu`` on PyTorch's current stream (B1; B2 with
     ``transpose_weight``, where ``kernel`` is the forward's [K, Cout, Cin]
-    weight read as [K, Cin, Cout]).  Counts nothing: the wrappers do."""
+    weight read as [K, Cin, Cout]; B8/B9 with ``stage`` other than
+    ``full``).  Counts nothing: the wrappers do."""
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r} not in {STAGES}")
     dev = features.device
     if transpose_weight:
         k, cout, cin = kernel.shape
@@ -208,17 +250,17 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
         return out
     if cin == 0 or features.shape[0] == 0:
         return out.zero_()
-    fn, err = _lib(SOURCE)
+    fn, err = _lib("fused_sparse_conv_forward")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(features.data_ptr(), kernel.data_ptr(), in_keys.data_ptr(),
                 out_coords.data_ptr(), out_valid.data_ptr(), out.data_ptr(),
                 features.shape[0], n_out, cin, cout, k,
                 *_geometry_args(offs, s_in, cells), int(transpose_weight),
-                stream)
+                STAGES.index(stage), stream)
     if rc != 0:
-        raise RuntimeError("fused_sparse_conv launch failed: " +
-                           err(rc).decode())
+        raise RuntimeError("fused_sparse_conv_forward launch failed: "
+                           + err(rc).decode())
     return out
 
 
@@ -243,7 +285,7 @@ def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
     out = torch.zeros((k, cin, cout), dtype=torch.float32, device=dev)
     if 0 in (n_in, n_out, cin, cout):
         return out
-    fn, err = _lib(DW_SOURCE)
+    fn, err = _lib("fused_sparse_conv_dkernel")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(features.data_ptr(), g.data_ptr(), in_keys.data_ptr(),
@@ -346,6 +388,31 @@ def fused_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
+def fused_conv_stage(features: torch.Tensor, kernel: torch.Tensor,
+                     in_grid: SparseGrid, out_grid: SparseGrid,
+                     spec: KernelSpec, stage: str = "full",
+                     compute_dtype=None) -> torch.Tensor:
+    """B1's forward cut at ``stage`` (one of ``STAGES``; see
+    ``_stage_plain``), float32 [N_out, Cout], no gradient: the counterpart
+    of the TPU attribution kernels B8 (`scripts/bench_kernel_parts.py`) and
+    B9 (`scripts/bench_parts_finest.py`).  ``full`` launches B1's own
+    kernel and gives B1's output bit for bit.  CUDA tensors launch the
+    kernel; CPU tensors take the plain version."""
+    if in_grid.extent is None:
+        raise ValueError("fused conv requires a bounded grid")
+    offs, s_in, cells = conv_geometry(in_grid, spec)
+    cd = compute_dtype or default_compute_dtype(features.device)
+    args = (features, kernel, in_grid.flat_keys(), out_grid.coords,
+            out_grid.valid, offs, s_in, cells, cd)
+    if features.device.type == "cpu":
+        return _stage_plain(*args, stage)
+    out = _launch(*args, stage=stage)
+    if out.numel() and features.numel():
+        fused_conv_stage.launches += 1
+    return out
+
+
 fused_sparse_conv.launches = 0
 fused_conv_dfeatures.launches = 0
 fused_conv_dkernel.launches = 0
+fused_conv_stage.launches = 0

@@ -1,0 +1,46 @@
+"""Direct gather-GEMM sparse conv given a kernel map, as a hand-written
+CUDA kernel (B7).
+
+Port of `mink_octtree_stablediffusion_tpu/ops/pallas_conv.py`:
+``pallas_sparse_conv`` replaces the TPU kernel **B7** of the same name,
+the same function as B4 (``out_j = Σ_k f[nbr[k, j]] · W_k``, -1 = missing)
+computed in the features' own dtype with float32 accumulation, the output
+in the features' dtype.  On the card it launches
+``csrc/pallas_sparse_conv.cu`` (rows gathered straight from device memory;
+bf16 features on the tensor cores, float32 features in an FMA loop with no
+TF32 rounding); on the CPU it takes its plain version.  There is no
+fallback: a CUDA tensor launches the kernel or raises.  The JAX docstring's
+"automatic fallback to the XLA path on lowering failure" is not carried
+over (the JAX code has none either).
+
+JAX's ``use_pallas_conv`` / ``enabled`` flag is left out: nothing in
+either package reads it.  The launch count is
+``pallas_sparse_conv.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .onehot_conv import launch_map_conv, map_conv_plain
+
+SOURCE = "pallas_sparse_conv.cu"
+
+def pallas_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
+                       nbr_idx: torch.Tensor, tile: int = 256) -> torch.Tensor:
+    """B7: the conv of ``features`` [N, Cin] (float32 or bfloat16) with
+    ``kernel`` [K, Cin, Cout] along ``nbr_idx`` int32[K, N_out] → [N_out,
+    Cout], in the features' dtype.  ``N_out`` must be a multiple of
+    ``tile`` (JAX asserts it; here it raises ``ValueError``); the tile is
+    otherwise a Mosaic parameter and ignored, and JAX's ``interpret`` is
+    left out."""
+    if nbr_idx.shape[1] % tile:
+        raise ValueError("pad N_out to a multiple of the tile size")
+    if features.device.type == "cpu":
+        return map_conv_plain(features, kernel, nbr_idx, features.dtype)
+    out, launched = launch_map_conv(SOURCE, features, kernel, nbr_idx)
+    pallas_sparse_conv.launches += launched
+    return out
+
+
+pallas_sparse_conv.launches = 0

@@ -1,6 +1,7 @@
 """Tests of the port's CUDA kernels (B1 forward, B2 dF, B3 dW of the fused
-conv; B5 forward and dF pass, B6 dW of the brick conv) and of small VAE
-and diffusion train steps through them; they need an NVIDIA GPU.
+conv; B5 forward and dF pass, B6 dW of the brick conv; B4 and B7, the convs
+given a kernel map; B1's stages, B8/B9) and of small VAE and diffusion
+train steps through them; they need an NVIDIA GPU.
 
 Marked ``cuda``: without a card each test skips (the decision is made
 inside the test).  This file imports neither JAX nor the JAX package, so on
@@ -16,6 +17,8 @@ import torch
 
 import mink_octtree_stablediffusion_tpu_torch as mp
 from mink_octtree_stablediffusion_tpu_torch.ops import fused_conv
+from mink_octtree_stablediffusion_tpu_torch.ops import onehot_conv
+from mink_octtree_stablediffusion_tpu_torch.ops import pallas_conv
 from mink_octtree_stablediffusion_tpu_torch.ops import vol_conv
 
 
@@ -314,3 +317,135 @@ def test_diffusion_train_step_with_brick_gate_on_card():
     assert torch.isfinite(loss)
     for name, p in run.model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def _map_counts():
+    return (onehot_conv.onehot_sparse_conv.launches,
+            pallas_conv.pallas_sparse_conv.launches)
+
+
+def _close_bf16(got, ref):
+    """A bf16 output against its plain version: the two float32 sums may
+    round to neighbouring bf16 values, so one bf16 ulp of max|ref|
+    (2^-8) + 1e-5."""
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -8 * ref.float().abs().max().item() + 1e-5, err
+
+
+def _close_f32(got, ref):
+    """B7 on float32 features vs its float32 plain version: 2e-5·max|ref|,
+    above float32 summation-order error and below what TF32 or bf16
+    rounding of the operands would give."""
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    assert err <= 2e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (37, 70),
+                                      (512, 512)])
+def test_map_conv_kernels_match_plain(cin, cout):
+    """B4 (bf16 operands) and B7 (in the features' dtype: float32, and
+    bf16) against their plain versions on the card, on a kernel map and on
+    the same map shuffled with duplicated columns; each launches once."""
+    dev = _card()
+    g = _grid(dev)
+    nbr = mp.ops.kernel_map(g, g, mp.ops.KernelSpec(3, 1, ndim=3))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    perm = torch.randperm(nbr.shape[1], generator=gen, device=dev)
+    shuffled = nbr[:, perm]
+    shuffled[:, :100] = shuffled[:, 100:200]
+    f = torch.randn(g.capacity, cin, device=dev) * g.valid[:, None]
+    k = torch.randn(27, cin, cout, device=dev) / np.sqrt(27 * cin)
+    for m in (nbr, shuffled.contiguous()):
+        before = _map_counts()
+        got4 = mp.ops.onehot_sparse_conv(f, k, m)
+        got7 = pallas_conv.pallas_sparse_conv(f, k, m)
+        got7b = pallas_conv.pallas_sparse_conv(f.bfloat16(), k, m)
+        assert [a - b for a, b in zip(_map_counts(), before)] == [1, 2]
+        assert got4.dtype == got7.dtype == torch.float32
+        assert got7b.dtype == torch.bfloat16
+        _close_to(got4, onehot_conv.map_conv_plain(f, k, m, torch.bfloat16))
+        _close_f32(got7, onehot_conv.map_conv_plain(f, k, m, torch.float32))
+        _close_bf16(got7b, onehot_conv.map_conv_plain(
+            f.bfloat16(), k, m, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_map_conv_kernels_empty_maps_and_bad_operands():
+    """``N_out = 0`` launches nothing; an all-missing map gives zeros (one
+    launch each); a bad map dtype, a float32 compute dtype for B4 or
+    float64 features raise before any launch."""
+    dev = _card()
+    f = torch.randn(300, 8, device=dev)
+    k = torch.randn(27, 8, 16, device=dev)
+    before = _map_counts()
+    for conv in (mp.ops.onehot_sparse_conv, pallas_conv.pallas_sparse_conv):
+        out = conv(f, k, torch.zeros(27, 0, dtype=torch.int32, device=dev))
+        assert out.shape == (0, 16)
+    assert _map_counts() == before
+    missing = torch.full((27, 256), -1, dtype=torch.int32, device=dev)
+    for conv in (mp.ops.onehot_sparse_conv, pallas_conv.pallas_sparse_conv):
+        out = conv(f, k, missing)
+        torch.cuda.synchronize()
+        assert out.shape == (256, 16) and torch.all(out == 0)
+    assert [a - b for a, b in zip(_map_counts(), before)] == [1, 1]
+    with pytest.raises(ValueError):
+        mp.ops.onehot_sparse_conv(f, k, missing.long())
+    with pytest.raises(ValueError):
+        pallas_conv.pallas_sparse_conv(f.double(), k, missing)
+    with pytest.raises(NotImplementedError):
+        mp.ops.onehot_sparse_conv(f, k, missing, compute_dtype=torch.float32)
+    assert [a - b for a, b in zip(_map_counts(), before)] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_onehot_conv_backward_on_card_matches_cpu():
+    """``onehot_conv``'s backward (plain PyTorch) on the card against the
+    same formula on the CPU; the forward launches B4 once."""
+    dev = _card()
+    g = _grid(dev)
+    nbr = mp.ops.kernel_map(g, g, mp.ops.KernelSpec(3, 1, ndim=3))
+    f = (torch.randn(g.capacity, 5, device=dev) *
+         g.valid[:, None]).requires_grad_()
+    k = (torch.randn(27, 5, 7, device=dev) * 0.1).requires_grad_()
+    gout = torch.randn(g.capacity, 7, device=dev)
+    before = _map_counts()
+    onehot_conv.onehot_conv(f, k, nbr).backward(gout)
+    assert _map_counts()[0] == before[0] + 1
+    ref = onehot_conv._xla_backward(f.detach().cpu(), k.detach().cpu(),
+                                    nbr.cpu(), gout.cpu())
+    for got, r in zip((f.grad, k.grad), ref):
+        _close_to(got.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (96, 130)])
+def test_b1_stages_match_plain(cin, cout):
+    """Each stage of B1 (B8/B9): ``full`` equals B1's output bit for bit
+    and its plain version within 1e-3·max|ref| + 1e-5; ``search`` equals
+    its plain version exactly; ``gather`` (bf16 rows, float32 sums) is
+    within the same bound; ``empty`` is zeros."""
+    dev = _card()
+    g = _grid(dev)
+    spec = mp.ops.KernelSpec(3, 1, ndim=3)
+    f = torch.randn(g.capacity, cin, device=dev) * g.valid[:, None]
+    k = torch.randn(27, cin, cout, device=dev) * 0.1
+    offs, s_in, cells = fused_conv.conv_geometry(g, spec)
+    plain = (f.bfloat16().float(), k.bfloat16().float(), g.flat_keys(),
+             g.coords, g.valid, offs, s_in, cells)
+    before = fused_conv.fused_conv_stage.launches
+    got = {s: fused_conv.fused_conv_stage(f, k, g, g, spec, s)
+           for s in fused_conv.STAGES}
+    assert fused_conv.fused_conv_stage.launches == before + 4
+    b1 = mp.ops.fused_sparse_conv(f, k, g, g, spec)
+    torch.cuda.synchronize()
+    assert torch.equal(got["full"], b1)
+    _close_to(got["full"], fused_conv._stage_plain(*plain, torch.float32,
+                                                   "full"))
+    assert torch.equal(got["search"], fused_conv._stage_plain(
+        *plain, torch.float32, "search"))
+    _close_to(got["gather"], fused_conv._stage_plain(*plain, torch.float32,
+                                                     "gather"))
+    assert torch.all(got["empty"] == 0)
