@@ -58,7 +58,9 @@ extra cases; the backward kernels with the captured cotangent scaled by a
 power of two to unit RMS, see ``unit_rms``), within ``1e-3·max|ref| +
 1e-5``, and timed (CUDA events, median of 25 after warm-up) beside its
 bound, its plain version and, for the brick kernels, one cuDNN call that
-computes the same function.  Last, tiny configurations run on the card
+computes the same function.  B1's stages (the cut that B8/B9 time on
+the library path) are also timed on the generation path's two heaviest
+launch shapes (``stage_table``).  Last, tiny configurations run on the card
 and on the CPU (plain versions under the same bf16 compute policy) with
 the same weights, inputs and noise: a generation (``tiny_reference``), a
 VAE train step (``tiny_train_reference``) and a diffusion train step with
@@ -81,6 +83,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import sys
 import time
@@ -1271,6 +1274,42 @@ def check_stage(mp, kernel, w, stage, b1_out):
     return rec
 
 
+def stage_table(mp, key, ops, count) -> dict:
+    """B1's stages (the cut that B8/B9 time on the library path) on one
+    launch shape of the generation path, ``key`` with the operands ``ops``
+    of its first launch and ``count`` launches per request: each stage's
+    CUDA-event and profiler device ms, and its output held as
+    ``check_stage`` holds it (``empty`` and ``search`` exact, ``gather``
+    within 1e-3·max|ref| + 1e-5, ``full`` equal to B1 bit for bit)."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    fc = mp.ops.fused_conv
+    plain_ops = ((ops[0].bfloat16().float(), ops[1].bfloat16().float()) +
+                 tuple(ops[2:]) + (torch.float32,))
+    b1 = fc._launch(*ops, torch.bfloat16)
+    stages = {}
+    for stage in ("empty", "search", "gather", "full"):
+        def run(stage=stage):
+            return fc._launch(*ops, torch.bfloat16, stage=stage)
+        out = run()
+        if stage == "full":
+            good = bool(torch.equal(out, b1))
+        else:
+            ref = fc._stage_plain(*plain_ops, stage)
+            err = (out - ref).abs().max().item()
+            good = bool(torch.equal(out, ref) if stage != "gather" else
+                        err <= 1e-3 * ref.abs().max().item() + 1e-5)
+            del ref
+        del out
+        stages[stage] = {"ms": bc.cuda_time_ms(run),
+                         "device_ms": bc.device_ms(run), "ok": good}
+    rec = {"b1_stage_table": "generation", "launch_shape": list(key),
+           "launches_per_request": count, "stages": stages,
+           "ok": all(v["ok"] for v in stages.values())}
+    emit(rec)
+    return rec
+
+
 def library_phase(mp, dev, power) -> dict:
     """The library path (`bench_conv`) at full size, seed 0.
 
@@ -1623,6 +1662,19 @@ def main(argv) -> int:
                               for k, c in sorted(per_diff_step[n].items())],
             **tot_diff[n]} for n in KERNELS}})
 
+    # B1's stages on the generation path's two heaviest launch shapes
+    gen_recs = recs[("B1", "generation")]
+    heavy = sorted(per_request["B1"], reverse=True,
+                   key=lambda k: per_request["B1"][k] * gen_recs[k]["ms"])
+    try:
+        for key in heavy[:2]:
+            need(stage_table(mp, key, cap.case("generation", "B1")[key],
+                             per_request["B1"][key])["ok"],
+                 "B1 stages on the generation path")
+    except Exception:
+        traceback.print_exc()
+        need(False, "B1 stages on the generation path")
+
     # B5 against B1 on the same convs (gate on vs gate off at step 1)
     for label, off, on in (("diffusion", diff_off, diff_on),
                            ("vae", vae_off, vae_on)):
@@ -1741,12 +1793,13 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
                    and e.self_device_time_total > 0), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
 
-    def kernel_s(*names):
-        return sum(r[0] for r in rows if all(n in r[1] for n in names)) / 1e6
+    def kernel_s(pattern):
+        return sum(r[0] for r in rows if re.search(pattern, r[1])) / 1e6
     emit({"profile": label, "device_busy_s": busy_s,
           "device_kernels": sum(r[2] for r in rows),
-          "B1_s": kernel_s("fused_sparse_conv_kernel<false, 0>"),
-          "B2_s": kernel_s("fused_sparse_conv_kernel<true, 0>"),
+          # B1 and B2 are one instantiation (B2's weight is cast
+          # transposed), told apart only by their launches
+          "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
           "B3_s": kernel_s("fused_sparse_conv_dw_kernel"),
           "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
           "B6_s": kernel_s("brick_conv_dw_kernel"),

@@ -10,213 +10,489 @@
 //   - the dF backward (B2, `_FusedStatic.flipped`): the same search run in
 //     the transpose direction -- the grids swap roles, the offsets negate,
 //     the searched lattice is the forward's output lattice -- over the
-//     cotangent g with W_k read transposed (`transpose_weight`: the weight
-//     stays the forward's [k, Cout, Cin] in memory, no transposed copy).
+//     cotangent g with W_k transposed, which the operand cast below
+//     applies.
 // One kernel covers plain k3s1, strided k3s2, pinned transpose k2s2 and
 // generative k2s2 convs in both directions: only the offsets and strides
 // differ.
 //
 // What bounds it on the H100: at the widths of the main path (Cin, Cout in
-// 1..512, a few thousand to 131072 rows) the arithmetic intensity of one
-// conv is far below the ~295 FLOP/byte the card needs to be compute bound,
-// so its bound is the bytes it must move — the features, the weights, the
-// keys and coordinates once, the output once.  What this first design does
-// about it: the query keys are computed in the kernel from the output
-// coordinates (no int32[N_out, K] map round-trips through device memory),
-// each output tile searches each offset once and skips offsets for which
-// no row of the tile has a neighbour, and the gathered rows go straight
-// into shared memory as bf16.  What it does not do yet: the search is
-// repeated for each Cout tile, the weights are re-read by every row tile,
-// and loads are not pipelined (no cp.async/TMA, no wgmma) — later work.
+// 1..512, 2,048 to 131,072 rows) one conv's arithmetic intensity is far
+// below the ~295 FLOP/byte the card needs to be compute bound, so its
+// bound is the bytes it must move (features, weights, keys, coordinates
+// once, the output once) or, at 512 -> 512, the matched pairs' operations.
+// The first design ran ~90x its bound: each block of 64 rows x 64
+// Cout repeated all K binary searches for every Cout tile, gathered fp32
+// rows 4 bytes a thread and converted them in place, re-read and
+// converted the fp32 W_k chunk for every row tile, and loaded
+// synchronously between two wmma steps.  This design:
+//   - each operand is cast once per call, by a pass in this file that
+//     runs before the conv (`cast_operands_kernel`; its plain versions are
+//     `ops/fused_conv.py::pad_features` and `pack_weight`): features to
+//     bf16 [n_in, CinF] (CinF a multiple of 8, zero-filled), the weight to
+//     bf16 [K, CinW, CoutP] (CinW a multiple of the chunk BK, CoutP of the
+//     tile BN, zero-filled; transposed in the same pass for dF);
+//   - a row tile of 128 output rows is searched once: the K searches fill
+//     sIdx[K][128] in shared memory, offsets with no match in the tile are
+//     dropped from a compact list; the tile's C = min(Cout tiles, 8)
+//     blocks form a thread-block cluster, block y searching a C-th of the
+//     offsets and reading the others' sIdx through distributed shared
+//     memory, and walking Cout tiles y, y + C, ... (so a wide conv over few
+//     rows still fills the card); a tile whose rows are all invalid (the
+//     padding of the decoder's levels) writes zeros and exits at once;
+//   - a ring of 3-6 stages over (live offset, BK-channel Cin chunk): the
+//     matched rows are gathered with 16-byte `cp.async` copies into an
+//     XOR-swizzled tile (zero-filled on a miss; Hopper's TMA has no row
+//     gather), the W_k box with 16-byte `cp.async` copies, and the copies
+//     of the next stages are in flight while one stage multiplies;
+//   - the product on the tensor cores through `mma.sync.m16n8k16` and
+//     `ldmatrix` (`hopper_mma.cuh`), both swizzled tiles free of bank
+//     conflicts; 8 warps as 4 x 2, each 32 rows x BN/2 columns.  A
+//     `wgmma` version of this product (two warpgroups of 64 rows, A from
+//     registers, the W_k box as MN-major core matrices read through a
+//     descriptor) gave the same output bit for bit but ran 10-20% slower
+//     per launch on the H100 in this ring, where each stage ends in a
+//     barrier before its slot is refilled (PERF.md), so the warp-level
+//     product stays;
+//   - the epilogue stores fp32 pairs from the accumulators, masked at the
+//     ragged rows and columns.
+// What is left: the gathered rows are re-read for each Cout tile past the
+// first; a tile multiplies its missed rows as zeros; the gather is
+// latency bound (a warp-specialised producer and a deeper ring would hide
+// it, and let `wgmma` run ahead of the barrier); the wrapper's host path
+// (checks, the launch) is longer than the kernel for the narrow convs.
 //
-// Tiles: one 128-thread block per (64-row output tile, 64-wide Cout tile);
-// each warp owns 16 rows x 64 columns as four 16x16 wmma accumulators.
-// Ragged rows, Cin and Cout are zero-padded in shared memory.
+// Tiles: BM = 128 rows; BN in {32, 64, 128} after Cout and BK in {16, 32,
+// 64} after Cin (`ops/fused_conv.py::tile_shape`).
 //
-// Stages (the compile-time `kStage`, default kFull): the same kernel cut at
-// a point of its pipeline, so that each stage's cost on the card can be
-// seen.  They replace the TPU kernels `scripts/bench_kernel_parts.py::
-// variant_conv` (B8) and `scripts/bench_parts_finest.py::variant` (B9), which
-// cut `_fused_impl` the same way (`empty`, `dma` + `compare`, `matmul`,
+// Stages (`stage`, default kFull): the same kernel cut at a point of its
+// pipeline, so that each stage's cost on the card can be seen.  They
+// replace the TPU kernels `scripts/bench_kernel_parts.py::variant_conv`
+// (B8) and `scripts/bench_parts_finest.py::variant` (B9), which cut
+// `_fused_impl` the same way (`empty`, `dma` + `compare`, `matmul`,
 // `full`).  Each stage writes an output that depends on all of its work:
 //   - kEmpty:  zeros (launch and grid overhead);
 //   - kSearch: column 0 = the number of offsets matched for the row, other
 //     columns 0 (every query key and all K searches run);
 //   - kGather: out[j, c] = sum_k bf16(f[match_k(j), c]) in fp32 for
-//     c < min(Cin, Cout), else 0 (every gather runs, no weight load, no GEMM);
+//     c < min(Cin, Cout), else 0 (the search and every gather of every
+//     Cout tile run; no weight load, no product);
 //   - kFull:   the conv itself (B1/B2): `full` launches the very
 //     instantiation that B1 launches, so its output is B1's bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include "hopper_mma.cuh"
 #include "sparse_conv_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
+using namespace hopper;
 using sparse_conv::Geom;
+using sparse_conv::MAX_K;
 
-constexpr int BM = 64;      // output rows per block
-constexpr int BN = 64;      // output channels per block
-constexpr int BK = 32;      // input channels per chunk
-constexpr int NTHREADS = 128;
-constexpr int LDA = BK + 8;  // bf16 elements, multiple of 8 for wmma
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;  // floats, multiple of 4 for wmma
+constexpr int BM = 128;  // output rows per block
+constexpr int NTHREADS = 256;
+constexpr int MAX_CLUSTER = 8;  // blocks of a row tile (portable cluster size)
 
 enum Stage { kFull = 0, kEmpty = 1, kSearch = 2, kGather = 3 };
 
-// kTransW: W_k is stored [cout][cin] (the forward's weight, read by dF)
-// instead of [cin][cout].  kStage: see the header.
-template <bool kTransW, int kStage>
-__global__ void __launch_bounds__(NTHREADS) fused_sparse_conv_kernel(
-    const float* __restrict__ feat, const float* __restrict__ weight,
-    const int* __restrict__ in_keys, const int* __restrict__ out_coords,
+template <int BN, int BK>
+struct Cfg {
+  static constexpr int A_ELEMS = BM * BK;  // gathered rows, swizzled
+  static constexpr int B_ELEMS = BK * BN;  // W_k box, swizzled
+  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
+  static constexpr int STAGE_BYTES = STAGE_ELEMS * 2;
+  static constexpr int STAGES =
+      STAGE_BYTES > 24576 ? 3 : STAGE_BYTES > 16384 ? 4 : 6;
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
+};
+
+// Dynamic shared memory: the ring, sIdx [K][BM], the live-offset list
+// (MAX_K + 1 ints, its count last), the block's 4-word mask of live
+// offsets and the cluster's.
+template <int BN, int BK>
+size_t smem_bytes(int k) {
+  return (size_t)Cfg<BN, BK>::RING_BYTES +
+         ((size_t)k * BM + MAX_K + 1 + 8) * 4;
+}
+
+template <int BN, int BK, int kStage>
+__global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
+    const __nv_bfloat16* __restrict__ feat,
+    const __nv_bfloat16* __restrict__ wp, const int* __restrict__ in_keys,
+    const int* __restrict__ out_coords,
     const unsigned char* __restrict__ out_valid, float* __restrict__ out,
-    int n_in, int n_out, int cin, int cout, const Geom g) {
-  __shared__ __align__(128) __nv_bfloat16 sA[BM * LDA];
-  __shared__ __align__(128) __nv_bfloat16 sB[BK * LDB];
-  __shared__ __align__(128) float sC[BM * LDC];
-  __shared__ int sIdx[BM];
+    int n_in, int n_out, int cinf, int cin, int cinw, int cout, int coutp,
+    const Geom g) {
+  using C = Cfg<BN, BK>;
+  constexpr int STAGES = C::STAGES;
+  constexpr int WCOLS = BN / 2;   // a warp's columns
+  constexpr int NF = WCOLS / 8;   // its n8 tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* sRing = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* sIdx = reinterpret_cast<int*>(smem + C::RING_BYTES);
+  int* sLive = sIdx + g.k * BM;
+  unsigned* sMask = reinterpret_cast<unsigned*>(sLive + MAX_K + 1);
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-
+  // the cluster of a row tile spans the grid's y: block y of C takes Cout
+  // tiles y, y + C, ... and a C-th of the search
+  const int crank = blockIdx.y, csize = gridDim.y;
+  const int ntn = (cout + BN - 1) / BN;
+  // out[row0 + r][c] = f(r, c) over the block's rows and Cout tiles
+  auto fill = [&](auto f) {
+    const int rows = min(BM, n_out - row0);
+    for (int t = crank; t < ntn; t += csize) {
+      const int c0 = t * BN, w = min(BN, cout - c0);
+      for (int e = tid; e < rows * w; e += NTHREADS) {
+        const int rr = e / w, c = c0 + e - rr * w;
+        out[(size_t)(row0 + rr) * cout + c] = f(rr, c);
+      }
+    }
+  };
+  auto zero = [](int, int) { return 0.0f; };
   if constexpr (kStage == kEmpty) {
-    for (int e = tid; e < BM * BN; e += NTHREADS) {
-      const int gr = row0 + e / BN, gc = col0 + e % BN;
-      if (gr < n_out && gc < cout) out[(size_t)gr * cout + gc] = 0.0f;
-    }
+    fill(zero);
     return;
   }
 
-  int coord[4] = {-1, 0, 0, 0};  // this thread's output row (tid < BM)
-  if (tid < BM) sparse_conv::load_coord(coord, row0 + tid, n_out, out_coords, out_valid);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  int matched = 0;  // kSearch: offsets matched for this thread's row
-  if constexpr (kStage == kGather) {  // the sums live in the output stage
-    for (int e = tid; e < BM * LDC; e += NTHREADS) sC[e] = 0.0f;
-    __syncthreads();
-  }
-
-  for (int k = 0; k < g.k; ++k) {
-    // 1. each row searches its query key in the sorted input keys
-    const int found = tid < BM ? sparse_conv::find_neighbor(coord, k, g, in_keys, n_in) : -1;
-    if (tid < BM) sIdx[tid] = found;
-    matched += found >= 0;
-    if (!__syncthreads_or(found >= 0)) continue;  // no neighbour in the tile
-    if constexpr (kStage == kSearch) continue;
-
-    const float* wk = weight + (size_t)k * cin * cout;
-    for (int c0 = 0; c0 < cin; c0 += BK) {
-      // 2. gather the matched rows (bf16, zero on a miss or past Cin)
-      for (int e = tid; e < BM * BK; e += NTHREADS) {
-        const int r = e / BK, c = e % BK, src = sIdx[r], cc = c0 + c;
-        const float v = (src >= 0 && cc < cin) ? __ldg(feat + (size_t)src * cin + cc) : 0.0f;
-        sA[r * LDA + c] = __float2bfloat16(v);
-      }
-      if constexpr (kStage == kGather) {
-        // add the chunk's channels that are output columns of this block
-        // (c < min(Cin, Cout)); one thread per element, in offset order
-        __syncthreads();
-        const int lo_c = max(c0, col0);
-        const int w = min(min(c0 + BK, min(cin, cout)), col0 + BN) - lo_c;
-        for (int e = tid; e < BM * w; e += NTHREADS) {
-          const int r = e / w, c = lo_c + e % w;
-          sC[r * LDC + c - col0] += __bfloat162float(sA[r * LDA + c - c0]);
-        }
-        __syncthreads();
-        continue;
-      }
-      // ... and the W_k chunk (bf16, zero past Cin / Cout); neighbouring
-      // threads read neighbouring addresses in either layout
-      for (int e = tid; e < BK * BN; e += NTHREADS) {
-        const int r = kTransW ? e % BK : e / BN;
-        const int c = kTransW ? e / BK : e % BN;
-        const int cr = c0 + r, cc = col0 + c;
-        float v = 0.0f;
-        if (cr < cin && cc < cout)
-          v = __ldg(wk + (kTransW ? (size_t)cc * cin + cr : (size_t)cr * cout + cc));
-        sB[r * LDB + c] = __float2bfloat16(v);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sA + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, sB + kk * LDB + j * 16, LDB);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if constexpr (kStage == kSearch || kStage == kGather) {
-    if constexpr (kStage == kSearch) {
-      __syncthreads();
-      if (tid < BM) sIdx[tid] = matched;
-    }
-    __syncthreads();
-    for (int e = tid; e < BM * BN; e += NTHREADS) {
-      const int r = e / BN, c = e % BN, gr = row0 + r, gc = col0 + c;
-      if (gr < n_out && gc < cout)
-        out[(size_t)gr * cout + gc] =
-            kStage == kSearch ? (gc == 0 ? (float)sIdx[r] : 0.0f) : sC[r * LDC + c];
-    }
+  // thread (r, half) of block y searches row r's offsets k = 2y + half
+  // (mod 2C); the cluster then shares sIdx through distributed shared
+  // memory, so each (row, offset) is searched once
+  const int r = tid & (BM - 1), half = tid >> 7;
+  int coord[4] = {-1, 0, 0, 0};
+  sparse_conv::load_coord(coord, row0 + r, n_out, out_coords, out_valid);
+  if (tid < 8) sMask[tid] = 0u;
+  // the same for every block of the cluster: all exit, or none
+  if (!__syncthreads_or(coord[0] >= 0)) {  // all rows invalid or past the end
+    fill(zero);
     return;
   }
-
-  // 3. store fp32 through shared memory, masking the ragged edges
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(sC + warp * 16 * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
+  for (int k = 2 * crank + half; k < g.k; k += 2 * csize) {
+    const int f = sparse_conv::find_neighbor(coord, k, g, in_keys, n_in);
+    sIdx[k * BM + r] = f;
+    // a warp's lanes share k
+    if (__any_sync(0xffffffffu, f >= 0) && lane == 0)
+      atomicOr(&sMask[k >> 5], 1u << (k & 31));
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every block's searches are done and visible
+  if (csize > 1) {
+    for (int e = tid; e < g.k * BM; e += NTHREADS) {
+      const int owner = ((e / BM) % (2 * csize)) >> 1;
+      if (owner != crank) sIdx[e] = *cluster.map_shared_rank(sIdx + e, owner);
+    }
+    if (tid < 4) {
+      unsigned m = 0u;
+      for (int b = 0; b < csize; ++b) m |= *cluster.map_shared_rank(sMask + tid, b);
+      sMask[4 + tid] = m;
+    }
+    cluster.sync();  // no block leaves while another reads its shared memory
+  }
   __syncthreads();
-  for (int e = tid; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN, c = e % BN, gr = row0 + r, gc = col0 + c;
-    if (gr < n_out && gc < cout) out[(size_t)gr * cout + gc] = sC[r * LDC + c];
+  const unsigned* sLiveMask = csize > 1 ? sMask + 4 : sMask;
+
+  if constexpr (kStage == kSearch) {
+    int* sCnt = reinterpret_cast<int*>(smem);  // the ring is unused
+    if (half == 0) {
+      int n = 0;
+      for (int k = 0; k < g.k; ++k) n += sIdx[k * BM + r] >= 0;
+      sCnt[r] = n;
+    }
+    __syncthreads();
+    fill([&](int rr, int c) { return c == 0 ? (float)sCnt[rr] : 0.0f; });
+    return;
   }
+
+  if (tid == 0) {  // the live offsets, in order
+    int n = 0;
+    for (int k = 0; k < g.k; ++k)
+      if ((sLiveMask[k >> 5] >> (k & 31)) & 1u) sLive[n++] = k;
+    sLive[MAX_K] = n;
+  }
+  __syncthreads();
+  const int nch = cinw / BK;
+  const int steps = sLive[MAX_K] * nch;  // (live offset, Cin chunk)
+  const int wm = warp & 3, wn = warp >> 2;
+  const int mlim = min(cin, cout);  // kGather's columns
+
+  for (int tn = crank; tn < ntn; tn += csize) {
+    const int n0 = tn * BN;
+    // step s: the gathered rows of (offset, chunk) and, for the product,
+    // the W_k box, as one cp.async group (empty past the last step)
+    auto load_step = [&](int s) {
+      if (s < steps) {
+        const int li = s / nch, c0 = (s - li * nch) * BK, k = sLive[li];
+        __nv_bfloat16* sA = sRing + (s % STAGES) * C::STAGE_ELEMS;
+        const int* idx = sIdx + k * BM;
+        for (int e = tid; e < BM * (BK / 8); e += NTHREADS) {
+          const int row = e / (BK / 8), seg = e % (BK / 8);
+          const int src = idx[row], ch = c0 + seg * 8;
+          const bool ok = src >= 0 && ch < cinf;
+          cp_async16(
+              smem_u32(sA + row * BK + swizzle<BK / 8>(row, seg) * 8),
+              ok ? feat + (size_t)src * cinf + ch : feat, ok ? 16 : 0);
+        }
+        if constexpr (kStage == kFull) {
+          __nv_bfloat16* sB = sA + C::A_ELEMS;
+          const __nv_bfloat16* wk =
+              wp + ((size_t)k * cinw + c0) * coutp + n0;
+          for (int e = tid; e < BK * (BN / 8); e += NTHREADS) {
+            const int kr = e / (BN / 8), seg = e % (BN / 8);
+            cp_async16(
+                smem_u32(sB + kr * BN + swizzle<BN / 8>(kr, seg) * 8),
+                wk + (size_t)kr * coutp + seg * 8, 16);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+    float acc[2][NF][4];  // kFull: 32 rows x WCOLS of the warp
+    float gsum[WCOLS];    // kGather: row r, columns half * WCOLS + j
+    if constexpr (kStage == kFull) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < NF; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.0f;
+    } else {
+#pragma unroll
+      for (int j = 0; j < WCOLS; ++j) gsum[j] = 0.0f;
+    }
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) load_step(s);
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<STAGES - 2>();  // step s has landed ...
+      __syncthreads();  // ... for every thread; stage (s - 1) % STAGES is free
+      load_step(s + STAGES - 1);
+      const __nv_bfloat16* sA = sRing + (s % STAGES) * C::STAGE_ELEMS;
+      if constexpr (kStage == kFull) {
+        const __nv_bfloat16* sB = sA + C::A_ELEMS;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const int row = wm * 32 + mi * 16 + (lane & 15);
+            ldmatrix_x4(a[mi], smem_u32(sA + row * BK +
+                                        swizzle<BK / 8>(row, kk * 2 + (lane >> 4)) * 8));
+          }
+          const int krow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int jp = 0; jp < NF / 2; ++jp) {
+            const int chunk = (wn * WCOLS + jp * 16) / 8 + (lane >> 4);
+            uint32_t b[4];
+            ldmatrix_x4_trans(
+                b, smem_u32(sB + krow * BN + swizzle<BN / 8>(krow, chunk) * 8));
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_16816(acc[mi][2 * jp], a[mi], b[0], b[1]);
+              mma_16816(acc[mi][2 * jp + 1], a[mi], b[2], b[3]);
+            }
+          }
+        }
+      } else {  // kGather: add the chunk's columns that are this row's
+        const int li = s / nch, c0 = (s - li * nch) * BK;
+        const int lo = n0 + half * WCOLS;
+        if (c0 < min(lo + WCOLS, mlim) && c0 + BK > lo) {
+#pragma unroll
+          for (int j = 0; j < WCOLS; ++j) {
+            const int col = lo + j, cc = col - c0;
+            if (cc >= 0 && cc < BK && col < mlim)
+              gsum[j] += __bfloat162float(
+                  sA[r * BK + swizzle<BK / 8>(r, cc >> 3) * 8 + (cc & 7)]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the next Cout tile
+
+    if constexpr (kStage == kFull) {
+      const int t2 = (lane & 3) * 2;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h8 = 0; h8 < 2; ++h8) {
+          const int row = row0 + wm * 32 + mi * 16 + (lane >> 2) + h8 * 8;
+          if (row >= n_out) continue;
+          float* rp = out + (size_t)row * cout;
+#pragma unroll
+          for (int j = 0; j < NF; ++j)
+            store_pair(rp, n0 + wn * WCOLS + j * 8 + t2, cout,
+                       acc[mi][j][h8 * 2], acc[mi][j][h8 * 2 + 1]);
+        }
+    } else if (row0 + r < n_out) {
+      float* rp = out + (size_t)(row0 + r) * cout;
+#pragma unroll
+      for (int j = 0; j < WCOLS; ++j) {
+        const int col = n0 + half * WCOLS + j;
+        if (col < cout) rp[col] = gsum[j];
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *feat, *wp, *in_keys, *out_coords, *out_valid;
+  void* out;
+  int n_in, n_out, cinf, cin, cinw, cout, coutp;
+};
+
+template <int BN, int BK, int kStage>
+int launch(const Args& a, const Geom& g, cudaStream_t stream) {
+  auto kernel = fused_sparse_conv_kernel<BN, BK, kStage>;
+  const size_t smem = kStage == kEmpty ? 0 : smem_bytes<BN, BK>(g.k);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  // one cluster of C blocks per row tile, C = the Cout tiles (at most 8)
+  const int csize = min((a.cout + BN - 1) / BN, MAX_CLUSTER);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.n_out + BM - 1) / BM, csize, 1);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = csize;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, (const __nv_bfloat16*)a.feat, (const __nv_bfloat16*)a.wp,
+      (const int*)a.in_keys, (const int*)a.out_coords,
+      (const unsigned char*)a.out_valid, (float*)a.out, a.n_in, a.n_out,
+      a.cinf, a.cin, a.cinw, a.cout, a.coutp, g);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int kStage>
+int launch_tile(int bn, int bk, const Args& a, const Geom& g,
+                cudaStream_t s) {
+  switch (bn * 1000 + bk) {
+    case 32016: return launch<32, 16, kStage>(a, g, s);
+    case 32032: return launch<32, 32, kStage>(a, g, s);
+    case 32064: return launch<32, 64, kStage>(a, g, s);
+    case 64016: return launch<64, 16, kStage>(a, g, s);
+    case 64032: return launch<64, 32, kStage>(a, g, s);
+    case 64064: return launch<64, 64, kStage>(a, g, s);
+    case 128016: return launch<128, 16, kStage>(a, g, s);
+    case 128032: return launch<128, 32, kStage>(a, g, s);
+    case 128064: return launch<128, 64, kStage>(a, g, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The operand casts, one pass before the conv (`ops/fused_conv.py::
+// pad_features` and `pack_weight` are their plain versions): features fp32
+// [n_in, cin] -> bf16 [n_in, cinf], zero past cin; weight fp32 [k, cin,
+// cout] ([k, cout, cin], the forward's, read transposed for dF) -> bf16
+// [k, cinw, coutp], zero past cin and cout.  Rounds as __float2bfloat16.
+__global__ void cast_operands_kernel(const float* __restrict__ f,
+                                     __nv_bfloat16* __restrict__ fb,
+                                     const float* __restrict__ w,
+                                     __nv_bfloat16* __restrict__ wp,
+                                     int n_in, int cin, int cinf, int cout,
+                                     int k, int cinw, int coutp,
+                                     int transpose) {
+  const long long nf = (long long)n_in * cinf;
+  const long long total = nf + (long long)k * cinw * coutp;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    if (e < nf) {
+      const long long r = e / cinf;
+      const int c = (int)(e - r * cinf);
+      fb[e] = __float2bfloat16(c < cin ? f[r * cin + c] : 0.0f);
+    } else {
+      const long long q = e - nf;
+      const long long o = q / ((long long)cinw * coutp);
+      const int rem = (int)(q - o * cinw * coutp);
+      const int i = rem / coutp, j = rem - i * coutp;
+      float v = 0.0f;
+      if (i < cin && j < cout)
+        v = transpose ? w[(o * cout + j) * cin + i] : w[(o * cin + i) * cout + j];
+      wp[q] = __float2bfloat16(v);
+    }
+  }
+}
+
+int cast_operands(const void* feat, const void* w, void* fb, void* wp,
+                  int n_in, int cin, int cout, int k, int bn, int bk,
+                  int transpose, cudaStream_t stream) {
+  const int cinf = (cin + 7) / 8 * 8, cinw = (cin + bk - 1) / bk * bk;
+  const int coutp = (cout + bn - 1) / bn * bn;
+  const long long total =
+      (long long)n_in * cinf + (long long)k * cinw * coutp;
+  const int blocks = (int)(total / 256 + 1 < 4096 ? total / 256 + 1 : 4096);
+  cast_operands_kernel<<<blocks, 256, 0, stream>>>(
+      (const float*)feat, (__nv_bfloat16*)fb, (const float*)w,
+      (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp, transpose);
+  return (int)cudaGetLastError();
+}
+
+bool valid_tile(int bn, int bk) {
+  return (bn == 32 || bn == 64 || bn == 128) &&
+         (bk == 16 || bk == 32 || bk == 64);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() right after the launch.
-// feat fp32 [n_in, cin], weight fp32 [k, cin, cout] ([k, cout, cin] when
-// transpose_weight != 0), in_keys int32 [n_in] (sorted, INT32_MAX on
+// The operand casts alone (the pass `fused_sparse_conv_forward` runs
+// first): feat fp32 [n_in, cin] -> fb bf16 [n_in, cin rounded up to 8];
+// w fp32 [k, cin, cout] ([k, cout, cin] with transpose) -> wp bf16 [k, cin
+// rounded up to bk, cout rounded up to bn].
+extern "C" int fused_sparse_conv_cast(const void* feat, const void* w,
+                                      void* fb, void* wp, int n_in, int cin,
+                                      int cout, int k, int bn, int bk,
+                                      int transpose, void* stream) {
+  if (n_in < 0 || cin < 1 || cout < 1 || k < 1 || !valid_tile(bn, bk))
+    return (int)cudaErrorInvalidValue;
+  return cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
+                       transpose, (cudaStream_t)stream);
+}
+
+// Launch on `stream`: the operand casts into fb and wp (as
+// `fused_sparse_conv_cast`), then the conv; returns cudaGetLastError()
+// right after the launches.  in_keys int32 [n_in] (sorted, INT32_MAX on
 // padding rows), out_coords int32 [n_out, 4], out_valid bool [n_out], out
 // fp32 [n_out, cout]; offs [k*3], s_in [3] and cells [3] are host arrays.
-// `stage` is a Stage (see the header): kFull is the conv (B1, or B2 with
-// transpose_weight); the cut stages (B8/B9) take no transposed weight.
+// (bn, bk) is the tile (`ops/fused_conv.py::tile_shape`); `stage` a Stage
+// (see the header); transpose only with kFull (B2).
 extern "C" int fused_sparse_conv_forward(
-    const void* feat, const void* weight, const void* in_keys,
+    const void* feat, const void* w, void* fb, void* wp, const void* in_keys,
     const void* out_coords, const void* out_valid, void* out, int n_in,
     int n_out, int cin, int cout, int k, const int* offs, const int* s_in,
-    const int* cells, int transpose_weight, int stage, void* stream) {
-  if (k < 1 || k > sparse_conv::MAX_K || n_out < 1 || cout < 1 || cin < 1 ||
-      stage < kFull || stage > kGather || (transpose_weight && stage != kFull))
+    const int* cells, int bn, int bk, int transpose, int stage,
+    void* stream) {
+  if (k < 1 || k > MAX_K || n_in < 1 || n_out < 1 || cout < 1 || cin < 1 ||
+      !valid_tile(bn, bk) || stage < kFull || stage > kGather ||
+      (transpose && stage != kFull))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc = cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
+                         transpose, s);
+  if (rc != 0) return rc;
+  const Args a{fb, wp, in_keys, out_coords, out_valid, out, n_in, n_out,
+               (cin + 7) / 8 * 8, cin, (cin + bk - 1) / bk * bk, cout,
+               (cout + bn - 1) / bn * bn};
   const Geom g = sparse_conv::make_geom(k, offs, s_in, cells);
-  const dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN);
-  auto kernel = transpose_weight   ? fused_sparse_conv_kernel<true, kFull>
-                : stage == kEmpty  ? fused_sparse_conv_kernel<false, kEmpty>
-                : stage == kSearch ? fused_sparse_conv_kernel<false, kSearch>
-                : stage == kGather ? fused_sparse_conv_kernel<false, kGather>
-                                   : fused_sparse_conv_kernel<false, kFull>;
-  kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)feat, (const float*)weight, (const int*)in_keys,
-      (const int*)out_coords, (const unsigned char*)out_valid, (float*)out,
-      n_in, n_out, cin, cout, g);
-  return (int)cudaGetLastError();
+  switch (stage) {  // each stage on the tile and cluster of the conv
+    case kEmpty: return launch_tile<kEmpty>(bn, bk, a, g, s);
+    case kSearch: return launch_tile<kSearch>(bn, bk, a, g, s);
+    case kGather: return launch_tile<kGather>(bn, bk, a, g, s);
+    default: return launch_tile<kFull>(bn, bk, a, g, s);
+  }
 }
 
 extern "C" const char* fused_sparse_conv_error_string(int code) {

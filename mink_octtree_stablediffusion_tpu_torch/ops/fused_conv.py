@@ -7,7 +7,7 @@ onehot_conv.py` that ``fused_sparse_conv`` and its custom VJP
 
 - **B1**, ``_fused_impl``: the forward, ``csrc/fused_sparse_conv.cu``;
 - **B2**, ``_fused_impl`` in the flipped direction (``_FusedStatic.
-  flipped``): dF, the same CUDA kernel reading ``W_k`` transposed;
+  flipped``): dF, the same CUDA kernel on the weight cast transposed;
 - **B3**, ``_dkernel_fused``: dW, ``csrc/fused_sparse_conv_dw.cu``;
 - **B8/B9**, B1 cut into stages by the repository's attribution scripts
   (`scripts/bench_kernel_parts.py::variant_conv` on the room,
@@ -16,7 +16,10 @@ onehot_conv.py` that ``fused_sparse_conv`` and its custom VJP
 
 Each source is CUDA C++ for ``sm_90a`` (bf16 tensor-core GEMM with float32
 accumulation) whose header states what bounds it on the H100 and what its
-design does about that.
+design does about that.  B1's source casts its operands to bf16 once per
+call in a pass before the conv (plain versions: ``pad_features``,
+``pack_weight``; the padding follows the tile that ``tile_shape`` picks);
+B3's kernel still reads float32.
 
 For each output row j and offset k the query ``out_coord_j + delta_k`` must
 lie on the input lattice, inside the extent, and row j must be valid; its
@@ -50,6 +53,7 @@ import torch
 from .conv import default_compute_dtype, mm_f32
 from .coords import SparseGrid, _cells, _tuplize, device_const
 from .kernels import KernelSpec
+from ..utils.device import stream_guard
 
 SOURCE = "fused_sparse_conv.cu"  # B1, B2 and the stages (B8/B9)
 DW_SOURCE = "fused_sparse_conv_dw.cu"  # B3
@@ -173,17 +177,19 @@ def _stage_plain(features: torch.Tensor, kernel: torch.Tensor,
 
 # -- CUDA launches ------------------------------------------------------------
 
-# kernel entry → (source, its argtypes, error-string function): six device
-# pointers, five ints, three host int arrays (offsets, strides, cells),
-# the forward's transpose_weight flag and stage, the stream
-_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 +
-         [ctypes.POINTER(ctypes.c_int)] * 3)
+# kernel entry → (source, its argtypes, error-string function): device
+# pointers, ints, the three host int arrays of the geometry (offsets,
+# strides, cells), ints, the stream (see each entry in csrc/)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GEOM = [ctypes.POINTER(ctypes.c_int)] * 3
 _ENTRIES = {
-    "fused_sparse_conv_forward": (SOURCE,
-                                  _ARGS + [ctypes.c_int] * 2
-                                  + [ctypes.c_void_p],
+    "fused_sparse_conv_forward": (SOURCE, [_P] * 8 + [_I] * 5 + _GEOM
+                                  + [_I] * 4 + [_P],
                                   "fused_sparse_conv_error_string"),
-    "fused_sparse_conv_dkernel": (DW_SOURCE, _ARGS + [ctypes.c_void_p],
+    "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 7 + [_P],
+                               "fused_sparse_conv_error_string"),
+    "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 6 + [_I] * 5 + _GEOM
+                                  + [_P],
                                   "fused_sparse_conv_dw_error_string"),
 }
 
@@ -212,11 +218,98 @@ def _check_operands(dev, compute_dtype, offs, k, *named):
                              f"{dev}, got {t.dtype} on {t.device}")
 
 
+_GEOMETRY_ARGS: dict = {}
+
+
 def _geometry_args(offs, s_in, cells):
-    k = offs.shape[0]
-    c_int3 = ctypes.c_int * 3
-    return ((ctypes.c_int * (3 * k))(*offs.reshape(-1).tolist()),
-            c_int3(*s_in), c_int3(*cells))
+    """The geometry as the kernels' host arrays, made once per geometry."""
+    key = (offs.tobytes(), tuple(s_in), tuple(cells))
+    args = _GEOMETRY_ARGS.get(key)
+    if args is None:
+        k = offs.shape[0]
+        c_int3 = ctypes.c_int * 3
+        args = ((ctypes.c_int * (3 * k))(*offs.reshape(-1).tolist()),
+                c_int3(*s_in), c_int3(*cells))
+        if len(_GEOMETRY_ARGS) >= 1024:
+            _GEOMETRY_ARGS.clear()
+        _GEOMETRY_ARGS[key] = args
+    return args
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def tile_shape(cin: int, cout: int) -> tuple:
+    """(BN, BK) of the forward kernel's instantiation: the Cout tile (32,
+    64 or 128) and the Cin chunk (16, 32 or 64), the smallest that hold
+    Cout and the 8-padded Cin, up to 128 and 64."""
+    bn = next((n for n in (32, 64) if cout <= n), 128)
+    bk = next((k for k in (16, 32) if _round_up(cin, 8) <= k), 64)
+    return bn, bk
+
+
+def pad_features(features: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's features as its cast pass makes them once per
+    call (this is that pass's plain version): bf16 [N, CinF], CinF = Cin
+    rounded up to 8 (one 16-byte copy per 8 channels), the channels past
+    Cin zero."""
+    n, cin = features.shape
+    cinf = _round_up(cin, 8)
+    out = torch.zeros((n, cinf), dtype=torch.bfloat16,
+                      device=features.device)
+    out.narrow(1, 0, cin).copy_(features)
+    return out
+
+
+def pack_weight(kernel: torch.Tensor, transpose: bool, bn: int,
+                bk: int) -> torch.Tensor:
+    """The forward kernel's weight as its cast pass makes it once per call
+    (this is that pass's plain version): bf16 [K, CinW, CoutP] with ``W =
+    kernel`` ([K, Cin, Cout]) or, for dF (``transpose``), ``W = kernelᵀ``
+    per offset (``kernel`` the forward's [K, Cout, Cin]), zero-padded to
+    CinW = Cin rounded up to ``bk`` and CoutP = Cout rounded up to
+    ``bn``."""
+    w = kernel.transpose(1, 2) if transpose else kernel
+    k, cin, cout = w.shape
+    out = torch.zeros((k, _round_up(cin, bk), _round_up(cout, bn)),
+                      dtype=torch.bfloat16, device=w.device)
+    out.narrow(1, 0, cin).narrow(2, 0, cout).copy_(w)
+    return out
+
+
+def _cast_buffers(n_in: int, cin: int, cout: int, k: int, bn: int, bk: int,
+                  dev) -> tuple:
+    """Uninitialised bf16 buffers for the cast pass: the features [N_in,
+    CinF] and the weight [K, CinW, CoutP] (see ``pad_features``,
+    ``pack_weight``)."""
+    return (torch.empty((n_in, _round_up(cin, 8)), dtype=torch.bfloat16,
+                        device=dev),
+            torch.empty((k, _round_up(cin, bk), _round_up(cout, bn)),
+                        dtype=torch.bfloat16, device=dev))
+
+
+def _launch_cast(features: torch.Tensor, kernel: torch.Tensor,
+                 transpose: bool = False) -> tuple:
+    """The cast pass alone on the card (B1's launch runs it itself): the
+    bf16 features and weight that ``pad_features`` and ``pack_weight``
+    define, for the card test that holds them equal."""
+    dev = features.device
+    k, cin, cout = kernel.shape
+    if transpose:
+        cin, cout = cout, cin
+    bn, bk = tile_shape(cin, cout)
+    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, dev)
+    fn, err = _lib("fused_sparse_conv_cast")
+    stream, guard = stream_guard(dev)
+    with guard:
+        rc = fn(features.data_ptr(), kernel.data_ptr(), fb.data_ptr(),
+                wp.data_ptr(), features.shape[0], cin, cout, k, bn, bk,
+                int(transpose), stream)
+    if rc != 0:
+        raise RuntimeError("fused_sparse_conv_cast launch failed: " +
+                           err(rc).decode())
+    return fb, wp
 
 
 def _launch(features: torch.Tensor, kernel: torch.Tensor,
@@ -224,13 +317,16 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
             out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
             compute_dtype, transpose_weight: bool = False,
             stage: str = "full") -> torch.Tensor:
-    """Check the operands, allocate the output and launch
-    ``fused_sparse_conv.cu`` on PyTorch's current stream (B1; B2 with
-    ``transpose_weight``, where ``kernel`` is the forward's [K, Cout, Cin]
-    weight read as [K, Cin, Cout]; B8/B9 with ``stage`` other than
-    ``full``).  Counts nothing: the wrappers do."""
+    """Check the operands, allocate the output and the bf16 operand
+    buffers, and launch ``fused_sparse_conv.cu`` on PyTorch's current
+    stream: its operand cast (``pad_features``, ``pack_weight``), then the
+    conv (B1; B2 with ``transpose_weight``, where ``kernel`` is the
+    forward's [K, Cout, Cin] weight, cast transposed; B8/B9 with ``stage``
+    other than ``full``).  Counts nothing: the wrappers do."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
+    if transpose_weight and stage != "full":
+        raise ValueError("the cut stages take the forward's weight")
     dev = features.device
     if transpose_weight:
         k, cout, cin = kernel.shape
@@ -250,14 +346,16 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
         return out
     if cin == 0 or features.shape[0] == 0:
         return out.zero_()
+    bn, bk = tile_shape(cin, cout)
+    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, dev)
     fn, err = _lib("fused_sparse_conv_forward")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(features.data_ptr(), kernel.data_ptr(), in_keys.data_ptr(),
-                out_coords.data_ptr(), out_valid.data_ptr(), out.data_ptr(),
-                features.shape[0], n_out, cin, cout, k,
-                *_geometry_args(offs, s_in, cells), int(transpose_weight),
-                STAGES.index(stage), stream)
+    stream, guard = stream_guard(dev)
+    with guard:
+        rc = fn(features.data_ptr(), kernel.data_ptr(), fb.data_ptr(),
+                wp.data_ptr(), in_keys.data_ptr(), out_coords.data_ptr(),
+                out_valid.data_ptr(), out.data_ptr(), features.shape[0],
+                n_out, cin, cout, k, *_geometry_args(offs, s_in, cells), bn,
+                bk, int(transpose_weight), STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_forward launch failed: "
                            + err(rc).decode())
@@ -286,8 +384,8 @@ def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
     if 0 in (n_in, n_out, cin, cout):
         return out
     fn, err = _lib("fused_sparse_conv_dkernel")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stream, guard = stream_guard(dev)
+    with guard:
         rc = fn(features.data_ptr(), g.data_ptr(), in_keys.data_ptr(),
                 out_coords.data_ptr(), out_valid.data_ptr(), out.data_ptr(),
                 n_in, n_out, cin, cout, k,

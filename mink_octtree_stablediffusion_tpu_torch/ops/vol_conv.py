@@ -9,7 +9,10 @@ back.  Replaces the TPU kernels of that module:
 
 - **B5**, ``vol_conv_tiles`` (``_kernel``): the dense conv,
   ``csrc/brick_conv.cu``; on the brick route's backward also the dF pass,
-  the same conv of the cotangent volume with ``W'[k] = W[26-k]ᵀ``;
+  the same conv of the cotangent volume with ``W'[k] = W[26-k]ᵀ``, which
+  the source's pack pass applies when it casts the weight to bf16 in the
+  order the kernel's tensor cores read, once per launch (its plain
+  version: ``pack_weight``);
 - **B6**, ``vol_conv_dw`` (``_dw_kernel``): dW, ``csrc/brick_conv_dw.cu``.
 
 The TPU layout (128-lane channel padding, z padded by 8, brick-order
@@ -41,12 +44,14 @@ import torch
 from .conv import mm_f32
 from .coords import SparseGrid, _cells
 from .kernels import KernelSpec, RegionType
+from ..utils.device import stream_guard
 
 SOURCE = "brick_conv.cu"  # B5 and its dF pass
 DW_SOURCE = "brick_conv_dw.cu"  # B6
 SOURCES = (SOURCE, DW_SOURCE)
 T = 8  # brick side: the route needs cell dims that are multiples of 8
 CK = 16  # channel padding of a volume: the MMA depth
+MAX_CHANNELS = 1024  # B5's volume channels (csrc MAX_CHUNKS 16-wide chunks)
 
 
 def channel_pad(c: int) -> int:
@@ -105,21 +110,25 @@ def _vol_conv_dw_plain(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
 
 # -- CUDA launches ------------------------------------------------------------
 
+# kernel entry → (source, its argtypes, error-string function)
 _ENTRIES = {
-    SOURCE: ("brick_conv_forward",
-             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-             "brick_conv_error_string"),
-    DW_SOURCE: ("brick_conv_dkernel",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 +
-                [ctypes.c_void_p],
-                "brick_conv_dw_error_string"),
+    "brick_conv_forward": (SOURCE,
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
+                           [ctypes.c_void_p], "brick_conv_error_string"),
+    "brick_conv_pack": (SOURCE,
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 +
+                        [ctypes.c_void_p], "brick_conv_error_string"),
+    "brick_conv_dkernel": (DW_SOURCE,
+                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 +
+                           [ctypes.c_void_p], "brick_conv_dw_error_string"),
 }
 
 
-def _lib(source: str):
+def _lib(entry: str):
     from ..utils import cuda_build
 
-    return cuda_build.bind(source, *_ENTRIES[source])
+    source, argtypes, err = _ENTRIES[entry]
+    return cuda_build.bind(source, entry, argtypes, err)
 
 
 def _check_volume(name: str, t: torch.Tensor, dev, shape4=None):
@@ -136,35 +145,101 @@ def _check_volume(name: str, t: torch.Tensor, dev, shape4=None):
                          f"{shape4}")
 
 
-def _launch(volp: torch.Tensor, kernel: torch.Tensor,
-            mirror: bool) -> torch.Tensor:
-    """Check the operands, allocate the float32 [B, X, Y, Z, Co] output and
-    launch ``brick_conv.cu`` on PyTorch's current stream (B5; its dF pass
-    with ``mirror``, where ``kernel`` is the forward's [27, Cin, Cout]
-    read as W'[k] = W[26-k]ᵀ).  Counts nothing: the wrappers do."""
-    dev = volp.device
-    _check_volume("volume", volp, dev)
+def tile_cout(cout: int) -> int:
+    """B5's Cout tile NT (16, 32, 64 or 128): one block covers Cout ≤ 128
+    whole, so a halo chunk is loaded once per tile."""
+    for nt in (16, 32, 64):
+        if cout <= nt:
+            return nt
+    return 128
+
+
+def pack_weight(kernel: torch.Tensor, mirror: bool = False) -> torch.Tensor:
+    """B5's weight as its kernel reads it, the plain version of the pack
+    pass that ``brick_conv.cu`` runs before the conv: ``W[27, Cin, Cout]``
+    (``W'[k] = W[26-k]ᵀ`` of the forward's kernel for the dF pass,
+    ``mirror``) zero-padded to whole 16-channel chunks and NT-wide Cout
+    tiles, as bf16 [Cout tiles, Cin chunks, 27, NT/8, 2, 8, 8]:
+    ``packed[t, c, k, nb, kb, ni, ki] = W[k, 16c + 8kb + ki, NT·t + 8nb +
+    ni]``.  Each tap's 16 × NT slab is in the K-major order of 8 × 8 core
+    matrices that the tensor cores read from shared memory, and one ring
+    stage of the kernel (9 taps of a chunk and tile) is one contiguous
+    slab."""
+    w = _mirror_transpose(kernel) if mirror else kernel
+    k, cin, cout = w.shape
+    nt = tile_cout(cout)
+    nch, nct = -(-cin // CK), -(-cout // nt)
+    if (nch * CK, nct * nt) != (cin, cout):
+        w = torch.nn.functional.pad(w, (0, nct * nt - cout,
+                                        0, nch * CK - cin))
+    w = w.reshape(k, nch, 2, 8, nct, nt // 8, 8).permute(4, 1, 0, 5, 2, 6, 3)
+    return w.to(torch.bfloat16, memory_format=torch.contiguous_format)
+
+
+def _packed_shape(cin: int, cout: int, nt: int) -> tuple:
+    return (-(-cout // nt), -(-cin // CK), 27, nt // 8, 2, 8, 8)
+
+
+def _check_kernel(kernel: torch.Tensor, dev) -> None:
     if (kernel.device != dev or kernel.dtype != torch.float32 or
             kernel.dim() != 3 or kernel.shape[0] != 27 or
             not kernel.is_contiguous()):
         raise ValueError(f"kernel: need a contiguous float32 [27, Cin, Cout]"
                          f" tensor on {dev}, got {kernel.dtype} "
                          f"{tuple(kernel.shape)} on {kernel.device}")
+
+
+def _launch_pack(kernel: torch.Tensor, mirror: bool = False) -> torch.Tensor:
+    """The pack pass alone on the card (``pack_weight``'s counterpart; B5's
+    launch runs it itself), for the card test that holds the two equal."""
+    _check_kernel(kernel, kernel.device)
+    _, cin, cout = kernel.shape
+    if mirror:
+        cin, cout = cout, cin
+    nt = tile_cout(cout)
+    wp = torch.empty(_packed_shape(cin, cout, nt), dtype=torch.bfloat16,
+                     device=kernel.device)
+    fn, err = _lib("brick_conv_pack")
+    stream, guard = stream_guard(kernel.device)
+    with guard:
+        rc = fn(kernel.data_ptr(), wp.data_ptr(), cin, cout, nt, int(mirror),
+                stream)
+    if rc != 0:
+        raise RuntimeError("brick_conv_pack launch failed: " +
+                           err(rc).decode())
+    return wp
+
+
+def _launch(volp: torch.Tensor, kernel: torch.Tensor,
+            mirror: bool) -> torch.Tensor:
+    """Check the operands, allocate the packed weight and the float32 [B,
+    X, Y, Z, Co] output, and launch ``brick_conv.cu`` on PyTorch's current
+    stream: its weight pack, then the conv (B5; its dF pass with
+    ``mirror``, where ``kernel`` is the forward's [27, Cin, Cout] and the
+    pack applies W'[k] = W[26-k]ᵀ).  Counts nothing: the wrappers do."""
+    dev = volp.device
+    _check_volume("volume", volp, dev)
+    _check_kernel(kernel, dev)
     _, cin, cout = kernel.shape
     if mirror:
         cin, cout = cout, cin
     b, xp, yp, zp, cs = volp.shape
-    if not 1 <= cin <= cs:
-        raise ValueError(f"{cin} input channels in a {cs}-channel volume")
+    if not 1 <= cin <= cs or cs > MAX_CHANNELS:
+        raise ValueError(f"{cin} input channels in a {cs}-channel volume "
+                         f"(at most {MAX_CHANNELS})")
     out = torch.empty((b, xp - 2, yp - 2, zp - 2, cout), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
         return out
-    fn, err = _lib(SOURCE)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(volp.data_ptr(), kernel.data_ptr(), out.data_ptr(), b,
-                xp - 2, yp - 2, zp - 2, cs, cin, cout, int(mirror), stream)
+    nt = tile_cout(cout)
+    wp = torch.empty(_packed_shape(cin, cout, nt), dtype=torch.bfloat16,
+                     device=dev)
+    fn, err = _lib("brick_conv_forward")
+    stream, guard = stream_guard(dev)
+    with guard:
+        rc = fn(volp.data_ptr(), kernel.data_ptr(), wp.data_ptr(),
+                out.data_ptr(), b, xp - 2, yp - 2, zp - 2, cs, cin, cout, nt,
+                int(mirror), stream)
     if rc != 0:
         raise RuntimeError("brick_conv launch failed: " + err(rc).decode())
     return out
@@ -182,10 +257,10 @@ def _launch_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
         raise ValueError(f"{cin}→{cout} channels in volumes of "
                          f"{volp.shape[-1]} and {gvolp.shape[-1]}")
     out = torch.zeros((27, cin, cout), dtype=torch.float32, device=dev)
-    fn, err = _lib(DW_SOURCE)
+    fn, err = _lib("brick_conv_dkernel")
     b, xp, yp, zp, cs = volp.shape
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stream, guard = stream_guard(dev)
+    with guard:
         rc = fn(volp.data_ptr(), gvolp.data_ptr(), out.data_ptr(), b,
                 xp - 2, yp - 2, zp - 2, cs, gvolp.shape[-1], cin, cout,
                 stream)

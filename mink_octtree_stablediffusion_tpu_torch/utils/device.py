@@ -8,6 +8,7 @@ falling back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -34,3 +35,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def make_generator(seed: int, device: torch.device) -> torch.Generator:
     """A seeded ``torch.Generator`` living on ``device``."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def stream_guard(dev: torch.device):
+    """(PyTorch's current stream on the CUDA device ``dev`` as a raw
+    handle, a context that makes ``dev`` the current device for a kernel
+    launch); the context does nothing when ``dev`` already is current."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return stream, contextlib.nullcontext()
+    return stream, torch.cuda.device(dev)

@@ -142,6 +142,89 @@ def test_backward_kernels_match_plain(cin, cout):
             assert err <= 1e-3 * ref.abs().max().item() + 1e-5, name
 
 
+def _fwd_bwd_check(cin, cout, gi, go, spec, name):
+    """B1 (forward) and B2 (dF) of ``FusedSparseConv`` on the card, each
+    launched once, against their plain versions on the same bf16-rounded
+    operands; tolerance 1e-3·max|ref| + 1e-5 (summation order)."""
+    dev = gi.coords.device
+    # a generator of its own: the global stream other tests draw from is
+    # left as it was
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    f = (torch.randn(gi.capacity, cin, device=dev, generator=gen) *
+         gi.valid[:, None]).requires_grad_()
+    k = torch.randn(spec.volume, cin, cout, device=dev,
+                    generator=gen) / np.sqrt(spec.volume * cin)
+    gout = torch.randn(go.capacity, cout, device=dev,
+                       generator=gen) * go.valid[:, None]
+    before = (fused_conv.fused_sparse_conv.launches,
+              fused_conv.fused_conv_dfeatures.launches)
+    out = mp.ops.fused_sparse_conv(f, k, gi, go, spec)
+    out.backward(gout)
+    assert (fused_conv.fused_sparse_conv.launches,
+            fused_conv.fused_conv_dfeatures.launches) == (
+        before[0] + 1, before[1] + 1), name
+    offs, s_in, cells = fused_conv.conv_geometry(gi, spec)
+    f_offs, s_out, f_cells = fused_conv.flipped_geometry(go, offs)
+    f16, k16 = f.detach().bfloat16().float(), k.bfloat16().float()
+    ref = fused_conv._fused_sparse_conv_plain(
+        f16, k16, gi.flat_keys(), go.coords, go.valid, offs, s_in, cells,
+        torch.float32)
+    ref_df = fused_conv._fused_sparse_conv_plain(
+        gout.bfloat16().float(), k16.transpose(1, 2), go.flat_keys(),
+        gi.coords, gi.valid, f_offs, s_out, f_cells, torch.float32)
+    torch.cuda.synchronize()
+    for got, want in ((out, ref), (f.grad, ref_df)):
+        assert want.abs().max().item() > 0, name
+        err = (got - want).abs().max().item()
+        assert err <= 1e-3 * want.abs().max().item() + 1e-5, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(3, 4), (4, 64), (33, 129), (8, 256),
+                                      (3, 512), (64, 33), (129, 65)])
+def test_b1_b2_tile_edges(cin, cout):
+    """B1 and B2 at the edges of the kernel's tiles (``tile_shape``): Cout
+    on both sides of BN (32/64/128) and past one tile, Cin not a multiple
+    of 8 or of the chunk BK, K of 27 (k3s1, k3s2), 1 (k1) and 8 (k2s2
+    pinned transpose and generative), on 1,500-row grids (not a multiple of
+    the 128-row tile) whose rows past ~560 are invalid (whole tiles of
+    invalid rows, which exit at once)."""
+    dev = _card()
+    g = _grid(dev, n=300, cap=1500)
+    assert not g.valid[-256:].any()
+    g2 = mp.ops.stride_grid(g, 2, 700)
+    s3, t2 = (mp.ops.KernelSpec(3, 2, ndim=3),
+              mp.ops.KernelSpec(2, 2, ndim=3, transpose=True))
+    grown = mp.ops.expand_grid(g2, t2.absolute_offsets(g2.stride),
+                               t2.out_stride(g2.stride), 4000)
+    for name, gi, go, spec in (
+            ("k3s1", g, g, mp.ops.KernelSpec(3, 1, ndim=3)),
+            ("k1", g, g, mp.ops.KernelSpec(1, 1, ndim=3)),
+            ("k3s2", g, g2, s3), ("k2s2T", g2, g, t2),
+            ("k2s2G", g2, grown, t2)):
+        _fwd_bwd_check(cin, cout, gi, go, spec, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(1, 4), (3, 32), (33, 129), (64, 33),
+                                      (512, 512)])
+def test_b1_cast_pass_matches_plain(cin, cout):
+    """The operand cast that B1's source runs before the conv (features,
+    and the weight plain and transposed for dF) equals its plain versions
+    ``pad_features`` and ``pack_weight`` exactly."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    f = torch.randn(1000, cin, device=dev, generator=gen)
+    for transpose in (False, True):
+        k = torch.randn(8, cout if transpose else cin,
+                        cin if transpose else cout, device=dev, generator=gen)
+        fb, wp = fused_conv._launch_cast(f, k, transpose)
+        torch.cuda.synchronize()
+        bn, bk = fused_conv.tile_shape(cin, cout)
+        assert torch.equal(fb, fused_conv.pad_features(f))
+        assert torch.equal(wp, fused_conv.pack_weight(k, transpose, bn, bk))
+
+
 @pytest.mark.cuda
 def test_vae_train_step_on_card_gives_every_parameter_a_gradient():
     """The detached-graph trap: a train step of a small VAE on the card
@@ -255,6 +338,52 @@ def test_brick_conv_ragged_dense_and_empty_volumes():
     assert torch.all(vol_conv.vol_conv_dw(zero, gvolp, 24, 40) == 0)
     with pytest.raises(NotImplementedError):
         vol_conv.vol_conv_tiles(volp.float(), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (4, 128), (128, 4),
+                                      (128, 128)])
+def test_brick_conv_tile_edges(cin, cout):
+    """B5 and its dF pass at Cin 4 and 128 on dense random volumes whose
+    x, y, z are not multiples of the 4 x 4 x 16 tile, on a volume whose
+    halo chunks are partly zero (channel 16 onwards zero), and on an
+    all-zero volume (no live chunk: the tile writes zeros)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    vol = torch.randn(2, 6, 5, 21, cin, device=dev, generator=gen)
+    volp = vol_conv.pad_volume(vol)
+    k = torch.randn(27, cin, cout, device=dev,
+                    generator=gen) / np.sqrt(27 * cin)
+    _close_to(vol_conv.vol_conv_tiles(volp, k),
+              vol_conv._vol_conv_plain(volp, k))
+    gvolp = vol_conv.pad_volume(torch.randn(2, 6, 5, 21, cout, device=dev,
+                                            generator=gen))
+    _close_to(vol_conv.vol_conv_dfeatures(gvolp, k),
+              vol_conv._vol_conv_plain(gvolp, k, mirror=True))
+    part = volp.clone()
+    part[..., 16:] = 0
+    part[:, :, :, 9:] = 0
+    _close_to(vol_conv.vol_conv_tiles(part, k),
+              vol_conv._vol_conv_plain(part, k))
+    zero = torch.zeros_like(volp)
+    assert torch.all(vol_conv.vol_conv_tiles(zero, k) == 0)
+    assert torch.all(vol_conv.vol_conv_dfeatures(torch.zeros_like(gvolp),
+                                                 k) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (5, 70), (96, 17), (128, 128),
+                                      (24, 200)])
+def test_brick_pack_pass_matches_plain(cin, cout):
+    """The weight pack that B5's source runs before the conv (forward, and
+    mirrored for dF) equals its plain version ``pack_weight`` exactly."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    k = torch.randn(27, cin, cout, device=dev, generator=gen)
+    for mirror in (False, True):
+        got = vol_conv._launch_pack(k, mirror)
+        torch.cuda.synchronize()
+        assert torch.equal(got, vol_conv.pack_weight(k, mirror)), mirror
 
 
 @pytest.mark.cuda
