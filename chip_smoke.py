@@ -60,7 +60,11 @@ power of two to unit RMS, see ``unit_rms``), within ``1e-3·max|ref| +
 bound, its plain version and, for the brick kernels, one cuDNN call that
 computes the same function.  B1's stages (the cut that B8/B9 time on
 the library path) are also timed on the generation path's two heaviest
-launch shapes (``stage_table``).  Last, tiny configurations run on the card
+launch shapes (``stage_table``), and B3's passes, each by its device time,
+on the VAE step's two heaviest (``b3_pass_table``, which also holds two
+launches bit for bit equal).  B1, B2 and B3 are all checked at every launch
+shape of the VAE train path, so that its kernel account is complete
+(``vae_step_kernel_account``).  Last, tiny configurations run on the card
 and on the CPU (plain versions under the same bf16 compute policy) with
 the same weights, inputs and noise: a generation (``tiny_reference``), a
 VAE train step (``tiny_train_reference``) and a diffusion train step with
@@ -651,10 +655,10 @@ def expected_launches(routes) -> dict:
 def train_phase(mp, dev, cap):
     """10 steps of `examples/train_vae.py`'s default configuration through
     ``train.make_train_step``, on one fixed batch of 4 synthetic shapes;
-    ``cap`` keeps step 1's B2 and B3 operands.  Before them, step 1's loss
-    and gradients with the brick gate off and on (``gate_compare``, the
-    running statistics restored after each), which also keeps the brick
-    kernels' operands at the VAE's widths.
+    ``cap`` keeps step 1's B1, B2 and B3 operands.  Before them, step 1's
+    loss and gradients with the brick gate off and on (``gate_compare``,
+    the running statistics restored after each), which also keeps the
+    brick kernels' operands at the VAE's widths.
 
     Unclamped (``max_keep`` None), as train_vae.py runs.  No clamp could
     make the decoder's levels fit their buffers here: training force-keeps
@@ -719,7 +723,7 @@ def train_phase(mp, dev, cap):
     for c in count.values():
         c.launches = 0  # counts from here on are the train path's
     for i in range(TRAIN_STEPS):
-        cap.at("vae_train", ("B2", "B3") if i == 0 else ())
+        cap.at("vae_train", FUSED if i == 0 else ())
         before = {n: c.launches for n, c in count.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1310,6 +1314,51 @@ def stage_table(mp, key, ops, count) -> dict:
     return rec
 
 
+# B3's passes (csrc/fused_sparse_conv_dw.cu), by their kernels' names
+B3_PASSES = {"cast": "cast_kernel", "search": "search_kernel",
+             "scan": "scan_kernel", "compaction": "compact_kernel",
+             "gemm": "gemm_kernel<", "reduce": "reduce_kernel"}
+
+
+def b3_pass_table(mp, key, ops, count) -> dict:
+    """B3's passes on one launch shape of the VAE train path, ``key`` with
+    the operands ``ops`` of its first launch (the cotangent at unit RMS)
+    and ``count`` launches per step: each pass's device ms per call (cast,
+    search, scan, compaction, GEMM, reduce; the profiler), the CUDA-event
+    ms of the launch run up to each stage (``cast``, ``pairs``: through
+    the compaction, ``full``), the tile and splits, and whether two
+    launches give dW bit for bit."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    fc = mp.ops.fused_conv
+    ops = (ops[0], unit_rms(ops[1])[0]) + tuple(ops[2:])
+
+    def run():
+        return fc._launch_dkernel(*ops, torch.bfloat16)
+    same = bool(torch.equal(run(), run()))
+    through = {"full": bc.cuda_time_ms(run)}
+    for stage in fc.DW_STAGES[1:]:
+        through[stage] = bc.cuda_time_ms(
+            lambda: fc._run_dkernel(*ops, torch.bfloat16, None, stage))
+    by_name = bc.device_ms_by_kernel(run)
+    passes = {p: sum(ms for n, ms in by_name.items()
+                     if "fused_sparse_conv_dw::" + k in n)
+              for p, k in B3_PASSES.items()}
+    n_out, cin, cout, k = key
+    rec = {"b3_pass_table": "vae_train", "launch_shape": list(key),
+           "launches_per_step": count,
+           "tile": list(fc.dw_tile_shape(cin, cout)),
+           "splits": fc.dw_splits(n_out, cin, cout, k),
+           "device_ms": passes, "device_ms_sum": sum(passes.values()),
+           "other_device_ms": sum(ms for n, ms in by_name.items()
+                                  if "fused_sparse_conv_dw::" not in n),
+           "ms": through["full"], "ms_through_stage": through,
+           "repeat_bit_identical": same,
+           "ok": same and passes["gemm"] > 0}
+    emit(rec)
+    return rec
+
+
 def library_phase(mp, dev, power) -> dict:
     """The library path (`bench_conv`) at full size, seed 0.
 
@@ -1619,7 +1668,7 @@ def main(argv) -> int:
                           valid=torch.as_tensor(valid, device=dev),
                           extent=(RES,) * 3)
     extras = [check_case(mp, *case) for case in extra_cases(mp, st, dev)]
-    for kernel in ("B2", "B3"):
+    for kernel in FUSED:
         check_all(kernel, "vae_train", fused_check(kernel, "train_path"),
                   kinds)
     for kernel in FUSED:
@@ -1640,7 +1689,7 @@ def main(argv) -> int:
     def shapes(path, kernel):
         return set(cap.counts.get(path, {}).get(kernel, {}))
     for path, kernels in (("generation", ("B1",)),
-                          ("vae_train", ("B2", "B3")),
+                          ("vae_train", FUSED),
                           ("diffusion", KERNELS),
                           ("vae_gate_on", BRICK)):
         for kernel in kernels:
@@ -1649,12 +1698,19 @@ def main(argv) -> int:
 
     # per request / step: each launch shape's time x its launches
     per_request = {"B1": by_shape(hist)}
-    per_vae_step = {"B2": by_shape(hist_b2), "B3": by_shape(hist_b3)}
+    # every fused-route conv of a VAE step launches B1 and B3
+    per_vae_step = {"B1": by_shape(hist_b3), "B2": by_shape(hist_b2),
+                    "B3": by_shape(hist_b3)}
     per_diff_step = {n: cap.per_step("diffusion", n, DIFF_STEPS)
                      for n in KERNELS}
     tot = {"B1": totals(per_request["B1"], recs[("B1", "generation")])}
-    for n in ("B2", "B3"):
-        tot[n] = totals(per_vae_step[n], recs[(n, "vae_train")])
+    tot_vae = {n: totals(per_vae_step[n], recs[(n, "vae_train")])
+               for n in FUSED}
+    tot.update(B2=tot_vae["B2"], B3=tot_vae["B3"])
+    emit({"vae_step_kernel_account": {
+        n: {"ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"]} for n, t in tot_vae.items()},
+        "ms_b1_b2_b3": sum(t["ms"] for t in tot_vae.values())})
     tot_diff = {n: totals(per_diff_step[n], recs[(n, "diffusion")])
                 for n in KERNELS}
     emit({"per_diffusion_step": {
@@ -1674,6 +1730,19 @@ def main(argv) -> int:
     except Exception:
         traceback.print_exc()
         need(False, "B1 stages on the generation path")
+
+    # B3's passes on the VAE step's two heaviest launch shapes
+    vae_recs = recs[("B3", "vae_train")]
+    heavy = sorted(per_vae_step["B3"], reverse=True,
+                   key=lambda k: per_vae_step["B3"][k] * vae_recs[k]["ms"])
+    try:
+        for key in heavy[:2]:
+            need(b3_pass_table(mp, key, cap.case("vae_train", "B3")[key],
+                               per_vae_step["B3"][key])["ok"],
+                 "B3 passes on the VAE train path")
+    except Exception:
+        traceback.print_exc()
+        need(False, "B3 passes on the VAE train path")
 
     # B5 against B1 on the same convs (gate on vs gate off at step 1)
     for label, off, on in (("diffusion", diff_off, diff_on),
@@ -1743,6 +1812,8 @@ def main(argv) -> int:
                "one VAE train step")
         e = entry(name, launches, tot[name], per)
         e.update({"path": main_path,
+                  "ms_per_vae_step": tot_vae[name]["ms"],
+                  "bound_ms_per_vae_step": tot_vae[name]["bound_ms"],
                   "launches_library_path": lib["launches"].get(name, 0),
                   "launches_vae_train_path": train_launches[name],
                   "launches_diffusion_path": diff["launches"][name],
@@ -1800,7 +1871,7 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
           # B1 and B2 are one instantiation (B2's weight is cast
           # transposed), told apart only by their launches
           "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
-          "B3_s": kernel_s("fused_sparse_conv_dw_kernel"),
+          "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
           "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
           "B6_s": kernel_s("brick_conv_dw_kernel"),
           "wall_s_unprofiled": wall_unprofiled,

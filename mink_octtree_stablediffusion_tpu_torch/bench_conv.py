@@ -284,12 +284,10 @@ def time_ms(fn: Callable, device: torch.device) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn: Callable, iters: int = 5) -> float:
-    """Device time of one call of ``fn`` in ms: the self device time of
-    every kernel it launches (``torch.profiler``), over ``iters`` calls
-    after one warm-up call, per call.  Against ``time_ms`` it shows what
-    share of a call the device is busy: a small kernel's event time also
-    holds the host's launch path, during which the device waits."""
+def device_ms_by_kernel(fn: Callable, iters: int = 5) -> Dict[str, float]:
+    """Self device time in ms of each kernel that one call of ``fn``
+    launches, by the kernel's name (``torch.profiler``), over ``iters``
+    calls after one warm-up call, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -299,10 +297,19 @@ def device_ms(fn: Callable, iters: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and
-             not getattr(e, "is_user_annotation", False))
-    return us / 1e3 / iters
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and
+            not getattr(e, "is_user_annotation", False)}
+
+
+def device_ms(fn: Callable, iters: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: the self device time of
+    every kernel it launches (``device_ms_by_kernel``).  Against
+    ``time_ms`` it shows what share of a call the device is busy: a small
+    kernel's event time also holds the host's launch path, during which
+    the device waits."""
+    return sum(device_ms_by_kernel(fn, iters).values())
 
 
 def run(ws: Dict[str, Workload], timer: Callable[[Callable], float],

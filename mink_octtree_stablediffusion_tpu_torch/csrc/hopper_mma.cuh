@@ -1,7 +1,8 @@
 // PTX wrappers shared by the pipelined bf16 kernels (`brick_conv.cu`,
-// `fused_sparse_conv.cu`): 16-byte `cp.async` copies into a ring of
-// shared-memory stages, `ldmatrix` fragment loads, and the warp-level
-// tensor-core product `mma.sync.m16n8k16` (bf16 in, fp32 accumulate).
+// `fused_sparse_conv.cu`, `fused_sparse_conv_dw.cu`): 16-byte `cp.async`
+// copies into a ring of shared-memory stages, `ldmatrix` fragment loads,
+// and the warp-level tensor-core product `mma.sync.m16n8k16` (bf16 in,
+// fp32 accumulate).
 //
 // Fragments of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
@@ -11,7 +12,9 @@
 // `ldmatrix_x4` with lanes 0-15 addressing rows 0-15 at k 0 and lanes
 // 16-31 the same rows at k 8 gives A; `ldmatrix_x4_trans` on a [k][n]
 // tile, lane l addressing row k = (l & 7) + ((l >> 3) & 1) * 8 at column
-// n + (l >> 4) * 8, gives B for the two n8 tiles n and n + 8.
+// n + (l >> 4) * 8, gives B for the two n8 tiles n and n + 8; on a [k][m]
+// tile, lane l addressing row k = (l & 7) + (l >> 4) * 8 at column m +
+// ((l >> 3) & 1) * 8 gives A (rows m..m+15) of the tile's transpose.
 
 #pragma once
 

@@ -18,8 +18,12 @@ Each source is CUDA C++ for ``sm_90a`` (bf16 tensor-core GEMM with float32
 accumulation) whose header states what bounds it on the H100 and what its
 design does about that.  B1's source casts its operands to bf16 once per
 call in a pass before the conv (plain versions: ``pad_features``,
-``pack_weight``; the padding follows the tile that ``tile_shape`` picks);
-B3's kernel still reads float32.
+``pack_weight``; the padding follows the tile that ``tile_shape`` picks).
+B3's source runs its passes from one call: the cast (``dw_operands``), one
+search per (row, offset) compacted into a pair list (``pair_list``), the
+GEMM over the pairs and, where the rows are split (``dw_splits``), an
+ordered sum of the splits' partials (``_dkernel_pairs_plain``); its GEMM
+tile is ``dw_tile_shape``'s.
 
 For each output row j and offset k the query ``out_coord_j + delta_k`` must
 lie on the input lattice, inside the extent, and row j must be valid; its
@@ -46,6 +50,8 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -63,6 +69,15 @@ MAX_K = 125  # offsets the kernels' geometry block holds (csrc MAX_K)
 # conv, ``empty`` zeros, ``search`` the matches counted, ``gather`` the
 # matched rows summed (see ``_stage_plain``)
 STAGES = ("full", "empty", "search", "gather")
+# B3's passes run up to a stage (csrc ``Stage``, in its order): ``full``
+# dW, ``cast`` the bf16 operands, ``pairs`` the compacted pair list
+DW_STAGES = ("full", "cast", "pairs")
+DW_ROWS = 256  # output rows of B3's search and compaction blocks (csrc ROWS)
+# B3's row splits: one per block where the tiles fill two blocks on each of
+# the card's 132 SMs, else enough for four, at most DW_MAX_SPLITS, one a
+# chunk of depth, and partials of at most DW_PARTIAL_BYTES
+DW_FULL_BLOCKS, DW_TARGET_BLOCKS = 264, 528
+DW_MAX_SPLITS, DW_PARTIAL_BYTES = 64, 16 << 20
 
 
 def conv_geometry(in_grid: SparseGrid, spec: KernelSpec):
@@ -147,6 +162,85 @@ def _dkernel_plain(features: torch.Tensor, g: torch.Tensor,
     return mm_f32(a.permute(1, 2, 0), g.to(compute_dtype))
 
 
+def dw_tile_shape(cin: int, cout: int) -> tuple:
+    """(BI, BO, BD) of B3's GEMM: the Cin and the Cout tile, each the
+    smallest of 32 and 64 that holds the width, else 128, and the pairs of
+    one ring stage, 128 for the 32 x 32 tile (whose 8 warps all split the
+    depth), else 64."""
+    def pick(c):
+        return next((t for t in (32, 64) if c <= t), 128)
+    bi, bo = pick(cin), pick(cout)
+    return bi, bo, 128 if bi == bo == 32 else 64
+
+
+def dw_splits(n_out: int, cin: int, cout: int, k: int) -> int:
+    """The row splits S of B3's GEMM: 1 where its (Cin tile, Cout tile,
+    offset) blocks reach ``DW_FULL_BLOCKS``, else enough splits for
+    ``DW_TARGET_BLOCKS`` blocks, bounded by ``DW_MAX_SPLITS``, by one chunk
+    of ``BD`` pairs a split at ``n_out`` pairs an offset, and by float32
+    partials [S, K, Cin, Cout] of ``DW_PARTIAL_BYTES``."""
+    bi, bo, bd = dw_tile_shape(cin, cout)
+    blocks = -(-cin // bi) * -(-cout // bo) * k
+    if blocks >= DW_FULL_BLOCKS:
+        return 1
+    return max(1, min(-(-DW_TARGET_BLOCKS // blocks), -(-n_out // bd),
+                      DW_MAX_SPLITS, DW_PARTIAL_BYTES // (4 * k * cin * cout)))
+
+
+def dw_operands(features: torch.Tensor, g: torch.Tensor) -> tuple:
+    """B3's operands as its cast pass makes them once per call (this is
+    that pass's plain version): ``pad_features`` of the features and of
+    the cotangent, bf16 [N, C rounded up to 8], zero past C."""
+    return pad_features(features), pad_features(g)
+
+
+def pair_list(in_keys: torch.Tensor, out_coords: torch.Tensor,
+              out_valid: torch.Tensor, offs: np.ndarray, s_in,
+              cells) -> tuple:
+    """B3's compacted pairs as its search and compaction passes make them
+    (this is their plain version): (starts int32 [K + 1], pair_in int32
+    [P], pair_out int32 [P]), offset k's matched (input row, output row)
+    pairs at ``starts[k]:starts[k + 1]`` in ascending output row."""
+    match = neighbor_index(in_keys, query_keys(out_coords, out_valid, offs,
+                                               s_in, cells)).T
+    hit = match >= 0
+    starts = torch.zeros(match.shape[0] + 1, dtype=torch.int32,
+                         device=match.device)
+    starts[1:] = hit.sum(1).cumsum(0)
+    return (starts, match[hit].to(torch.int32),
+            hit.nonzero()[:, 1].to(torch.int32))
+
+
+def _dkernel_pairs_plain(features: torch.Tensor, g: torch.Tensor,
+                         starts: torch.Tensor, pair_in: torch.Tensor,
+                         pair_out: torch.Tensor, splits: int, depth: int,
+                         compute_dtype) -> torch.Tensor:
+    """B3's GEMM and reduction in plain PyTorch: offset k's pairs cut into
+    chunks of ``depth``, the chunks shared out to ``splits`` contiguous
+    runs, each run's ``f[pair_in]ᵀ · g[pair_out]`` in float32 (a split with
+    no pair gives zeros), and the splits summed in order → float32 [K, Cin,
+    Cout]."""
+    f, gg = features.to(compute_dtype), g.to(compute_dtype)
+    k = starts.shape[0] - 1
+    parts = torch.zeros((splits, k, f.shape[1], gg.shape[1]),
+                        dtype=torch.float32, device=f.device)
+    bounds = starts.tolist()
+    for kk in range(k):
+        beg, end = bounds[kk], bounds[kk + 1]
+        chunks = -(-(end - beg) // depth)
+        per = -(-chunks // splits)
+        for s in range(splits):
+            c0 = min(chunks, s * per)
+            q0, q1 = beg + c0 * depth, min(end, beg + (c0 + per) * depth)
+            if q1 > q0:
+                parts[s, kk] = mm_f32(f[pair_in[q0:q1].long()].T,
+                                      gg[pair_out[q0:q1].long()])
+    out = parts[0]
+    for s in range(1, splits):
+        out = out + parts[s]
+    return out
+
+
 def _stage_plain(features: torch.Tensor, kernel: torch.Tensor,
                  in_keys: torch.Tensor, out_coords: torch.Tensor,
                  out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
@@ -188,8 +282,8 @@ _ENTRIES = {
                                   "fused_sparse_conv_error_string"),
     "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 7 + [_P],
                                "fused_sparse_conv_error_string"),
-    "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 6 + [_I] * 5 + _GEOM
-                                  + [_P],
+    "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 14 + [_I] * 5 + _GEOM
+                                  + [_I] * 4 + [_P],
                                   "fused_sparse_conv_dw_error_string"),
 }
 
@@ -362,13 +456,40 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
-                    in_keys: torch.Tensor, out_coords: torch.Tensor,
-                    out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
-                    compute_dtype) -> torch.Tensor:
-    """Check the operands, allocate the zeroed float32 [K, Cin, Cout]
-    output and launch ``fused_sparse_conv_dw.cu`` (B3) on PyTorch's current
-    stream.  Counts nothing: the wrapper does."""
+_DW_BUFFERS = ("fb", "gb", "map", "cnt", "off", "pair_in", "pair_out",
+               "partial")
+
+
+@functools.lru_cache(maxsize=256)
+def _dw_workspace(n_in: int, n_out: int, cin: int, cout: int, k: int,
+                  splits: int) -> tuple:
+    """(byte offset of each of B3's buffers, in ``_DW_BUFFERS``' order, in
+    one workspace; its size): fb bf16 [N_in, CinF], gb bf16 [N_out, CoutF]
+    (``dw_operands``), the match map [K, N_out], the counts [K, row
+    blocks] and their prefix sums [K · row blocks + 1], the pair lists
+    [K · N_out] each (int32), and the float32 partials [S, K, Cin, Cout]
+    where S > 1; each 256-byte aligned."""
+    rb = -(-n_out // DW_ROWS)
+    sizes = (2 * n_in * _round_up(cin, 8), 2 * n_out * _round_up(cout, 8),
+             4 * k * n_out, 4 * k * rb, 4 * (k * rb + 1), 4 * k * n_out,
+             4 * k * n_out, 4 * splits * k * cin * cout if splits > 1 else 0)
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += _round_up(n, 256)
+    return tuple(offsets), at
+
+
+def _run_dkernel(features: torch.Tensor, g: torch.Tensor,
+                 in_keys: torch.Tensor, out_coords: torch.Tensor,
+                 out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
+                 compute_dtype, dw: torch.Tensor | None,
+                 stage: str) -> tuple:
+    """Check the operands, allocate the workspace and launch
+    ``fused_sparse_conv_dw.cu``'s passes up to ``stage`` on PyTorch's
+    current stream, writing dW into ``dw`` (``full``).  Returns (workspace,
+    its offsets, S), or None where an operand is empty (nothing
+    launched)."""
     dev = features.device
     k = offs.shape[0]
     (n_in, cin), (n_out, cout) = features.shape, g.shape
@@ -380,20 +501,73 @@ def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
                     ("out_valid", out_valid, torch.bool))
     if in_keys.shape[0] != n_in or out_coords.shape[0] != n_out:
         raise ValueError("features/g/keys/coords shapes disagree")
-    out = torch.zeros((k, cin, cout), dtype=torch.float32, device=dev)
     if 0 in (n_in, n_out, cin, cout):
-        return out
+        return None
+    bi, bo, _ = dw_tile_shape(cin, cout)
+    splits = dw_splits(n_out, cin, cout, k)
+    offsets, size = _dw_workspace(n_in, n_out, cin, cout, k, splits)
+    ws = torch.empty(size, dtype=torch.uint8, device=dev)
+    base = ws.data_ptr()
+    bufs = [base + o for o in offsets]
+    if splits == 1:
+        bufs[-1] = None
     fn, err = _lib("fused_sparse_conv_dkernel")
     stream, guard = stream_guard(dev)
     with guard:
         rc = fn(features.data_ptr(), g.data_ptr(), in_keys.data_ptr(),
-                out_coords.data_ptr(), out_valid.data_ptr(), out.data_ptr(),
-                n_in, n_out, cin, cout, k,
-                *_geometry_args(offs, s_in, cells), stream)
+                out_coords.data_ptr(), out_valid.data_ptr(),
+                None if dw is None else dw.data_ptr(), *bufs, n_in, n_out,
+                cin, cout, k, *_geometry_args(offs, s_in, cells), bi, bo,
+                splits, DW_STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_dkernel launch failed: " +
                            err(rc).decode())
+    return ws, offsets, splits
+
+
+def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
+                    in_keys: torch.Tensor, out_coords: torch.Tensor,
+                    out_valid: torch.Tensor, offs: np.ndarray, s_in, cells,
+                    compute_dtype) -> torch.Tensor:
+    """Allocate the float32 [K, Cin, Cout] output and launch
+    ``fused_sparse_conv_dw.cu`` (B3: cast, search, scan, compaction, GEMM
+    and, with S > 1, the ordered reduction) on PyTorch's current stream.
+    Counts nothing: the wrapper does."""
+    out = torch.empty((offs.shape[0], features.shape[1], g.shape[1]),
+                      dtype=torch.float32, device=features.device)
+    if _run_dkernel(features, g, in_keys, out_coords, out_valid, offs, s_in,
+                    cells, compute_dtype, out, "full") is None:
+        out.zero_()
     return out
+
+
+def _launch_dkernel_passes(features: torch.Tensor, g: torch.Tensor,
+                           in_keys: torch.Tensor, out_coords: torch.Tensor,
+                           out_valid: torch.Tensor, offs: np.ndarray, s_in,
+                           cells, stage: str) -> tuple:
+    """B3's passes alone on the card, for the card tests that hold them
+    equal to their plain versions: ``cast`` gives (fb, gb) as
+    ``dw_operands``; ``pairs`` (starts, pair_in, pair_out) as
+    ``pair_list``."""
+    if stage not in DW_STAGES[1:]:
+        raise ValueError(f"stage {stage!r} not in {DW_STAGES[1:]}")
+    ws, at, _ = _run_dkernel(features, g, in_keys, out_coords, out_valid,
+                             offs, s_in, cells, torch.bfloat16, None, stage)
+    (n_in, cin), (n_out, cout) = features.shape, g.shape
+
+    def view(name, dtype, *shape):
+        n = math.prod(shape) * dtype.itemsize
+        return ws.narrow(0, at[_DW_BUFFERS.index(name)], n).view(
+            dtype).view(shape)
+    if stage == "cast":
+        return (view("fb", torch.bfloat16, n_in, _round_up(cin, 8)),
+                view("gb", torch.bfloat16, n_out, _round_up(cout, 8)))
+    rb = -(-n_out // DW_ROWS)
+    k = offs.shape[0]
+    starts = view("off", torch.int32, k * rb + 1)[::rb].clone()
+    n = int(starts[-1])
+    return (starts, view("pair_in", torch.int32, k * n_out)[:n],
+            view("pair_out", torch.int32, k * n_out)[:n])
 
 
 # -- the three wrappers and the autograd Function ---------------------------
