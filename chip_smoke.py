@@ -290,7 +290,8 @@ def matched_pairs(fc, keys, out_coords, out_valid, offs, s, cells) -> int:
 
 def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
                 min_ref=0.0, library=None, work_pairs=None, flops=None,
-                fp32_flops=False, rel_tol=1e-3, abs_tol=1e-5, **shape):
+                fp32_flops=False, rel_tol=1e-3, abs_tol=1e-5, extra_ok=True,
+                bf16_out=False, **shape):
     """Kernel vs plain version: max|Δ| ≤ ``rel_tol``·max|ref| +
     ``abs_tol`` (by default 1e-3·max|ref| + 1e-5), and max|ref| ≥
     ``min_ref`` (so that a kernel returning zeros fails); CUDA-event times
@@ -300,7 +301,13 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
     in place of the matched ``pairs`` where the kernel's work is dense)
     unless ``flops`` is given.  Where the kernel does its operations as
     float32 FMAs outside the tensor cores (``fp32_flops``), the record also
-    holds ``bound_fp32_ms``, the same bound at the float32 peak."""
+    holds ``bound_fp32_ms``, the same bound at the float32 peak.  The
+    record is ok only with ``extra_ok`` too (the caller's own checks).  A
+    bf16 output (``bf16_out``) is held to one bf16 ulp of max|ref|,
+    2^(⌊log₂ max|ref|⌋ − 7), + ``abs_tol`` in place of the relative term:
+    the kernel and its plain version each round a float32 sum to bf16, and
+    sums that differ in their last float32 bits may round to neighbouring
+    bf16 values, 2⁻⁸ to 2⁻⁷ of the value apart (above 1e-3)."""
     from mink_octtree_stablediffusion_tpu_torch.bench_conv import cuda_time_ms
     import torch
     out, ref = run(), plain()
@@ -309,6 +316,8 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
         else 0.0
     ref_max = ref.float().abs().max().item() if ref.numel() else 0.0
     tol = rel_tol * ref_max + abs_tol
+    if bf16_out and ref_max > 0:
+        tol = 2.0 ** (math.floor(math.log2(ref_max)) - 7) + abs_tol
     del out, ref
     if flops is None:
         flops = 2.0 * cin * cout * (work_pairs or pairs)
@@ -324,7 +333,7 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "bound_ops_ms": t_ops, "bound_bytes_ms": t_bytes,
            "ok": bool(err <= tol and math.isfinite(err) and
-                      ref_max >= min_ref)}
+                      ref_max >= min_ref and extra_ok)}
     if fp32_flops:
         rec["bound_fp32_ms"] = max(flops / PEAK_F32_FLOPS * 1e3, t_bytes)
     emit(rec)
@@ -1203,25 +1212,34 @@ def tiny_diffusion_reference(mp, dev) -> dict:
     return rec
 
 
-def map_conv_bytes(w) -> int:
-    """B4's and B7's bytes on workload ``w``: the map, the features and
-    the float32 weight read once, the output written once."""
+def map_conv_bytes(w, f) -> int:
+    """B4's and B7's bytes on workload ``w`` with features ``f``: the map,
+    the features and the float32 weight read once, the output (in the
+    features' dtype) written once."""
     k, n_out = w.nbr.shape
-    f = w.features
     return (4 * k * n_out + f.element_size() * f.numel() +
             4 * w.kernel.numel() + f.element_size() * n_out *
             w.kernel.shape[2])
 
 
-def check_map_conv(mp, kernel, w):
-    """B4 (bf16 operands) or B7 (the features' dtype) on workload ``w``
-    against its plain version on the card.  B7 on float32 features rounds
-    nothing to TF32 or bf16, so it is held at a float32 limit,
-    ``B7_F32_RTOL``·max|ref|; its bound is also given at the float32 peak
-    outside the tensor cores, where its FMAs run."""
+def check_map_conv(mp, kernel, w, dtype=None):
+    """B4 (bf16 operands) or B7 (float32-accurate products) on workload
+    ``w``, its features in ``dtype`` (default: as built, float32), against
+    its plain version on the card: B4's in bf16, B7's in float32 (so B7 on
+    bf16 features is held against the bf16 features times the float32
+    weight).  B7 on float32 features is held at a float32 limit,
+    ``B7_F32_RTOL``·max|ref|; B4 at 1e-3·max|ref| + 1e-5; B7's bf16 output
+    at one bf16 ulp of max|ref| + 1e-5 (``timed_check``'s ``bf16_out``).
+    Two launches must give the same output bit for bit, and the profiler
+    must read a device time (``device_ms``).  Bounds: at the bf16 peak
+    (``bound_ms``), with B7's products as the kernel forms them on the
+    tensor cores (``bound_split_ms``: 3 bf16 products on bf16 features, 6
+    on float32) and as float32 FMAs (``bound_fp32_ms``)."""
     import torch
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
     oc, pc = mp.ops.onehot_conv, mp.ops.pallas_conv
-    f, k, nbr = w.features, w.kernel, w.nbr
+    f = w.features if dtype is None else w.features.to(dtype)
+    k, nbr = w.kernel, w.nbr
     cin, cout = k.shape[1], k.shape[2]
     if kernel == "B4":
         run = lambda: oc.onehot_sparse_conv(f, k, nbr)  # noqa: E731
@@ -1231,13 +1249,69 @@ def check_map_conv(mp, kernel, w):
     else:
         run = lambda: pc.pallas_sparse_conv(f, k, nbr)  # noqa: E731
         plain = lambda: oc.map_conv_plain(  # noqa: E731
-            f, k, nbr, f.dtype)
+            f, k, nbr, torch.float32)
         tols = ({"rel_tol": B7_F32_RTOL, "abs_tol": 0.0, "min_ref": 1e-2}
-                if f.dtype == torch.float32 else {})
-    return timed_check(kernel, w.name, "k3s1", run, plain, w.pairs, cin,
-                       cout, map_conv_bytes(w), fp32_flops=kernel == "B7",
-                       n_out=nbr.shape[1], n_in=f.shape[0], k=nbr.shape[0],
-                       dtype=str(f.dtype), **tols)
+                if f.dtype == torch.float32 else {"bf16_out": True})
+    same = bool(torch.equal(run(), run()))
+    dev_ms = bc.device_ms(run)
+    source = oc.SOURCES[kernel == "B7"]
+    ta, tb = oc.MAP_TERMS[source][f.dtype]
+    products = sum(a + b <= 2 for a in range(ta) for b in range(tb))
+    nbytes = map_conv_bytes(w, f)
+    rec = timed_check(
+        kernel, w.name, "k3s1", run, plain, w.pairs, cin, cout, nbytes,
+        fp32_flops=kernel == "B7", extra_ok=same and dev_ms > 0,
+        n_out=nbr.shape[1], n_in=f.shape[0], k=nbr.shape[0],
+        dtype=str(f.dtype), terms=[ta, tb], products=products,
+        tile=list(oc.map_tile_shape(cin, cout, (ta, tb))),
+        groups=-(-nbr.shape[0] // oc.map_groups(nbr.shape[1], cout,
+                                                 nbr.shape[0])),
+        bound_split_ms=max(products * 2.0 * w.pairs * cin * cout /
+                           PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        device_ms=dev_ms, repeat_bit_identical=same, **tols)
+    return rec
+
+
+# the passes of B4's and B7's design (csrc/map_conv.cuh), by kernel name
+MAP_PASSES = {"cast": "cast_kernel", "count": "count_kernel",
+              "scan": "scan_kernel", "compaction": "compact_kernel",
+              "gemm": "gemm_kernel<", "reduce": "reduce_kernel"}
+
+
+def map_pass_table(mp, kernel, w) -> dict:
+    """The passes of B4 or B7 (float32 features) on workload ``w``: each
+    pass's device ms per call (the profiler), and the CUDA-event ms of the
+    launch run up to each stage (``cast``, ``pairs``: through the
+    compaction, ``full``)."""
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    oc = mp.ops.onehot_conv
+    source = oc.SOURCES[kernel == "B7"]
+    f, k, nbr = w.features, w.kernel, w.nbr
+
+    def run(stage="full"):
+        return oc._run_map_conv(source, f, k, nbr, stage)[0]
+    through = {s: bc.cuda_time_ms(lambda s=s: run(s)) for s in oc.MAP_STAGES}
+    by_name = bc.device_ms_by_kernel(run)
+    passes = {p: sum(ms for n, ms in by_name.items() if "map_conv::" + kn in n)
+              for p, kn in MAP_PASSES.items()}
+    terms = oc.MAP_TERMS[source][f.dtype]
+    kv, n_out = nbr.shape
+    rec = {"map_pass_table": kernel, "workload": w.name,
+           "matched_pairs": w.pairs, "terms": list(terms),
+           "tile": list(oc.map_tile_shape(k.shape[1], k.shape[2], terms)),
+           "groups": -(-kv // oc.map_groups(n_out, k.shape[2], kv)),
+           "device_ms": passes, "device_ms_sum": sum(passes.values()),
+           "other_device_ms": sum(ms for n, ms in by_name.items()
+                                  if "map_conv::" not in n),
+           "profiler_records_lost": bc.profiled.lost,
+           "profiler_sessions_refused": bc.profiled.refused,
+           "ms_through_stage": through,
+           "ok": all(ms > 0 for ms in passes.values())}
+    if not rec["ok"]:
+        rec["error"] = ("the profiler read 0 device ms for a pass of a "
+                        "launch that ran it")
+    emit(rec)
+    return rec
 
 
 def check_stage(mp, kernel, w, stage, b1_out):
@@ -1305,8 +1379,14 @@ def stage_table(mp, key, ops, count) -> dict:
                         err <= 1e-3 * ref.abs().max().item() + 1e-5)
             del ref
         del out
-        stages[stage] = {"ms": bc.cuda_time_ms(run),
-                         "device_ms": bc.device_ms(run), "ok": good}
+        dev_ms = bc.device_ms(run)
+        stages[stage] = {"ms": bc.cuda_time_ms(run), "device_ms": dev_ms,
+                         "profiler_records_lost": bc.profiled.lost,
+                         "profiler_sessions_refused": bc.profiled.refused,
+                         "ok": good and dev_ms > 0}
+        if dev_ms <= 0:
+            stages[stage]["error"] = ("the profiler read 0 device ms for a "
+                                      "launch that ran")
     rec = {"b1_stage_table": "generation", "launch_shape": list(key),
            "launches_per_request": count, "stages": stages,
            "ok": all(v["ok"] for v in stages.values())}
@@ -1345,16 +1425,23 @@ def b3_pass_table(mp, key, ops, count) -> dict:
                      if "fused_sparse_conv_dw::" + k in n)
               for p, k in B3_PASSES.items()}
     n_out, cin, cout, k = key
+    splits = fc.dw_splits(n_out, cin, cout, k)
+    ran = [p for p in passes if p != "reduce" or splits > 1]
     rec = {"b3_pass_table": "vae_train", "launch_shape": list(key),
            "launches_per_step": count,
            "tile": list(fc.dw_tile_shape(cin, cout)),
-           "splits": fc.dw_splits(n_out, cin, cout, k),
+           "splits": splits,
            "device_ms": passes, "device_ms_sum": sum(passes.values()),
            "other_device_ms": sum(ms for n, ms in by_name.items()
                                   if "fused_sparse_conv_dw::" not in n),
+           "profiler_records_lost": bc.profiled.lost,
+           "profiler_sessions_refused": bc.profiled.refused,
            "ms": through["full"], "ms_through_stage": through,
            "repeat_bit_identical": same,
-           "ok": same and passes["gemm"] > 0}
+           "ok": same and all(passes[p] > 0 for p in ran)}
+    if not all(passes[p] > 0 for p in ran):
+        rec["error"] = ("the profiler read 0 device ms for a pass of a "
+                        "launch that ran it")
     emit(rec)
     return rec
 
@@ -1369,10 +1456,15 @@ def library_phase(mp, dev, power) -> dict:
       and B8 must launch on the room, B4, B7 and B9 on the finest level,
       B4 and B7 on the wide case.
     - Holds each kernel against its plain version on the card within
-      1e-3·max|ref| + 1e-5 (``timed_check``): B4 and B7 on every workload,
-      B1 on the room, every stage of B8/B9 (``check_stage``); and B4 and B1
-      (on bf16-rounded operands) and B7 (float32) against the room's
-      ``sparse_conv_apply`` (``conv_xla``) at the same bound.
+      1e-3·max|ref| + 1e-5 (``timed_check``): B4 and B7 on every workload
+      (B7 on float32 features within ``B7_F32_RTOL``, and also on bf16
+      features on the wide level; each B4/B7 launch also bit for bit equal
+      to a second one, ``check_map_conv``), B1 on the room, every stage of
+      B8/B9 (``check_stage``); and B4 and B1 (on bf16-rounded operands)
+      and B7 (float32) against the room's ``sparse_conv_apply``
+      (``conv_xla``) at the same bound.  Prints B4's and B7's launch table
+      (pairs, bounds, event, device and plain ms) and their passes on
+      every workload (``map_pass_table``).
     - Holds ``onehot_conv``'s backward on the card (plain PyTorch, a
       unit-RMS cotangent) against the same formula on the CPU, with
       max|ref| ≥ 1e-2.
@@ -1427,6 +1519,23 @@ def library_phase(mp, dev, power) -> dict:
     for w in ws.values():
         for kernel in ("B4", "B7"):
             recs[(kernel, "library")][w.name] = check_map_conv(mp, kernel, w)
+    # B7 on bf16 features (not on the path, which builds float32 ones)
+    b7_bf16 = check_map_conv(mp, "B7", ws["wide"], torch.bfloat16)
+    rows = [r for n in ("B4", "B7") for r in recs[(n, "library")].values()]
+    emit({"map_conv_launch_table": power, "rows": [
+        {key: r[key] for key in (
+            "kernel", "case", "dtype", "n_out", "cin", "cout",
+            "matched_pairs", "terms", "tile", "groups", "bound_ops_ms",
+            "bound_bytes_ms", "bound_ms", "bound_split_ms", "bound_fp32_ms",
+            "ms", "device_ms", "plain_ms", "max_abs_err", "tol",
+            "repeat_bit_identical", "ok") if key in r}
+        for r in rows + [b7_bf16]]})
+    if not b7_bf16["ok"]:
+        failures.append("B7 on bf16 features")
+    for w in ws.values():
+        for kernel in ("B4", "B7"):
+            if not map_pass_table(mp, kernel, w)["ok"]:
+                failures.append(f"{kernel} pass table on {w.name}")
     spec = bc.K3
     recs[("B1", "library")]["room"] = check_case(
         mp, "library_room", "k3s1", room.features, room.kernel, room.grid,
@@ -1848,25 +1957,19 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
     The profiler slows the host down many times, so the device's busy
     share is taken against the wall time of an unprofiled call.  User
     annotations (``Optimizer.step#…``) span kernels that are counted
-    themselves, so they are left out of the sum."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    themselves, so they are left out of the sum.  The reading comes from a
+    session whose records are whole (``bench_conv.profiled``)."""
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
     rows = sorted(((e.self_device_time_total, e.key, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.self_device_time_total > 0), reverse=True)
+                   for e in bc.profiled(run)
+                   if e.self_device_time_total > 0), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
 
     def kernel_s(pattern):
         return sum(r[0] for r in rows if re.search(pattern, r[1])) / 1e6
     emit({"profile": label, "device_busy_s": busy_s,
+          "profiler_records_lost": bc.profiled.lost,
+          "profiler_sessions_refused": bc.profiled.refused,
           "device_kernels": sum(r[2] for r in rows),
           # B1 and B2 are one instantiation (B2's weight is cast
           # transposed), told apart only by their launches

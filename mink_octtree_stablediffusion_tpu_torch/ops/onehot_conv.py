@@ -7,8 +7,16 @@ onehot_conv.py` (the fused conv, its other half, is ``ops/fused_conv.py``):
   ``out_j = Σ_k f[nbr[k, j]] · W_k`` for a precomputed map
   ``nbr_idx int32[K, N_out]`` (-1 = missing), with bf16 operands by default
   and float32 accumulation, the output in the features' dtype.  On the card
-  it launches ``csrc/onehot_sparse_conv.cu`` (a windowed gather-GEMM whose
-  header states its design); on the CPU it takes its plain version.
+  it launches ``csrc/onehot_sparse_conv.cu``; on the CPU it takes its plain
+  version ``map_conv_plain``.
+- B4 and B7 (``ops/pallas_conv.py``) share one CUDA design,
+  ``csrc/map_conv.cuh`` (its header states it), launched by
+  ``launch_map_conv``: a cast pass into bf16 terms (``split_terms``,
+  ``map_conv_operands``), per-offset pair lists from the map
+  (``map_pair_list``), a GEMM over exactly the matched pairs into float32
+  partials, and a sum of each row's partials in offset order
+  (``_map_conv_pairs_plain``); its tile is ``map_tile_shape``'s, its
+  offset groups ``map_groups``'.
 - ``onehot_conv`` is the autograd Function for JAX's ``custom_vjp``
   ``onehot_conv``: forward B4, backward ``_xla_backward``, the JAX package's
   XLA formula (a masked gather, two einsums and an ``index_add_``) in plain
@@ -29,11 +37,15 @@ launch count is ``onehot_sparse_conv.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 from .conv import mm_f32
 from .coords import SparseGrid
+from .fused_conv import _round_up, tile_shape
+from ..utils.device import stream_guard
 
 SOURCE = "onehot_sparse_conv.cu"
 
@@ -72,15 +84,159 @@ def map_conv_plain(features: torch.Tensor, kernel: torch.Tensor,
     return out.to(features.dtype)
 
 
-def launch_map_conv(source: str, features: torch.Tensor,
-                    kernel: torch.Tensor,
-                    nbr_idx: torch.Tensor) -> tuple:
-    """Check the operands, allocate the output in the features' dtype and
-    launch ``csrc/<source>``'s ``<stem>_forward`` (B4 or B7, one C
-    signature) on PyTorch's current stream.  Counts nothing: the wrappers
-    do.  Returns the output and whether a kernel was launched."""
+# -- the kernel's passes (csrc/map_conv.cuh), their plain versions ---------
+
+SOURCES = (SOURCE, "pallas_sparse_conv.cu")  # B4, B7
+# bf16 terms (features, weight) of each source's products, by the features'
+# dtype: B4 rounds both operands to bf16; B7 keeps the fp32 weight (three
+# terms) and fp32 features (three terms), bf16 features being exact in one
+MAP_TERMS = {SOURCES[0]: {torch.float32: (1, 1), torch.bfloat16: (1, 1)},
+             SOURCES[1]: {torch.float32: (3, 3), torch.bfloat16: (1, 3)}}
+# the kernel's passes run up to a stage (csrc ``Stage``, in its order):
+# ``full`` the conv, ``cast`` the bf16 terms, ``pairs`` the pair lists
+MAP_STAGES = ("full", "cast", "pairs")
+MAP_ROWS = 256  # output rows of a count or compaction block (csrc ROWS)
+MAP_MAX_K = 65535  # offsets (the grids' y dimension)
+MAP_PARTIAL_BYTES = 1 << 30  # the GEMM's fp32 partials, at most
+
+
+def split_terms(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` as ``n`` bf16 terms [n, *x.shape], each the round-to-nearest
+    of what the earlier ones left: three hold a float32 value to about
+    2⁻²⁴ of itself (the cast pass's plain version)."""
+    r = x.float()
+    terms = []
+    for _ in range(n):
+        t = r.to(torch.bfloat16)
+        terms.append(t)
+        r = r - t.float()
+    return torch.stack(terms)
+
+
+def map_tile_shape(cin: int, cout: int, terms: tuple) -> tuple:
+    """(BN, BK) of the GEMM: ``fused_conv.tile_shape``'s, with the Cin
+    chunk cut to 32 where the weight has three terms and to 16 where the
+    features do too, so that a ring stage stays within 32 KB."""
+    bn, bk = tile_shape(cin, cout)
+    if terms[0] > 1:
+        bk = 16
+    elif terms[1] > 1:
+        bk = min(bk, 32)
+    return bn, bk
+
+
+def map_groups(n_out: int, cout: int, k: int) -> int:
+    """Offsets per GEMM launch: each offset has at most ``n_out`` pairs,
+    and a group's float32 partials [G · N_out, Cout] stay within
+    ``MAP_PARTIAL_BYTES`` (at least one offset)."""
+    return max(1, min(k, MAP_PARTIAL_BYTES // max(1, 4 * n_out * cout)))
+
+
+def map_conv_operands(features: torch.Tensor, kernel: torch.Tensor,
+                      terms: tuple, bn: int, bk: int) -> tuple:
+    """The operands as the cast pass makes them once per call (this is its
+    plain version): the features' ``split_terms`` bf16 [TA, N, CinF] and
+    the weight's [TB, K, CinW, CoutP], zero-padded to CinF = Cin rounded up
+    to 8, CinW to ``bk`` and CoutP to ``bn``."""
+    (n, cin), (k, _, cout) = features.shape, kernel.shape
+    fb = torch.zeros((terms[0], n, _round_up(cin, 8)), dtype=torch.bfloat16,
+                     device=features.device)
+    fb[:, :, :cin] = split_terms(features, terms[0])
+    wb = torch.zeros((terms[1], k, _round_up(cin, bk), _round_up(cout, bn)),
+                     dtype=torch.bfloat16, device=kernel.device)
+    wb[:, :, :cin, :cout] = split_terms(kernel, terms[1])
+    return fb, wb
+
+
+def map_pair_list(nbr_idx: torch.Tensor, n_in: int) -> tuple:
+    """The pair lists as the count, scan and compaction passes make them
+    (this is their plain version): (starts int32 [K + 1], pair_in int32
+    [P], pos int32 [K, N_out]): offset k's pairs ``q`` in
+    ``starts[k]:starts[k + 1]``, in ascending output row ``j``, with
+    ``pair_in[q] = nbr[k, j]`` and ``pos[k, j] = q`` (-1 where ``nbr[k, j]``
+    lies outside [0, ``n_in``))."""
+    hit = (nbr_idx >= 0) & (nbr_idx < n_in)
+    starts = torch.zeros(nbr_idx.shape[0] + 1, dtype=torch.int32,
+                         device=nbr_idx.device)
+    starts[1:] = hit.sum(1).cumsum(0)
+    pos = torch.full(nbr_idx.shape, -1, dtype=torch.int32,
+                     device=nbr_idx.device)
+    pos[hit] = torch.arange(int(hit.sum()), dtype=torch.int32,
+                            device=nbr_idx.device)
+    return starts, nbr_idx[hit].to(torch.int32), pos
+
+
+def _map_conv_pairs_plain(features: torch.Tensor, kernel: torch.Tensor,
+                          nbr_idx: torch.Tensor, terms: tuple,
+                          group: int) -> torch.Tensor:
+    """The GEMM and the reduce in plain PyTorch, in the kernel's order:
+    each pair's float32 partial ``Σ_{a + b ≤ 2} fterm_a[pair_in] ·
+    wterm_b[k]``, then every output row's partials added offset by offset
+    to a float32 sum, ``group`` offsets at a time → the features'
+    dtype."""
+    bn, bk = map_tile_shape(features.shape[1], kernel.shape[2], terms)
+    fb, wb = map_conv_operands(features, kernel, terms, bn, bk)
+    cin, cout = features.shape[1], kernel.shape[2]
+    fb, wb = fb[..., :cin].float(), wb[:, :, :cin, :cout].float()
+    starts, pair_in, pos = map_pair_list(nbr_idx, features.shape[0])
+    k, n_out = nbr_idx.shape
+    part = torch.zeros((pair_in.shape[0], cout), dtype=torch.float32,
+                       device=features.device)
+    for kk in range(k):
+        q0, q1 = int(starts[kk]), int(starts[kk + 1])
+        rows = pair_in[q0:q1].long()
+        for a in range(terms[0]):
+            for b in range(terms[1]):
+                if a + b <= 2:
+                    part[q0:q1] += fb[a][rows] @ wb[b, kk]
+    acc = torch.zeros((n_out, cout), dtype=torch.float32,
+                      device=features.device)
+    for k0 in range(0, k, group):
+        for kk in range(k0, min(k, k0 + group)):
+            hit = pos[kk] >= 0
+            acc[hit] += part[pos[kk][hit].long()]
+    return acc.to(features.dtype)
+
+
+_MAP_BUFFERS = ("fb", "wb", "cnt", "off", "tile_off", "pair_in", "pos",
+                "part", "acc")
+
+
+@functools.lru_cache(maxsize=256)
+def _map_workspace(n_in: int, n_out: int, cin: int, cout: int, k: int,
+                   terms: tuple, bn: int, bk: int, group: int) -> tuple:
+    """(byte offset of each buffer, in ``_MAP_BUFFERS``' order, in one
+    workspace; its size): the bf16 terms fb [TA, N_in, CinF] and wb [TB, K,
+    CinW, CoutP] (``map_conv_operands``), the counts [K · row blocks], their
+    prefix sums [K · row blocks + 1], the tile prefix sums [K + 1], pair_in
+    and pos [K · N_out] (int32), the float32 partials [G · N_out, Cout] and,
+    with more than one group, the float32 running sum [N_out, Cout]; each
+    256-byte aligned."""
+    rb = -(-n_out // MAP_ROWS)
+    ta, tb = terms
+    sizes = (2 * ta * n_in * _round_up(cin, 8),
+             2 * tb * k * _round_up(cin, bk) * _round_up(cout, bn),
+             4 * k * rb, 4 * (k * rb + 1), 4 * (k + 1), 4 * k * n_out,
+             4 * k * n_out, 4 * group * n_out * cout,
+             4 * n_out * cout if group < k else 0)
+    offsets, at = [], 0
+    for n in sizes:
+        offsets.append(at)
+        at += _round_up(n, 256)
+    return tuple(offsets), at
+
+
+def _run_map_conv(source: str, features: torch.Tensor, kernel: torch.Tensor,
+                  nbr_idx: torch.Tensor, stage: str) -> tuple:
+    """Check the operands, allocate the output (in the features' dtype) and
+    the workspace, and launch ``csrc/<source>``'s passes up to ``stage`` on
+    PyTorch's current stream.  Returns (output, workspace, its offsets,
+    (terms, BN, BK)); the workspace is None where an operand is empty
+    (nothing launched; the output is then zeros, or has no element)."""
     from ..utils import cuda_build
 
+    if stage not in MAP_STAGES:
+        raise ValueError(f"stage {stage!r} not in {MAP_STAGES}")
     dev = features.device
     if features.dim() != 2 or kernel.dim() != 3 or nbr_idx.dim() != 2:
         raise ValueError("need features [N, Cin], kernel [K, Cin, Cout], "
@@ -91,35 +247,85 @@ def launch_map_conv(source: str, features: torch.Tensor,
         raise ValueError(f"features {tuple(features.shape)}, kernel "
                          f"{tuple(kernel.shape)} and nbr_idx "
                          f"{tuple(nbr_idx.shape)} disagree")
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"features: float32 or bfloat16, not "
-                         f"{features.dtype}")
-    for name, t, dt in (("features", features, features.dtype),
-                        ("nbr_idx", nbr_idx, torch.int32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dt} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-    if kernel.device != dev:
-        raise ValueError(f"kernel on {kernel.device}, features on {dev}")
+    if k > MAP_MAX_K:
+        raise ValueError(f"{k} offsets, more than {MAP_MAX_K}")
+    for name, t, dts in (("features", features,
+                          (torch.float32, torch.bfloat16)),
+                         ("kernel", kernel, (torch.float32, torch.bfloat16)),
+                         ("nbr_idx", nbr_idx, (torch.int32,))):
+        if t.device != dev or t.dtype not in dts or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous tensor of "
+                             f"{' or '.join(map(str, dts))} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
     out = torch.empty((n_out, cout), dtype=features.dtype, device=dev)
+    terms = MAP_TERMS[source][features.dtype]
+    bn, bk = map_tile_shape(cin, cout, terms)
     if n_out == 0 or cout == 0:
-        return out, False
-    if cin == 0 or n == 0:
-        return out.zero_(), False
+        return out, None, None, (terms, bn, bk)
+    if cin == 0 or n == 0 or k == 0:
+        return out.zero_(), None, None, (terms, bn, bk)
+    group = map_groups(n_out, cout, k)
+    offsets, size = _map_workspace(n, n_out, cin, cout, k, terms, bn, bk,
+                                   group)
+    ws = torch.empty(size, dtype=torch.uint8, device=dev)
+    bufs = [ws.data_ptr() + o for o in offsets]
+    if group >= k:
+        bufs[-1] = None  # no running sum between groups
     stem = source.rsplit(".", 1)[0]
     fn, err = cuda_build.bind(
         source, f"{stem}_forward",
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 +
-        [ctypes.c_int] * 5 + [ctypes.c_void_p], f"{stem}_error_string")
-    w = kernel.to(torch.float32).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] +
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+        f"{stem}_error_string")
+    stream, guard = stream_guard(dev)
+    with guard:
         rc = fn(features.data_ptr(), int(features.dtype == torch.bfloat16),
-                w.data_ptr(), nbr_idx.data_ptr(), out.data_ptr(), n, n_out,
-                cin, cout, k, stream)
+                kernel.data_ptr(), int(kernel.dtype == torch.bfloat16),
+                nbr_idx.data_ptr(), out.data_ptr(), *bufs, n, n_out, cin,
+                cout, k, bn, bk, group, MAP_STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError(f"{stem} launch failed: " + err(rc).decode())
-    return out, True
+    return out, ws, offsets, (terms, bn, bk)
+
+
+def launch_map_conv(source: str, features: torch.Tensor,
+                    kernel: torch.Tensor,
+                    nbr_idx: torch.Tensor) -> tuple:
+    """Check the operands, allocate the output in the features' dtype and
+    launch ``csrc/<source>`` (B4 or B7, one C signature: every pass of
+    ``csrc/map_conv.cuh`` from one call) on PyTorch's current stream.
+    Counts nothing: the wrappers do.  Returns the output and whether a
+    kernel was launched."""
+    out, ws, _, _ = _run_map_conv(source, features, kernel, nbr_idx, "full")
+    return out, ws is not None
+
+
+def _launch_map_conv_passes(source: str, features: torch.Tensor,
+                            kernel: torch.Tensor, nbr_idx: torch.Tensor,
+                            stage: str) -> tuple:
+    """The passes alone on the card, for the card tests that hold them
+    equal to their plain versions: ``cast`` gives (fb, wb) as
+    ``map_conv_operands``; ``pairs`` (starts, pair_in, pos) as
+    ``map_pair_list``."""
+    if stage not in MAP_STAGES[1:]:
+        raise ValueError(f"stage {stage!r} not in {MAP_STAGES[1:]}")
+    _, ws, at, (terms, bn, bk) = _run_map_conv(source, features, kernel,
+                                               nbr_idx, stage)
+    (n_in, cin), (k, _, cout) = features.shape, kernel.shape
+    n_out = nbr_idx.shape[1]
+
+    def view(name, dtype, *shape):
+        n = math.prod(shape) * dtype.itemsize
+        return ws.narrow(0, at[_MAP_BUFFERS.index(name)], n).view(
+            dtype).view(shape)
+    if stage == "cast":
+        return (view("fb", torch.bfloat16, terms[0], n_in, _round_up(cin, 8)),
+                view("wb", torch.bfloat16, terms[1], k, _round_up(cin, bk),
+                     _round_up(cout, bn)))
+    rb = -(-n_out // MAP_ROWS)
+    starts = view("off", torch.int32, k * rb + 1)[::rb].clone()
+    return (starts, view("pair_in", torch.int32, k * n_out)[:int(starts[-1])],
+            view("pos", torch.int32, k, n_out))
 
 
 def onehot_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
@@ -131,10 +337,10 @@ def onehot_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
     float32 accumulation.  No gradient: use ``onehot_conv``.
 
     The JAX kernel's Mosaic parameters ``tile``, ``tw`` and ``interpret``
-    are left out: the CUDA kernel's tile and window sizes are fixed in its
-    source.  CUDA tensors launch the kernel (K ≤ 343), which computes in
-    bf16 only (another ``compute_dtype`` raises); CPU tensors take the
-    plain version in ``compute_dtype``."""
+    are left out: the CUDA kernel's tiles follow ``map_tile_shape``.  CUDA
+    tensors launch the kernel (up to ``MAP_MAX_K`` offsets, a float32 or
+    bf16 kernel), which computes in bf16 only (another ``compute_dtype``
+    raises); CPU tensors take the plain version in ``compute_dtype``."""
     if features.device.type == "cpu":
         return map_conv_plain(features, kernel, nbr_idx, compute_dtype)
     if compute_dtype != torch.bfloat16:

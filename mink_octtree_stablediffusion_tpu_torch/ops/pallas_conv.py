@@ -1,14 +1,16 @@
-"""Direct gather-GEMM sparse conv given a kernel map, as a hand-written
-CUDA kernel (B7).
+"""Sparse conv given a kernel map with float32-accurate products, as a
+hand-written CUDA kernel (B7).
 
 Port of `mink_octtree_stablediffusion_tpu/ops/pallas_conv.py`:
 ``pallas_sparse_conv`` replaces the TPU kernel **B7** of the same name,
 the same function as B4 (``out_j = Σ_k f[nbr[k, j]] · W_k``, -1 = missing)
-computed in the features' own dtype with float32 accumulation, the output
-in the features' dtype.  On the card it launches
-``csrc/pallas_sparse_conv.cu`` (rows gathered straight from device memory;
-bf16 features on the tensor cores, float32 features in an FMA loop with no
-TF32 rounding); on the CPU it takes its plain version.  There is no
+with the products the JAX kernel forms: the gathered rows in the features'
+dtype times the kernel as given (float32), summed in float32, the output in
+the features' dtype (bf16 features meet a float32 weight: only the output
+is rounded).  On the card it launches ``csrc/pallas_sparse_conv.cu``
+(``csrc/map_conv.cuh``'s design, shared with B4, with float32-accurate
+products from bf16 split terms on the tensor cores); on the CPU it takes
+its plain version, ``map_conv_plain`` in float32.  There is no
 fallback: a CUDA tensor launches the kernel or raises.  The JAX docstring's
 "automatic fallback to the XLA path on lowering failure" is not carried
 over (the JAX code has none either).
@@ -22,22 +24,23 @@ from __future__ import annotations
 
 import torch
 
-from .onehot_conv import launch_map_conv, map_conv_plain
+from .onehot_conv import SOURCES, launch_map_conv, map_conv_plain
 
-SOURCE = "pallas_sparse_conv.cu"
+SOURCE = SOURCES[1]
+
 
 def pallas_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
                        nbr_idx: torch.Tensor, tile: int = 256) -> torch.Tensor:
     """B7: the conv of ``features`` [N, Cin] (float32 or bfloat16) with
     ``kernel`` [K, Cin, Cout] along ``nbr_idx`` int32[K, N_out] → [N_out,
-    Cout], in the features' dtype.  ``N_out`` must be a multiple of
-    ``tile`` (JAX asserts it; here it raises ``ValueError``); the tile is
-    otherwise a Mosaic parameter and ignored, and JAX's ``interpret`` is
-    left out."""
+    Cout], in the features' dtype, the products float32-accurate.
+    ``N_out`` must be a multiple of ``tile`` (JAX asserts it; here it
+    raises ``ValueError``); the tile is otherwise a Mosaic parameter and
+    ignored, and JAX's ``interpret`` is left out."""
     if nbr_idx.shape[1] % tile:
         raise ValueError("pad N_out to a multiple of the tile size")
     if features.device.type == "cpu":
-        return map_conv_plain(features, kernel, nbr_idx, features.dtype)
+        return map_conv_plain(features, kernel, nbr_idx, torch.float32)
     out, launched = launch_map_conv(SOURCE, features, kernel, nbr_idx)
     pallas_sparse_conv.launches += launched
     return out

@@ -615,36 +615,118 @@ def _close_f32(got, ref):
     assert err <= 2e-5 * ref.abs().max().item(), err
 
 
+def _maps(dev, g, gen):
+    """Maps on ``g`` for the map-conv checks: k3 (27 offsets), the same
+    shuffled with duplicated columns, k2 (8), k7 (343), and k3 with offset
+    5 all missing and some indices past the rows (read as missing)."""
+    def kmap(size):
+        return mp.ops.kernel_map(g, g, mp.ops.KernelSpec(size, 1, ndim=3))
+    nbr = kmap(3)
+    perm = torch.randperm(nbr.shape[1], generator=gen, device=dev)
+    shuffled = nbr[:, perm]
+    shuffled[:, :100] = shuffled[:, 100:200]
+    holes = nbr.clone()
+    holes[5] = -1
+    holes[7, ::9] = g.capacity + 3
+    return {"k3": nbr, "k3_shuffled": shuffled.contiguous(), "k2": kmap(2),
+            "k7": kmap(7), "k3_missing_offset": holes}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (37, 70),
                                       (512, 512)])
 def test_map_conv_kernels_match_plain(cin, cout):
-    """B4 (bf16 operands) and B7 (in the features' dtype: float32, and
-    bf16) against their plain versions on the card, on a kernel map and on
-    the same map shuffled with duplicated columns; each launches once."""
+    """B4 (bf16 operands) and B7 (float32-accurate products: on float32
+    features, and on bf16 features against the float32-weight plain
+    version) against their plain versions on the card, on k3, k2 and k7
+    maps, a shuffled map with duplicated columns and a map with an
+    all-missing offset; each launches once, and a second launch gives the
+    same output bit for bit."""
     dev = _card()
     g = _grid(dev)
-    nbr = mp.ops.kernel_map(g, g, mp.ops.KernelSpec(3, 1, ndim=3))
     gen = torch.Generator(device=dev).manual_seed(0)
-    perm = torch.randperm(nbr.shape[1], generator=gen, device=dev)
-    shuffled = nbr[:, perm]
-    shuffled[:, :100] = shuffled[:, 100:200]
     f = torch.randn(g.capacity, cin, device=dev,
                     generator=gen) * g.valid[:, None]
-    k = torch.randn(27, cin, cout, device=dev,
-                    generator=gen) / np.sqrt(27 * cin)
-    for m in (nbr, shuffled.contiguous()):
+    for name, m in _maps(dev, g, gen).items():
+        kv = m.shape[0]
+        k = torch.randn(kv, cin, cout, device=dev,
+                        generator=gen) / np.sqrt(kv * cin)
         before = _map_counts()
         got4 = mp.ops.onehot_sparse_conv(f, k, m)
         got7 = pallas_conv.pallas_sparse_conv(f, k, m)
         got7b = pallas_conv.pallas_sparse_conv(f.bfloat16(), k, m)
-        assert [a - b for a, b in zip(_map_counts(), before)] == [1, 2]
+        assert [a - b for a, b in zip(_map_counts(), before)] == [1, 2], name
         assert got4.dtype == got7.dtype == torch.float32
         assert got7b.dtype == torch.bfloat16
         _close_to(got4, onehot_conv.map_conv_plain(f, k, m, torch.bfloat16))
         _close_f32(got7, onehot_conv.map_conv_plain(f, k, m, torch.float32))
         _close_bf16(got7b, onehot_conv.map_conv_plain(
-            f.bfloat16(), k, m, torch.bfloat16))
+            f.bfloat16(), k, m, torch.float32))
+        assert torch.equal(got4, mp.ops.onehot_sparse_conv(f, k, m)), name
+        assert torch.equal(got7, pallas_conv.pallas_sparse_conv(f, k, m))
+        assert torch.equal(got7b, pallas_conv.pallas_sparse_conv(
+            f.bfloat16(), k, m)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,dtype", [
+    ("onehot_sparse_conv.cu", torch.float32),
+    ("pallas_sparse_conv.cu", torch.float32),
+    ("pallas_sparse_conv.cu", torch.bfloat16)])
+def test_map_conv_passes_match_plain(source, dtype):
+    """The cast pass (the bf16 terms of the features and the weight) and
+    the pair lists (count, scan, compaction) of B4/B7 equal their plain
+    versions ``map_conv_operands`` and ``map_pair_list`` exactly, on a k3
+    map with an all-missing offset and indices past the rows; a bf16
+    weight is split as its float32 value."""
+    dev = _card()
+    g = _grid(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m = _maps(dev, g, gen)["k3_missing_offset"]
+    f = (torch.randn(g.capacity, 37, device=dev, generator=gen) *
+         g.valid[:, None]).to(dtype)
+    for k in (torch.randn(27, 37, 70, device=dev, generator=gen),
+              torch.randn(27, 37, 70, device=dev,
+                          generator=gen).bfloat16()):
+        terms = onehot_conv.MAP_TERMS[source][dtype]
+        fb, wb = onehot_conv._launch_map_conv_passes(source, f, k, m, "cast")
+        torch.cuda.synchronize()
+        pfb, pwb = onehot_conv.map_conv_operands(
+            f, k, terms, *onehot_conv.map_tile_shape(37, 70, terms))
+        assert torch.equal(fb, pfb) and torch.equal(wb, pwb)
+    got = onehot_conv._launch_map_conv_passes(source, f, k, m, "pairs")
+    torch.cuda.synchronize()
+    for a, b in zip(got, onehot_conv.map_pair_list(m, g.capacity)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_map_conv_offset_groups_are_bit_identical(monkeypatch):
+    """With the partials' bound cut so that the offsets run in groups of 5
+    (a float32 running sum kept between groups), B4 and B7 give the same
+    output bit for bit as in one group: every row adds its partials in
+    offset order either way."""
+    dev = _card()
+    g = _grid(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    m = _maps(dev, g, gen)["k3"]
+    f = torch.randn(g.capacity, 64, device=dev,
+                    generator=gen) * g.valid[:, None]
+    k = torch.randn(27, 64, 96, device=dev, generator=gen) / np.sqrt(27 * 64)
+
+    def convs():
+        return (mp.ops.onehot_sparse_conv(f, k, m),
+                pallas_conv.pallas_sparse_conv(f, k, m),
+                pallas_conv.pallas_sparse_conv(f.bfloat16(), k, m))
+    assert onehot_conv.map_groups(g.capacity, 96, 27) == 27
+    whole = convs()
+    monkeypatch.setattr(onehot_conv, "MAP_PARTIAL_BYTES",
+                        5 * 4 * g.capacity * 96)
+    assert onehot_conv.map_groups(g.capacity, 96, 27) == 5
+    grouped = convs()
+    torch.cuda.synchronize()
+    for a, b in zip(whole, grouped):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -174,6 +174,78 @@ def test_b7_f32_limit_rejects_tf32_rounding(request, case):
     assert (tf32.double() - exact).abs().max().item() > 2 * lim
 
 
+def _exact(f, k, nbr):
+    """The conv along ``nbr`` in float64 from the given operands."""
+    hit = nbr >= 0
+    return sum(torch.where(hit[kk, :, None],
+                           f.double()[nbr[kk].clamp(min=0).long()], 0.0)
+               @ k.double()[kk] for kk in range(nbr.shape[0]))
+
+
+@pytest.mark.parametrize("case", ["small", "room"])
+def test_b7_split_product_within_f32_limit(request, case):
+    """B7's card kernel forms float32-accurate products from bf16 split
+    terms (`csrc/map_conv.cuh`): on float32 features the 6 products of
+    three terms each with i + j ≤ 2.  Emulated here
+    (``_map_conv_pairs_plain``: exact term products, float32 sums in the
+    kernel's order), that stays within the float32 limit (2e-5·max|ref|,
+    ``B7_F32_RTOL``) of a float64 sum, where one bf16 product, terms (1,
+    1), does not; bf16 features times the weight's three terms, (1, 3),
+    stay within it of the float64 sum on the bf16 features."""
+    c = request.getfixturevalue(case)
+    f, k, nbr = _t(c.features), _t(c.kernel), _t(c.nbr)
+    k_all = nbr.shape[0]
+    exact = _exact(f, k, nbr)
+    lim = 2e-5 * exact.abs().max().item()
+    six = onehot_conv._map_conv_pairs_plain(f, k, nbr, (3, 3), k_all)
+    one = onehot_conv._map_conv_pairs_plain(f, k, nbr, (1, 1), k_all)
+    assert (six.double() - exact).abs().max().item() <= lim / 10
+    assert (one.double() - exact).abs().max().item() > 2 * lim
+    fb = f.bfloat16()
+    exact_b = _exact(fb.float(), k, nbr)
+    three = onehot_conv._map_conv_pairs_plain(fb.float(), k, nbr, (1, 3),
+                                              k_all)
+    assert (three.double() - exact_b).abs().max().item() <= \
+        2e-6 * exact_b.abs().max().item()
+
+
+def test_b7_bf16_features_take_the_float32_weight():
+    """B7 on bf16 features multiplies them by the float32 weight, as JAX's
+    kernel does (its body takes ``w_ref`` as given, and only the output is
+    rounded to bf16): features 1 and W = [1 + 3·2⁻¹⁰, −1] give the exact
+    sum 3·2⁻¹⁰ in both packages, where a bf16-rounded weight gives 0."""
+    f = np.ones((8, 2), np.float32)
+    w = np.array([[[1 + 3 * 2.0 ** -10], [-1.0]]], np.float32)
+    nbr = np.arange(8, dtype=np.int32)[None]
+    ref = jax_pallas_sparse_conv(jnp.asarray(f, jnp.bfloat16),
+                                 jnp.asarray(w), jnp.asarray(nbr), tile=8,
+                                 interpret=True)
+    got = pallas_conv.pallas_sparse_conv(_t(f).bfloat16(), _t(w), _t(nbr),
+                                         tile=8)
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got.float()),
+                                  np.asarray(ref.astype(jnp.float32)))
+    assert torch.all(got.float() == 3 * 2.0 ** -10)
+
+
+def test_b7_bf16_features_match_jax(small):
+    """B7 on bf16 features against JAX's kernel (interpret mode) on the
+    same bf16 features and float32 weight: the two float32 sums may round
+    to neighbouring bf16 values, so one bf16 ulp of max|ref|,
+    2^(⌊log₂ max|ref|⌋ − 7), + 1e-5."""
+    ref = np.asarray(jax_pallas_sparse_conv(
+        jnp.asarray(small.features, jnp.bfloat16), jnp.asarray(small.kernel),
+        jnp.asarray(small.nbr), tile=128, interpret=True
+    ).astype(jnp.float32))
+    got = pallas_conv.pallas_sparse_conv(
+        _t(small.features).bfloat16(), _t(small.kernel), _t(small.nbr),
+        tile=128)
+    assert got.dtype == torch.bfloat16
+    ref_max = np.abs(ref).max()
+    ulp = 2.0 ** (np.floor(np.log2(ref_max)) - 7)
+    assert np.abs(_np(got.float()) - ref).max() <= ulp + 1e-5
+
+
 @pytest.mark.parametrize("case", ["small", "room"])
 def test_onehot_conv_backward_matches_jax(request, case):
     """``onehot_conv``'s backward (plain PyTorch on both devices) against
