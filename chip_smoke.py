@@ -62,7 +62,10 @@ computes the same function.  B1's stages (the cut that B8/B9 time on
 the library path) are also timed on the generation path's two heaviest
 launch shapes (``stage_table``), and B3's passes, each by its device time,
 on the VAE step's two heaviest (``b3_pass_table``, which also holds two
-launches bit for bit equal).  B1, B2 and B3 are all checked at every launch
+launches bit for bit equal), and B6's passes at every B6 launch shape of
+the VAE gate-on step and the diffusion step (``b6_pass_table``: the
+same, with the share of live tiles).
+B1, B2 and B3 are all checked at every launch
 shape of the VAE train path, so that its kernel account is complete
 (``vae_step_kernel_account``).  Last, tiny configurations run on the card
 and on the CPU (plain versions under the same bf16 compute policy) with
@@ -298,7 +301,7 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
     of both and of ``library`` (one PyTorch call computing the same
     function), where there is one; the bound max(flops / peak bf16,
     bytes / peak HBM), the flops being 2·Cin·Cout·``pairs`` (``work_pairs``
-    in place of the matched ``pairs`` where the kernel's work is dense)
+    in place of the matched ``pairs`` where the function's terms are others)
     unless ``flops`` is given.  Where the kernel does its operations as
     float32 FMAs outside the tensor cores (``fp32_flops``), the record also
     holds ``bound_fp32_ms``, the same bound at the float32 peak.  The
@@ -422,14 +425,20 @@ def occupied_pairs(occ_out, occ_in) -> int:
 def check_brick_launch(mp, kernel, path, key, ops):
     """B5 (forward), its dF pass or B6 on one launch's operands (``key``:
     the forward conv's (B, X, Y, Z, Cin, Cout)); the dF pass and B6 with
-    the cotangent volume at unit RMS.  Bound: the dense work, 2·27·cells·
-    Cin·Cout operations, against the bytes the function must move at the
-    conv's own widths: the bf16 input (and, for B6, cotangent) values of
-    the volume's cells read once, the float32 weight read once (B5, dF) or
-    written once (B6), the float32 output written once.  The 1-cell zero
-    shell and the channel padding to 16 are the port's layout and are not
-    counted.  ``matched_pairs`` beside it counts the occupied (cell,
-    neighbour) pairs, B1's work for the same conv.  Yardstick
+    the cotangent volume at unit RMS.  Bound: the operations, against the
+    bytes the function must move at the conv's own widths: the bf16 input
+    (and, for B6, cotangent) values of the volume's cells read once, the
+    float32 weight read once (B5, dF) or written once (B6), the float32
+    output written once.  The 1-cell zero shell and the channel padding to
+    16 are the port's layout and are not counted.  ``matched_pairs``
+    counts the occupied (cell, neighbour) pairs, B1's work for the same
+    conv.  Operations: 2·Cin·Cout for each (cell, neighbour) term the
+    function's sums hold (``work_pairs``): for B5 and the dF pass, whose
+    output is dense, every cell's occupied neighbours; for B6, whose sum
+    has a term only where the cotangent's cell and its neighbour are both
+    occupied, ``matched_pairs``.  The record keeps the time of the dense
+    work, 2·27·cells·Cin·Cout operations, beside it (``dense_ops_ms``).
+    Yardstick
     (``library_ms``): one cuDNN call on a dense, contiguous bf16 copy of
     the volume at the conv's widths, made before the timing: ``F.conv3d``
     (B5 and the dF pass) or ``torch.nn.grad.conv3d_weight`` (B6)."""
@@ -453,6 +462,7 @@ def check_brick_launch(mp, kernel, path, key, ops):
             xin, (cout, cin, 3, 3, 3), gout)
         nbytes = 2 * cells * (cin + cout) + 4 * 27 * cin * cout
         pairs = occupied_pairs(gvolp.ne(0).any(-1), volp.ne(0).any(-1))
+        work = pairs
     else:
         volp, w, mirror = ops
         if mirror:
@@ -469,10 +479,12 @@ def check_brick_launch(mp, kernel, path, key, ops):
         nbytes = 2 * cells * cin + 4 * w.numel() + 4 * cells * cout
         occ = volp.ne(0).any(-1)
         pairs = occupied_pairs(occ, occ)
+        work = occupied_pairs(torch.ones_like(occ), occ)
     return timed_check(kernel, path, "k3s1", run, plain, pairs, cin, cout,
                        nbytes, min_ref=min_ref, library=library,
-                       work_pairs=27 * cells, volume=[b, x, y, z],
-                       cells=cells, forward_shape=list(key), **extra)
+                       work_pairs=work, volume=[b, x, y, z], cells=cells,
+                       forward_shape=list(key), dense_ops_ms=2.0 * 27 *
+                       cells * cin * cout / PEAK_BF16_FLOPS * 1e3, **extra)
 
 
 def extra_cases(mp, st, dev):
@@ -1446,6 +1458,68 @@ def b3_pass_table(mp, key, ops, count) -> dict:
     return rec
 
 
+# B6's passes (csrc/brick_conv_dw.cu), by their kernels' names
+B6_PASSES = {"live": "live_kernel", "gemm": "gemm_kernel",
+             "reduce": "reduce_kernel"}
+
+
+def b6_pass_table(mp, path, key, ops, count, check) -> dict:
+    """B6's passes on one launch shape of ``path`` (``key``: the forward
+    conv's (B, X, Y, Z, Cin, Cout)), with the operands ``ops`` of its first
+    launch (the cotangent at unit RMS) and ``count`` launches per step:
+    each pass's device ms per call (live, GEMM, reduce; the profiler), the
+    CUDA-event ms of the launch run up to each stage (``live``, ``full``),
+    the splits, the live tiles and their share, the occupied pairs' share
+    of the dense work, the share of the bound (``check``: the shape's
+    ``check_brick_launch`` record, with cuDNN's ms) that the event and the
+    device time reach, and whether two launches give dW bit for bit."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    vc = mp.ops.vol_conv
+    volp, gvolp, cin, cout = ops
+    gvolp = unit_rms(gvolp)[0]
+
+    def run():
+        return vc._launch_dw(volp, gvolp, cin, cout)
+    same = bool(torch.equal(run(), run()))
+    through = {"full": bc.cuda_time_ms(run), "live": bc.cuda_time_ms(
+        lambda: vc._run_dw(volp, gvolp, cin, cout, None, "live"))}
+    by_name = bc.device_ms_by_kernel(run)
+    passes = {p: sum(ms for n, ms in by_name.items()
+                     if "brick_conv_dw::" + k in n)
+              for p, k in B6_PASSES.items()}
+    b, x, y, z = key[:4]
+    splits = vc.dw_splits(b, x, y, z, cin, cout)
+    live = int(vc._launch_dw_live(gvolp, cout).numel())
+    tiles = vc.n_tiles(b, x, y, z)
+    dev_ms = sum(passes.values())
+    ran = [p for p in passes if p != "reduce" or splits > 1]
+    rec = {"b6_pass_table": path, "launch_shape": list(key),
+           "launches_per_step": count,
+           "splits": splits, "tiles": tiles, "live_tiles": live,
+           "live_share": live / tiles,
+           "occupied_pairs_share": check["matched_pairs"] /
+           (27 * check["cells"]),
+           "device_ms": passes, "device_ms_sum": dev_ms,
+           "other_device_ms": sum(ms for n, ms in by_name.items()
+                                  if "brick_conv_dw::" not in n),
+           "profiler_records_lost": bc.profiled.lost,
+           "profiler_sessions_refused": bc.profiled.refused,
+           "ms": through["full"], "ms_through_stage": through,
+           "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+           "dense_ops_ms": check["dense_ops_ms"],
+           "bound_share_event": check["bound_ms"] / through["full"],
+           "bound_share_device": check["bound_ms"] / dev_ms if dev_ms else 0,
+           "plain_ms": check["plain_ms"], "cudnn_ms": check["library_ms"],
+           "repeat_bit_identical": same,
+           "ok": same and all(passes[p] > 0 for p in ran)}
+    if not all(passes[p] > 0 for p in ran):
+        rec["error"] = ("the profiler read 0 device ms for a pass of a "
+                        "launch that ran it")
+    emit(rec)
+    return rec
+
+
 def library_phase(mp, dev, power) -> dict:
     """The library path (`bench_conv`) at full size, seed 0.
 
@@ -1853,6 +1927,36 @@ def main(argv) -> int:
         traceback.print_exc()
         need(False, "B3 passes on the VAE train path")
 
+    # B6's passes at every launch shape of the VAE gate-on step and of the
+    # diffusion step; its time per step on both
+    per_gate_on = cap.per_step("vae_gate_on", "B6", 1)
+    tot_gate_on = totals(per_gate_on, recs[("B6", "vae_gate_on")])
+    b6_tables = {"vae_gate_on": [], "diffusion": []}
+    try:
+        for path, per in (("vae_gate_on", per_gate_on),
+                          ("diffusion", per_diff_step["B6"])):
+            for key in sorted(per, reverse=True):
+                rec = b6_pass_table(mp, path, key, cap.case(path, "B6")[key],
+                                    per[key], recs[("B6", path)][key])
+                b6_tables[path].append(rec)
+                need(rec["ok"], f"B6 passes on the {path} path")
+    except Exception:
+        traceback.print_exc()
+        need(False, "B6 passes")
+
+    def table_sums(rows):  # the pass tables' times x launches per step
+        return {f"table_{k}_per_step": sum(r[k] * r["launches_per_step"]
+                                           for r in rows)
+                for k in ("ms", "device_ms_sum")
+                if rows and all(k in r for r in rows)}
+    emit({"b6_per_step": {
+        "vae_gate_on": {**tot_gate_on, "launch_shapes": [
+            {"shape": list(k), "count": c}
+            for k, c in sorted(per_gate_on.items())],
+            **table_sums(b6_tables["vae_gate_on"])},
+        "diffusion": {**tot_diff["B6"],
+                      **table_sums(b6_tables["diffusion"])}}})
+
     # B5 against B1 on the same convs (gate on vs gate off at step 1)
     for label, off, on in (("diffusion", diff_off, diff_on),
                            ("vae", vae_off, vae_on)):
@@ -1864,7 +1968,8 @@ def main(argv) -> int:
             rows.append({"layer": layer, "volume": r5["volume"],
                          "n_out": b1[0], "cin": b1[1], "cout": b1[2],
                          "b5_ms": r5["ms"], "b1_ms": r1["ms"],
-                         "b5_dense_bound_ms": r5["bound_ms"],
+                         "b5_bound_ms": r5["bound_ms"],
+                         "b5_dense_ops_ms": r5["dense_ops_ms"],
                          "b1_bound_ms": r1["bound_ms"],
                          "occupied_pairs": r1["matched_pairs"],
                          "dense_pairs": 27 * r5["cells"],
@@ -1933,6 +2038,10 @@ def main(argv) -> int:
         e = entry(name, diff["launches"][name], tot_diff[name],
                   "one diffusion train step")
         e["path"] = "diffusion"
+        if name == "B6":
+            e["ms_per_vae_gate_on_step"] = tot_gate_on["ms"]
+            e["bound_ms_per_vae_gate_on_step"] = tot_gate_on["bound_ms"]
+            e["library_ms_per_vae_gate_on_step"] = tot_gate_on["library_ms"]
         kernels.append(e)
     for name in LIBRARY_KERNELS:  # one launch per record on the path
         got = recs[(name, "library")]
@@ -1976,7 +2085,7 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
           "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
           "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
           "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
-          "B6_s": kernel_s("brick_conv_dw_kernel"),
+          "B6_s": kernel_s("brick_conv_dw::"),  # all its passes
           "wall_s_unprofiled": wall_unprofiled,
           "device_busy_share": busy_s / wall_unprofiled,
           "top_kernels": [{"name": n[:90], "device_ms": d / 1e3, "calls": c}

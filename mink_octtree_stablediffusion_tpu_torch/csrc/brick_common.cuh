@@ -15,7 +15,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace brick {
@@ -51,30 +50,6 @@ __device__ __forceinline__ Tile tile_origin(int t, int x, int y, int z) {
 __device__ __forceinline__ size_t padded_cell(int b, int px, int py, int pz,
                                               int x, int y, int z) {
   return (((size_t)b * (x + 2) + px) * (y + 2) + py) * (z + 2) + pz;
-}
-
-// Loads channels [c0, c0 + 16) of the tile's halo into sH[HALO][16] (cell
-// (hx * HY + hy) * HZ + hz), 16 bytes a thread; cells past the padded
-// volume load zeros.  Returns whether this thread loaded a nonzero bit.
-__device__ __forceinline__ bool load_halo(__nv_bfloat16* sH,
-                                          const __nv_bfloat16* __restrict__ vol,
-                                          const Tile& o, int c0, int x, int y,
-                                          int z, int cs, int tid,
-                                          int nthreads) {
-  bool nz = false;
-  for (int e = tid; e < HALO * 2; e += nthreads) {
-    const int cell = e >> 1, half = e & 1;
-    const int hz = cell % HZ, hy = (cell / HZ) % HY, hx = cell / (HZ * HY);
-    const int px = o.x0 + hx, py = o.y0 + hy, pz = o.z0 + hz;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (px < x + 2 && py < y + 2 && pz < z + 2)
-      v = __ldg(reinterpret_cast<const uint4*>(
-                    vol + padded_cell(o.b, px, py, pz, x, y, z) * cs + c0) +
-                half);
-    nz |= (v.x | v.y | v.z | v.w) != 0u;
-    reinterpret_cast<uint4*>(sH + cell * CK)[half] = v;
-  }
-  return nz;
 }
 
 }  // namespace brick

@@ -13,7 +13,11 @@ back.  Replaces the TPU kernels of that module:
   the source's pack pass applies when it casts the weight to bf16 in the
   order the kernel's tensor cores read, once per launch (its plain
   version: ``pack_weight``);
-- **B6**, ``vol_conv_dw`` (``_dw_kernel``): dW, ``csrc/brick_conv_dw.cu``.
+- **B6**, ``vol_conv_dw`` (``_dw_kernel``): dW, ``csrc/brick_conv_dw.cu``:
+  flags for the 4 x 4 x 16-cell tiles whose cotangent is nonzero, a
+  tensor-core GEMM over the flagged tiles in splits, and the splits summed
+  in order (plain versions of its passes: ``live_tiles``,
+  ``_vol_conv_dw_splits_plain``; its plan: ``dw_splits``).
 
 The TPU layout (128-lane channel padding, z padded by 8, brick-order
 output) is Mosaic mechanics.  Here a volume is ``[B, X+2, Y+2, Z+2, CP]``
@@ -37,6 +41,8 @@ equal to JAX's.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -52,6 +58,17 @@ SOURCES = (SOURCE, DW_SOURCE)
 T = 8  # brick side: the route needs cell dims that are multiples of 8
 CK = 16  # channel padding of a volume: the MMA depth
 MAX_CHANNELS = 1024  # B5's volume channels (csrc MAX_CHUNKS 16-wide chunks)
+TILE = (4, 4, 16)  # the kernels' tile of output cells (csrc brick_common.cuh)
+# B6's splits: one wave of GEMM blocks, one on each of the card's 132 SMs,
+# at most one a tile, and float32 partials [S, 27, Cin, Cout] of at most
+# DW_PARTIAL_BYTES
+DW_SMS, DW_PARTIAL_BYTES = 132, 16 << 20
+# a GEMM block's slab: one dx plane of taps x 64 Cin (csrc BI, the wgmma's
+# N) x 64 Cout (BO, its M)
+DW_CIN_TILE, DW_COUT_TILE = 64, 64
+# B6's passes run up to a stage (csrc ``Stage``, in its order): ``full``
+# dW, ``live`` the flags of the live tiles
+DW_STAGES = ("full", "live")
 
 
 def channel_pad(c: int) -> int:
@@ -108,6 +125,76 @@ def _vol_conv_dw_plain(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
     return torch.stack([mm_f32(slab.t(), g) for slab in _slabs(volp, cin)])
 
 
+def n_tiles(b: int, x: int, y: int, z: int) -> int:
+    """Tiles of ``TILE`` cells covering a [B, X, Y, Z] volume."""
+    return b * math.prod(-(-n // t) for n, t in zip((x, y, z), TILE))
+
+
+def dw_splits(b: int, x: int, y: int, z: int, cin: int, cout: int) -> int:
+    """B6's splits S of the live tiles: as many as one wave of GEMM blocks
+    (one on each of ``DW_SMS`` SMs) holds beside the (dx plane, 64-channel
+    Cin tile, 64-channel Cout tile) columns, at most one a tile and float32
+    partials [S, 27, Cin, Cout] of ``DW_PARTIAL_BYTES``, at least 1: a pure
+    function of the shape."""
+    cols = 3 * -(-cin // DW_CIN_TILE) * -(-cout // DW_COUT_TILE)
+    return max(1, min(DW_SMS // cols, n_tiles(b, x, y, z),
+                      DW_PARTIAL_BYTES // (4 * 27 * cin * cout)))
+
+
+def _tile_of_cell(b: int, x: int, y: int, z: int, device) -> torch.Tensor:
+    """int64 [B, X, Y, Z]: each interior cell's tile in the kernels' order
+    (``tile_origin``: z tiles fastest, then y, x, the instance)."""
+    tx, ty, tz = TILE
+    nx, ny, nz = -(-x // tx), -(-y // ty), -(-z // tz)
+
+    def ax(n, t, dims):
+        return (torch.arange(n, device=device) // t).view(dims)
+    return (((torch.arange(b, device=device).view(-1, 1, 1, 1) * nx +
+              ax(x, tx, (1, -1, 1, 1))) * ny + ax(y, ty, (1, 1, -1, 1))) *
+            nz + ax(z, tz, (1, 1, 1, -1)))
+
+
+def live_tiles(gvolp: torch.Tensor, cout: int) -> torch.Tensor:
+    """The tiles B6's live pass flags, in the order its GEMM walks them
+    (this is that pass's plain version): int32 indices, ascending, of the
+    tiles whose cotangent -- channels [0, Cout) of the interior cells --
+    holds a nonzero bit."""
+    g = gvolp[:, 1:-1, 1:-1, 1:-1, :cout]
+    bits = g.view(torch.int16 if g.element_size() == 2 else torch.int32)
+    occ = bits.ne(0).any(-1)
+    b, x, y, z = occ.shape
+    hit = torch.zeros(n_tiles(b, x, y, z), dtype=torch.bool,
+                      device=occ.device)
+    hit[_tile_of_cell(b, x, y, z, occ.device)[occ]] = True
+    return hit.nonzero().flatten().to(torch.int32)
+
+
+def _vol_conv_dw_splits_plain(volp: torch.Tensor, gvolp: torch.Tensor,
+                              cin: int, cout: int,
+                              splits: int) -> torch.Tensor:
+    """B6's GEMM and reduction in plain PyTorch: the live tiles cut into
+    ``splits`` contiguous runs, each run's ``Σ slab_kᵀ · g`` over its
+    tiles' cells in float32 (a run with no tile gives zeros), and the runs
+    summed in order → float32 [27, Cin, Cout]."""
+    live = live_tiles(gvolp, cout).long()
+    per = max(1, -(-live.numel() // splits))
+    b, x, y, z = (volp.shape[0], volp.shape[1] - 2, volp.shape[2] - 2,
+                  volp.shape[3] - 2)
+    rank = torch.full((n_tiles(b, x, y, z),), -1, dtype=torch.long,
+                      device=volp.device)
+    rank[live] = torch.arange(live.numel(), device=volp.device)
+    rank = rank[_tile_of_cell(b, x, y, z, volp.device)].reshape(-1)
+    split = torch.where(rank >= 0, rank // per, -1)
+    g = gvolp[:, 1:-1, 1:-1, 1:-1, :cout].reshape(-1, cout)
+    slabs = list(_slabs(volp, cin))
+    out = None
+    for s in range(splits):
+        m = split == s
+        part = torch.stack([mm_f32(slab[m].t(), g[m]) for slab in slabs])
+        out = part if out is None else out + part
+    return out
+
+
 # -- CUDA launches ------------------------------------------------------------
 
 # kernel entry → (source, its argtypes, error-string function)
@@ -119,7 +206,7 @@ _ENTRIES = {
                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 +
                         [ctypes.c_void_p], "brick_conv_error_string"),
     "brick_conv_dkernel": (DW_SOURCE,
-                           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 +
+                           [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 +
                            [ctypes.c_void_p], "brick_conv_dw_error_string"),
 }
 
@@ -245,29 +332,69 @@ def _launch(volp: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def _launch_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
-               cout: int) -> torch.Tensor:
-    """Check the operands, allocate the zeroed float32 [27, Cin, Cout]
-    output and launch ``brick_conv_dw.cu`` (B6) on PyTorch's current
-    stream.  Counts nothing: the wrapper does."""
+@functools.lru_cache(maxsize=256)
+def _dw_plan(b: int, x: int, y: int, z: int, cin: int, cout: int) -> tuple:
+    """B6's plan for a shape: (tiles, splits)."""
+    return n_tiles(b, x, y, z), dw_splits(b, x, y, z, cin, cout)
+
+
+def _run_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int, cout: int,
+            out: torch.Tensor | None, stage: str = "full",
+            splits: int | None = None) -> torch.Tensor:
+    """Check the operands, allocate the workspace and launch
+    ``brick_conv_dw.cu``'s passes up to ``stage`` on PyTorch's current
+    stream with the plan's splits (``_dw_plan``, or ``splits``), writing dW
+    into ``out`` (``full``).  The workspace, returned: the live tiles'
+    flags uint8 [tiles], then (256-byte aligned, where S > 1) the float32
+    partials [S, 27, Cin, Cout]."""
     dev = volp.device
     _check_volume("volume", volp, dev)
     _check_volume("cotangent volume", gvolp, dev, tuple(volp.shape[:4]))
-    if not (1 <= cin <= volp.shape[-1] and 1 <= cout <= gvolp.shape[-1]):
-        raise ValueError(f"{cin}→{cout} channels in volumes of "
-                         f"{volp.shape[-1]} and {gvolp.shape[-1]}")
-    out = torch.zeros((27, cin, cout), dtype=torch.float32, device=dev)
-    fn, err = _lib("brick_conv_dkernel")
     b, xp, yp, zp, cs = volp.shape
+    if not (1 <= cin <= cs and 1 <= cout <= gvolp.shape[-1]):
+        raise ValueError(f"{cin}→{cout} channels in volumes of {cs} and "
+                         f"{gvolp.shape[-1]}")
+    tiles, plan = _dw_plan(b, xp - 2, yp - 2, zp - 2, cin, cout)
+    splits = splits or plan
+    at_part = -(-tiles // 256) * 256
+    ws = torch.empty(at_part + (4 * splits * 27 * cin * cout
+                                if splits > 1 else 0),
+                     dtype=torch.uint8, device=dev)
+    base = ws.data_ptr()
+    fn, err = _lib("brick_conv_dkernel")
     stream, guard = stream_guard(dev)
     with guard:
-        rc = fn(volp.data_ptr(), gvolp.data_ptr(), out.data_ptr(), b,
+        rc = fn(volp.data_ptr(), gvolp.data_ptr(),
+                None if out is None else out.data_ptr(), base,
+                base + at_part if splits > 1 else None, b,
                 xp - 2, yp - 2, zp - 2, cs, gvolp.shape[-1], cin, cout,
-                stream)
+                splits, DW_STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("brick_conv_dkernel launch failed: " +
                            err(rc).decode())
+    return ws
+
+
+def _launch_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
+               cout: int) -> torch.Tensor:
+    """Allocate the float32 [27, Cin, Cout] output (no zero fill: every
+    element is written) and launch ``brick_conv_dw.cu`` (B6: live tiles,
+    GEMM and, with S > 1 splits, the ordered reduce) on PyTorch's current
+    stream.  Counts nothing: the wrapper does."""
+    out = torch.empty((27, cin, cout), dtype=torch.float32,
+                      device=volp.device)
+    _run_dw(volp, gvolp, cin, cout, out)
     return out
+
+
+def _launch_dw_live(gvolp: torch.Tensor, cout: int) -> torch.Tensor:
+    """B6's live pass alone on the card: the indices of the tiles it flags
+    (``live_tiles``' counterpart), for the card test that holds the two
+    equal."""
+    b, xp, yp, zp, _ = gvolp.shape
+    tiles = n_tiles(b, xp - 2, yp - 2, zp - 2)
+    flags = _run_dw(gvolp, gvolp, 1, cout, None, "live")[:tiles]
+    return flags.nonzero().flatten().to(torch.int32)
 
 
 # -- the three wrappers -------------------------------------------------------

@@ -420,7 +420,8 @@ def test_kernel_raises_instead_of_falling_back():
 
 def _close_to(got, ref):
     """Kernel vs plain version on the same bf16 operands: 1e-3·max|ref| +
-    1e-5 (summation order, and B6's fp32 atomics across blocks)."""
+    1e-5 (the kernels sum the same float32 products in another order:
+    tensor-core k16 steps, tiles and, for B6, splits)."""
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     assert err <= 1e-3 * ref.abs().max().item() + 1e-5, err
@@ -480,6 +481,73 @@ def test_brick_conv_ragged_dense_and_empty_volumes():
     assert torch.all(vol_conv.vol_conv_dw(zero, gvolp, 24, 40) == 0)
     with pytest.raises(NotImplementedError):
         vol_conv.vol_conv_tiles(volp.float(), k)
+
+
+def _b6_volumes(dev, shape, cin, cout, occupancy, seed):
+    """Padded bf16 input and cotangent volumes whose cells are occupied
+    with probability ``occupancy`` (the same cells in both)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    occ = torch.rand(shape, device=dev, generator=gen) < occupancy
+    f = torch.randn(*shape, cin, device=dev, generator=gen) * occ[..., None]
+    g = torch.randn(*shape, cout, device=dev, generator=gen) * occ[..., None]
+    return vol_conv.pad_volume(f), vol_conv.pad_volume(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occupancy", [1.0, 0.01])
+@pytest.mark.parametrize("cin,cout", [(4, 4), (128, 128), (24, 40)])
+def test_b6_launches_are_bit_identical(cin, cout, occupancy):
+    """B6 twice at the plan's split count and twice at other counts (1,
+    and 3 with its reduce) on a dense and a sparse random volume: each
+    pair equal bit for bit (no atomics), each count within tolerance of
+    its plain version (``_vol_conv_dw_splits_plain``, the same split
+    order) and of ``_vol_conv_dw_plain``."""
+    dev = _card()
+    shape = (2, 8, 12, 32)
+    volp, gvolp = _b6_volumes(dev, shape, cin, cout, occupancy,
+                              cin + cout)
+    ref = vol_conv._vol_conv_dw_plain(volp, gvolp, cin, cout)
+    plan = vol_conv.dw_splits(*shape, cin, cout)
+    for splits in sorted({plan, 1, 3}):
+        def run():
+            out = torch.empty(27, cin, cout, device=dev)
+            vol_conv._run_dw(volp, gvolp, cin, cout, out, "full", splits)
+            return out
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), splits
+        _close_to(a, vol_conv._vol_conv_dw_splits_plain(volp, gvolp, cin,
+                                                        cout, splits))
+        _close_to(a, ref)
+    assert torch.equal(vol_conv._launch_dw(volp, gvolp, cin, cout),
+                       vol_conv._launch_dw(volp, gvolp, cin, cout))
+
+
+@pytest.mark.cuda
+def test_b6_dense_128_matches_plain():
+    """B6 at 128→128 on a dense 4 x 32³ volume (every tile live, 9 splits
+    of 56-57 tiles) against its plain version."""
+    dev = _card()
+    volp, gvolp = _b6_volumes(dev, (4, 32, 32, 32), 128, 128, 1.0, 7)
+    assert vol_conv.dw_splits(4, 32, 32, 32, 128, 128) == 9
+    _close_to(vol_conv.vol_conv_dw(volp, gvolp, 128, 128),
+              vol_conv._vol_conv_dw_plain(volp, gvolp, 128, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [3, 16, 40])
+def test_b6_live_list_matches_plain(cout):
+    """The tiles B6's live pass flags (``_launch_dw_live``) equal to
+    ``live_tiles`` on ragged volumes: sparse, empty, dense, a value only
+    past Cout (not live) and a negative zero (live)."""
+    dev = _card()
+    for occupancy in (0.003, 0.0, 1.0):
+        _, gvolp = _b6_volumes(dev, (2, 6, 5, 21), 4, 48, occupancy, cout)
+        if occupancy == 0.0:
+            gvolp[0, 1, 1, 1, cout] = 1.0
+            gvolp[1, 6, 5, 21, 0] = -0.0
+        assert torch.equal(vol_conv._launch_dw_live(gvolp, cout).cpu(),
+                           vol_conv.live_tiles(gvolp, cout).cpu())
 
 
 @pytest.mark.cuda
