@@ -5,7 +5,7 @@
     python3 chip_smoke.py --max-keep 0  # no generation clamp (MAX_KEEP)
 
 Builds the port's CUDA kernels from `mink_octtree_stablediffusion_tpu_torch/
-csrc/` (one ``nvcc`` per source, all at once) and drives the port's three
+csrc/` (one ``nvcc`` per source, all at once) and drives the port's
 paths, each with the kernels' launch counts set to 0 just before it and
 read just after:
 
@@ -16,6 +16,18 @@ read just after:
   requests (seeds 0, 1, 2).  Each request must give finite features and
   > 0 voxels per instance, and every fused-route conv must launch the
   forward kernel (B1).
+- **conditioned canvas generation** — the sampling of
+  `scripts/cond_control.py` at the same widths (``canvas_phase``): the
+  VAE with the encoder's window attention and the canvas latent, the UNet
+  with cross-attention on a seeded [4, 77, 768] condition,
+  ``cond_into_time`` and window attention at the stride-8 canvas;
+  one encode onto the canvas, then 3 template-free requests (DDIM, 8
+  steps, CFG 3.0) from noise on the 16,384-row canvas.  Each request must
+  be finite with > 0 voxels per instance, take the window, full and
+  cross-attention paths, and launch B1 once per fused-route conv; a
+  second condition must move the latent.  It prints the requests' wall
+  times, the device's busy share (one profiled request) and the peak
+  memory.
 - **VAE training** — `examples/train_vae.py`'s default configuration (the
   same VAE with the `capacities()` schedule, Adam at lr 1e-3,
   ``kld_weight`` 1e-6, random weights from seed 0): 10 steps of
@@ -54,11 +66,13 @@ read just after:
 
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
-extra cases; the backward kernels with the captured cotangent scaled by a
-power of two to unit RMS, see ``unit_rms``), within ``1e-3·max|ref| +
-1e-5``, and timed (CUDA events, median of 25 after warm-up) beside its
-bound, its plain version and, for the brick kernels, one cuDNN call that
-computes the same function.  B1's stages (the cut that B8/B9 time on
+extra cases, and on the fully occupied canvas beside one cuDNN call,
+``canvas_dense_cases``; the backward kernels with the captured cotangent
+scaled by a power of two to unit RMS, see ``unit_rms``), within
+``1e-3·max|ref| + 1e-5``, and timed (CUDA events, median of 25 after
+warm-up) beside its bound, its plain version and, for the brick kernels
+and B1's dense canvas cases, one cuDNN call that computes the same
+function.  B1's stages (the cut that B8/B9 time on
 the library path) are also timed on the generation path's two heaviest
 launch shapes (``stage_table``), and B3's passes, each by its device time,
 on the VAE step's two heaviest (``b3_pass_table``, which also holds two
@@ -69,9 +83,10 @@ B1, B2 and B3 are all checked at every launch
 shape of the VAE train path, so that its kernel account is complete
 (``vae_step_kernel_account``).  Last, tiny configurations run on the card
 and on the CPU (plain versions under the same bf16 compute policy) with
-the same weights, inputs and noise: a generation (``tiny_reference``), a
-VAE train step (``tiny_train_reference``) and a diffusion train step with
-the brick gate on (``tiny_diffusion_reference``, which also runs the card
+the same weights, inputs and noise: a generation (``tiny_reference``),
+conditioned canvas generation (``tiny_canvas_reference``), a VAE train
+step (``tiny_train_reference``) and a diffusion train step with the
+brick gate on (``tiny_diffusion_reference``, which also runs the card
 with the gate off and with the planted fault) must agree within the
 tolerances stated there.
 
@@ -117,6 +132,14 @@ DEVICE = "cuda"
 # JAX package does the same).  2048 = 16384 // 8 lets every level's growth
 # fit its buffer.
 MAX_KEEP = 2048
+VAE_SCALE = 0.1428
+# the canvas path (``canvas_phase``): `scripts/cond_control.py`'s flags at
+# full width; the stride-8 canvas (4,096 cells an instance) takes window
+# attention, the stride-16 level (512) full attention
+CANVAS_FLAGS = dict(attn_max_len=512, attn_window=64, with_cross_attn=True,
+                    cross_attention_dim=768, cond_into_time=True,
+                    with_window_attn=True, latent_canvas=True)
+COND_TOKENS, COND_DIM, GUIDANCE = 77, 768, 3.0  # CLIP text; cond_control's top
 # tiny_train_reference's bounds on the relative RMS, card vs CPU, of each
 # gradient and of each running-statistic update (see there)
 TINY_GRAD_RTOL, TINY_STAT_RTOL = 0.075, 0.02
@@ -531,6 +554,37 @@ def extra_cases(mp, st, dev):
     ]
 
 
+def canvas_dense_cases(mp, dev) -> list:
+    """B1 on the fully occupied canvas, where every neighbour matches, at
+    three k3s1 shapes that the routing sends to the dense branch (cuDNN)
+    on the canvas path: the UNet's stride-8 level (4→4), its stride-16
+    level (320→320) and the decoder's level 0 (512→512).  Beside B1, one
+    cuDNN call on the dense bf16 volume (``F.conv3d``), which on a full
+    canvas computes the same function."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(8)
+    k3 = mp.ops.KernelSpec(3, 1, ndim=3)
+    recs = []
+    for stride, cin, cout in ((8, 4, 4), (16, 320, 320), (8, 512, 512)):
+        grid = mp.ops.canvas_grid(BATCH, RES, stride, device=dev)
+        f = torch.randn(grid.capacity, cin, generator=g, device=dev)
+        w = torch.randn(27, cin, cout, generator=g, device=dev) / math.sqrt(
+            27 * cin)
+        n = RES // stride
+        vol = f.bfloat16().reshape(BATCH, n, n, n, cin).permute(
+            0, 4, 1, 2, 3).contiguous()
+        wl = w.bfloat16().reshape(3, 3, 3, cin, cout).permute(
+            4, 3, 0, 1, 2).contiguous()
+        offs, s_in, cells = mp.ops.fused_conv.conv_geometry(grid, k3)
+        recs.append(check_conv_launch(
+            mp, "B1", "canvas_dense", "k3s1", (
+                f, w, grid.flat_keys(), grid.coords, grid.valid, offs, s_in,
+                cells),
+            library=lambda: F.conv3d(vol, wl, padding=1), stride=stride))
+    return recs
+
+
 def tiny_reference(mp, dev) -> dict:
     """A tiny configuration on the card and on the CPU, with the same
     weights, inputs and noise.  The CPU runs the plain versions under the
@@ -549,7 +603,7 @@ def tiny_reference(mp, dev) -> dict:
       rounding.
     """
     import torch
-    b, res, cap, steps, scale = 2, 128, 4096, 3, 0.1428
+    b, res, cap, steps, scale = 2, 128, 4096, 3, VAE_SCALE
     kw = dict(input_capacity=cap, batch_size=b, vae_channel=(8, 16, 32, 32,
                                                              4),
               unet_channel=(4, 8, 16, 16), group=4)
@@ -610,6 +664,258 @@ def tiny_reference(mp, dev) -> dict:
            "decode_voxel_iou": iou[0], "generate_voxel_iou": iou[1],
            "ok": bool(rel[0] <= 1e-2 and unet_rms <= 0.25 and
                       iou[0] >= 0.95 and len(c[2]) > 0)}
+    emit(rec)
+    return rec
+
+
+def canvas_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
+    """Conditioned, template-free generation on the latent canvas: the
+    sampling of `scripts/cond_control.py` at `examples/generate.py`'s full
+    widths (``serve.generation_models`` with ``CANVAS_FLAGS``: the VAE with
+    the encoder's window attention and the canvas latent, the UNet with
+    cross-attention at CLIP's [77, 768], ``cond_into_time`` and
+    ``attn_window`` 64, ``attn_max_len`` 512; random weights from seed 0).
+    With the kernels' counts at 0, it encodes the generation batch once
+    and scatters it onto the canvas (``VAE.to_canvas``), then serves 3
+    requests (seeds 0-2): DDIM, ``STEPS`` steps with CFG at
+    ``GUIDANCE``, from noise on a zero canvas template, under one seeded
+    condition, then the pruning decode (clamped at ``max_keep``).  Each
+    request must give finite values and > 0 voxels per instance, take the
+    window, full and cross-attention paths (``nn.record_attention``) and
+    launch B1 once per fused-route conv; the path launches no other
+    kernel.  After the counts are read: a second condition on request 0's
+    seed must give another latent, and one more request is profiled for
+    the device's busy share.  ``cap`` keeps B1's operands at every launch
+    shape of the path."""
+    import torch
+    failures = []
+
+    def need(cond, what):
+        if not cond:
+            failures.append(what)
+    vae, unet = mp.serve.generation_models(
+        input_capacity=CAP, batch_size=BATCH, vae_channel=VAE_CH,
+        unet_channel=UNET_CH, group=GROUP, max_keep=max_keep,
+        resolution=RES, device=dev, seed=0, **CANVAS_FLAGS)
+    st = mp.sparse_tensor(torch.as_tensor(cpad, device=dev),
+                          torch.as_tensor(valid, device=dev)[:, None].float(),
+                          capacity=CAP, batch_size=BATCH,
+                          valid=torch.as_tensor(valid, device=dev),
+                          extent=(RES,) * 3)
+    g = torch.Generator(device=dev).manual_seed(11)
+    conds = [torch.randn(BATCH, COND_TOKENS, COND_DIM, generator=g,
+                         device=dev) for _ in range(2)]
+    canvas = mp.ops.canvas_grid(BATCH, RES, 8, device=dev)
+    template = mp.SparseTensor(grid=canvas, features=torch.zeros(
+        canvas.capacity, UNET_CH[0], device=dev))
+    sched = mp.diffusion.DDIMScheduler.create()
+    emit({"canvas_models": True, "canvas_rows": canvas.capacity,
+          "decoder_capacities": list(vae.decoder_capacities),
+          "unet_down_capacities": list(unet.down_capacities),
+          "unet_params": sum(p.numel() for p in unet.parameters())})
+
+    @torch.no_grad()
+    def generate(cond, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        z = mp.diffusion.sample_latent(
+            unet, sched, template, num_inference_steps=STEPS,
+            encoder_hidden_state=cond, guidance_scale=GUIDANCE,
+            generator=gen)
+        out_clss, _, sout = vae.decode(
+            z.with_features(z.features / VAE_SCALE), st.grid)
+        return z, out_clss, sout
+
+    count = counters(mp)
+    b1 = count["B1"]
+    for c in count.values():
+        c.launches = 0  # counts from here on are the canvas path's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cap.at("canvas", ("B1",))
+    t0 = time.perf_counter()
+    with torch.no_grad(), mp.nn.record_routes() as routes, \
+            mp.nn.record_attention() as attn:
+        mean, _ = vae.encode(st)
+        lat = vae.to_canvas(mean.with_features(mean.features * VAE_SCALE))
+    torch.cuda.synchronize()
+    enc_routes = routes
+    present = lat.features.ne(0).any(-1)
+    enc = {"canvas_encode_s": time.perf_counter() - t0,
+           "canvas_rows": lat.capacity,
+           "present_cells_per_instance": torch.bincount(
+               lat.grid.coords[present][:, 0].long(),
+               minlength=BATCH).tolist(),
+           "attention": dict(Counter(r.kind for r in attn)),
+           "fused_route_convs": sum(r.branch == "fused" for r in routes),
+           "kernel_launches": b1.launches}
+    emit(enc)
+    need(bool(torch.isfinite(lat.features).all()) and
+         lat.capacity == canvas.capacity and
+         min(enc["present_cells_per_instance"]) > 0, "canvas encode")
+    need(enc["attention"] == {"window": 1}, "the encoder's window attention")
+    need(enc["kernel_launches"] == enc["fused_route_convs"],
+         "canvas encode: B1 launches")
+    fused_total, requests, per_request_routes = \
+        enc["fused_route_convs"], [], []
+    z0 = None
+    for seed in (0, 1, 2):
+        cap.at("canvas", ("B1",))
+        before = b1.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mp.nn.record_routes() as routes, \
+                mp.nn.record_attention() as attn:
+            z, out_clss, sout = generate(conds[0], seed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        v = sout.grid.valid
+        per_inst = torch.bincount(sout.grid.coords[v][:, 0].long(),
+                                  minlength=BATCH).tolist()
+        fused = sum(r.branch == "fused" for r in routes)
+        kinds = Counter(r.kind for r in attn)
+        finite = bool(torch.isfinite(z.features).all() and
+                      torch.isfinite(sout.features).all())
+        rec = {"canvas_request": seed, "wall_s": wall,
+               "voxels_per_instance": per_inst,
+               "decoder_levels": decoder_levels(out_clss, BATCH),
+               "attention": dict(kinds),
+               "attention_rows": sorted(Counter(
+                   (r.kind, r.rows, r.channels, r.keys)
+                   for r in attn).items()),
+               "fused_route_convs": fused,
+               "kernel_launches": b1.launches - before,
+               "convs": len(routes),
+               "branches": dict(Counter(r.branch for r in routes)),
+               "finite": finite}
+        emit(rec)
+        requests.append(rec)
+        per_request_routes.append(routes)
+        fused_total += fused
+        need(finite, f"canvas request {seed}: finite values")
+        need(min(per_inst) > 0, f"canvas request {seed}: an empty instance")
+        need(all(kinds[k] > 0 for k in ("window", "full", "cross")),
+             f"canvas request {seed}: window, full and cross-attention")
+        need(rec["kernel_launches"] == fused,
+             f"canvas request {seed}: B1 launches")
+        if seed == 0:
+            z0 = z.features.clone()
+    cap.at(None)
+    launches = {n: c.launches for n, c in count.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(launches["B1"] == fused_total > 0 and
+         not any(launches[n] for n in KERNELS if n != "B1"),
+         "canvas path launches")
+    # not counted: a second condition, and a profiled request
+    zb, _, _ = generate(conds[1], 0)
+    dz = float((zb.features - z0).abs().max() / z0.abs().max())
+    need(dz > 1e-3, "two conditions give the same latent")
+    wall_request = statistics.median(r["wall_s"] for r in requests[1:])
+    prof = profile_run("one canvas request",
+                       lambda: generate(conds[0], 9), wall_request)
+    rec = {"canvas_path_launches": launches, "card": power,
+           "fused_route_convs": fused_total,
+           "wall_s_requests_2_3": [r["wall_s"] for r in requests[1:]],
+           "wall_s_median": wall_request,
+           "device_busy_share": prof["device_busy_share"],
+           "peak_memory_bytes": peak,
+           "condition_rel_change": dz,
+           "failures": failures}
+    emit(rec)
+    return {"ok": not failures, "failures": failures,
+            "routes": per_request_routes[0],
+            "all_routes": enc_routes + per_request_routes[0],
+            "launches": launches, "record": rec, "requests": requests}
+
+
+def tiny_canvas_reference(mp, dev) -> dict:
+    """The canvas path at a tiny size (VAE (8, 16, 32, 32, 4), UNet (4, 8,
+    16, 16), resolution 32, batch 2; ``attn_max_len`` 32 and window 16, so
+    that the stride-8 canvas takes the window path and stride 16 full
+    attention) on the card and on the CPU, with the same weights,
+    condition and noise, both under the card's bf16 compute policy, held
+    as ``tiny_reference`` holds its stages:
+
+    - the canvas latent (encode, then ``to_canvas``): max|Δ| ≤
+      1e-2·max|ref|;
+    - one conditioned UNet forward on N(0,1) canvas features: ‖Δ‖ ≤
+      0.25·‖ref‖;
+    - the decoded voxel set of one sampled latent (the CPU's, DDIM with
+      CFG): IoU ≥ 0.95.
+
+    The voxel sets of a whole template-free generation on each side are
+    compared too, and reported."""
+    import torch
+    b, res, cap, steps = 2, 32, 2048, 3
+    kw = dict(input_capacity=cap, batch_size=b,
+              vae_channel=(8, 16, 32, 32, 4), unet_channel=(4, 8, 16, 16),
+              group=4, resolution=res,
+              **dict(CANVAS_FLAGS, attn_max_len=32, attn_window=16))
+    vae_c, unet_c = mp.serve.generation_models(device="cpu", seed=3, **kw)
+    vae_g, unet_g = mp.serve.generation_models(device=dev, seed=3, **kw)
+    vae_g.load_state_dict(vae_c.state_dict())
+    unet_g.load_state_dict(unet_c.state_dict())
+    ds = mp.data.SyntheticShapes(resolution=res, num_samples=b,
+                                 points_per_shape=600)
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(b)], cap)
+    g = torch.Generator().manual_seed(5)
+    cond = torch.randn(b, COND_TOKENS, COND_DIM, generator=g)
+    shape = (b * (res // 8) ** 3, 4)
+    x_unet = torch.randn(shape, generator=g)
+    noise = torch.randn(shape, generator=g)
+    sched = mp.diffusion.DDIMScheduler.create()
+    z = []  # one sampled latent (the CPU's), decoded on both sides
+
+    @torch.no_grad()
+    def side(vae, unet, d):
+        st = mp.sparse_tensor(
+            torch.as_tensor(cpad, device=d),
+            torch.as_tensor(valid, device=d)[:, None].float(), capacity=cap,
+            batch_size=b, valid=torch.as_tensor(valid, device=d),
+            extent=(res,) * 3)
+        with mp.nn.record_attention() as attn:
+            mean, _ = vae.encode(st)
+            lat = vae.to_canvas(mean)
+            t = torch.tensor([600, 40], dtype=torch.int32, device=d)
+            u = unet(lat.with_features(x_unet.to(d)), t, cond.to(d))
+        template = lat.with_features(torch.zeros_like(lat.features))
+
+        def sample(init):
+            return mp.diffusion.sample_latent(
+                unet, sched, template, num_inference_steps=steps,
+                encoder_hidden_state=cond.to(d), guidance_scale=GUIDANCE,
+                init_noise=init).features
+        if not z:
+            z.append(sample(noise))
+        _, _, sout = vae.decode(lat.with_features(z[0].to(d) / VAE_SCALE),
+                                st.grid)
+        _, _, gout = vae.decode(
+            lat.with_features(sample(noise.to(d)) / VAE_SCALE), st.grid)
+        return (lat.features.cpu(), u.features.cpu(),
+                voxel_set(sout.grid.coords, sout.grid.valid),
+                voxel_set(gout.grid.coords, gout.grid.valid),
+                Counter(r.kind for r in attn))
+
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        got = {"cpu": side(vae_c, unet_c, torch.device("cpu")),
+               "gpu": side(vae_g, unet_g, dev)}
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    c, gp = got["cpu"], got["gpu"]
+    rel = float((gp[0] - c[0]).abs().max() / c[0].abs().max())
+    unet_rms = float((gp[1] - c[1]).norm() / c[1].norm())
+    iou = [len(c[i] & gp[i]) / max(len(c[i] | gp[i]), 1) for i in (2, 3)]
+    kinds = gp[4]
+    rec = {"tiny_canvas_reference": True, "vs": "cpu, same bf16 policy",
+           "canvas_latent_rel_err": rel, "unet_rms_rel_err": unet_rms,
+           "attention": dict(kinds),
+           "decode_voxels_cpu": len(c[2]), "decode_voxels_gpu": len(gp[2]),
+           "decode_voxel_iou": iou[0], "generate_voxel_iou": iou[1],
+           "ok": bool(rel <= 1e-2 and unet_rms <= 0.25 and iou[0] >= 0.95
+                      and len(c[2]) > 0 and kinds == c[4] and
+                      all(kinds[k] > 0 for k in ("window", "full",
+                                                 "cross")))}
     emit(rec)
     return rec
 
@@ -1720,7 +2026,7 @@ def main(argv) -> int:
         [ds[i]["coords"] for i in range(BATCH)], CAP)
     fn = mp.serve.build_generate_fn(
         vae, unet, mp.diffusion.DDIMScheduler.create(), input_capacity=CAP,
-        batch_size=BATCH, resolution=RES, vae_scale=0.1428,
+        batch_size=BATCH, resolution=RES, vae_scale=VAE_SCALE,
         sample_steps=STEPS, device=dev)
     finite, decoded = [], []
     hooks = [unet.register_forward_hook(
@@ -1785,6 +2091,22 @@ def main(argv) -> int:
     del vae, unet, fn, hooks, decoded
     torch.cuda.empty_cache()
 
+    # -- path 1b: conditioned, template-free generation on the canvas ----
+    try:
+        with cap:
+            canv = canvas_phase(mp, dev, cap, cpad, valid,
+                                args.max_keep or None, power)
+    except Exception:
+        traceback.print_exc()
+        canv = {"ok": False, "failures": ["canvas phase raised"],
+                "routes": [], "all_routes": [], "launches": {"B1": 0}}
+    need(canv["ok"], "canvas path: " + ", ".join(canv["failures"]))
+    hist_canvas = histogram(canv["routes"], lambda r: r.branch == "fused")
+    emit_histogram("canvas_fused_launch_shapes_per_request", hist_canvas)
+    emit_histogram("canvas_dense_route_shapes_per_request", histogram(
+        canv["routes"], lambda r: r.branch == "dense"))
+    torch.cuda.empty_cache()
+
     # -- path 2: 10 steps of full-width VAE training --------------------
     with cap:
         (train_ok, steps, train_routes, train_launches, one_more_step,
@@ -1842,15 +2164,18 @@ def main(argv) -> int:
             mp, kernel, path, key, ops)
 
     kinds = {(r.n_out, r.cin, r.cout, r.k): r.layer
-             for rs in (per_request_routes[0], train_routes, droutes,
-                        vae_off, diff_off) for r in rs}
+             for rs in (per_request_routes[0], canv["all_routes"],
+                        train_routes, droutes, vae_off, diff_off)
+             for r in rs}
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
+    check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
     st = mp.sparse_tensor(torch.as_tensor(cpad, device=dev),
                           torch.as_tensor(valid, device=dev)[:, None].float(),
                           capacity=CAP, batch_size=BATCH,
                           valid=torch.as_tensor(valid, device=dev),
                           extent=(RES,) * 3)
     extras = [check_case(mp, *case) for case in extra_cases(mp, st, dev)]
+    extras += canvas_dense_cases(mp, dev)
     for kernel in FUSED:
         check_all(kernel, "vae_train", fused_check(kernel, "train_path"),
                   kinds)
@@ -1871,7 +2196,7 @@ def main(argv) -> int:
     # every launch shape of each path was checked
     def shapes(path, kernel):
         return set(cap.counts.get(path, {}).get(kernel, {}))
-    for path, kernels in (("generation", ("B1",)),
+    for path, kernels in (("generation", ("B1",)), ("canvas", ("B1",)),
                           ("vae_train", FUSED),
                           ("diffusion", KERNELS),
                           ("vae_gate_on", BRICK)):
@@ -1887,6 +2212,15 @@ def main(argv) -> int:
     per_diff_step = {n: cap.per_step("diffusion", n, DIFF_STEPS)
                      for n in KERNELS}
     tot = {"B1": totals(per_request["B1"], recs[("B1", "generation")])}
+    per_canvas = by_shape(hist_canvas)
+    tot_canvas = totals(per_canvas, recs[("B1", "canvas")])
+    emit({"canvas_b1_per_request": {
+        **tot_canvas, "launch_shapes": [
+            {"shape": list(k), "count": c,
+             "ms": recs[("B1", "canvas")][k]["ms"],
+             "bound_ms": recs[("B1", "canvas")][k]["bound_ms"],
+             "plain_ms": recs[("B1", "canvas")][k]["plain_ms"]}
+            for k, c in sorted(per_canvas.items())]}})
     tot_vae = {n: totals(per_vae_step[n], recs[(n, "vae_train")])
                for n in FUSED}
     tot.update(B2=tot_vae["B2"], B3=tot_vae["B3"])
@@ -1987,7 +2321,7 @@ def main(argv) -> int:
     recs.update(lib["recs"])
 
     # -- end-to-end references on a small input --------------------------
-    for ref in (tiny_reference, tiny_train_reference,
+    for ref in (tiny_reference, tiny_canvas_reference, tiny_train_reference,
                 tiny_diffusion_reference):
         try:
             need(ref(mp, dev)["ok"], ref.__name__)
@@ -2025,6 +2359,12 @@ def main(argv) -> int:
         per = ("one generation request" if name == "B1" else
                "one VAE train step")
         e = entry(name, launches, tot[name], per)
+        if name == "B1":
+            e.update({"launches_canvas_path": canv["launches"]["B1"],
+                      "ms_per_canvas_request": tot_canvas["ms"],
+                      "plain_ms_per_canvas_request": tot_canvas["plain_ms"],
+                      "bound_ms_per_canvas_request":
+                          tot_canvas["bound_ms"]})
         e.update({"path": main_path,
                   "ms_per_vae_step": tot_vae[name]["ms"],
                   "bound_ms_per_vae_step": tot_vae[name]["bound_ms"],
@@ -2061,7 +2401,7 @@ def main(argv) -> int:
     return 0
 
 
-def profile_run(label: str, run, wall_unprofiled: float) -> None:
+def profile_run(label: str, run, wall_unprofiled: float) -> dict:
     """Device time by kernel name for one call of ``run`` (torch.profiler).
     The profiler slows the host down many times, so the device's busy
     share is taken against the wall time of an unprofiled call.  User
@@ -2076,20 +2416,22 @@ def profile_run(label: str, run, wall_unprofiled: float) -> None:
 
     def kernel_s(pattern):
         return sum(r[0] for r in rows if re.search(pattern, r[1])) / 1e6
-    emit({"profile": label, "device_busy_s": busy_s,
-          "profiler_records_lost": bc.profiled.lost,
-          "profiler_sessions_refused": bc.profiled.refused,
-          "device_kernels": sum(r[2] for r in rows),
-          # B1 and B2 are one instantiation (B2's weight is cast
-          # transposed), told apart only by their launches
-          "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
-          "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
-          "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
-          "B6_s": kernel_s("brick_conv_dw::"),  # all its passes
-          "wall_s_unprofiled": wall_unprofiled,
-          "device_busy_share": busy_s / wall_unprofiled,
-          "top_kernels": [{"name": n[:90], "device_ms": d / 1e3, "calls": c}
-                          for d, n, c in rows[:20]]})
+    rec = {"profile": label, "device_busy_s": busy_s,
+           "profiler_records_lost": bc.profiled.lost,
+           "profiler_sessions_refused": bc.profiled.refused,
+           "device_kernels": sum(r[2] for r in rows),
+           # B1 and B2 are one instantiation (B2's weight is cast
+           # transposed), told apart only by their launches
+           "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
+           "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
+           "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
+           "B6_s": kernel_s("brick_conv_dw::"),  # all its passes
+           "wall_s_unprofiled": wall_unprofiled,
+           "device_busy_share": busy_s / wall_unprofiled,
+           "top_kernels": [{"name": n[:90], "device_ms": d / 1e3, "calls": c}
+                           for d, n, c in rows[:20]]}
+    emit(rec)
+    return rec
 
 
 if __name__ == "__main__":

@@ -9,8 +9,15 @@ block's instance norm.  Level capacities are clamped to the dense cell
 bound of their stride (static Python ints, computed from the input grid's
 static extent, stride and batch size — no device reads).
 
-Not ported yet (raise): cross-attention, ``cond_into_time``,
-Morton-window attention (``attn_window``) and ``remat``.
+Conditioning: ``with_cross_attn`` adds cross-attention on the
+``encoder_hidden_state`` [B, S, cross_attention_dim] to every group that
+has attention, and ``cond_into_time`` adds a bias-free projection of the
+condition's unmasked mean over S to the timestep embedding (so a zero
+condition, CFG's unconditional branch, leaves it exactly as it was).
+``attn_window`` sends levels whose per-instance cell bound exceeds
+``attn_max_len`` to Morton-window self-attention.
+
+Not ported yet (raises): ``remat`` (training).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from ..nn.blocks import ResNetStack
 from ..nn.conv import SparseConv
 from ..nn.embed import TimestepEmbedding, timesteps_embedding
 from ..nn.init import init_parameters
+from ..nn.linear import Dense
 from ..tensor import SparseTensor, cat
 from ..utils.device import make_generator, resolve_device
 
@@ -42,13 +50,9 @@ class UNet(nn.Module):
                  level0_skip: bool = False, cond_into_time: bool = False,
                  device=None, seed: int = 0):
         super().__init__()
-        for flag, name in ((with_cross_attn, "with_cross_attn"),
-                           (cond_into_time, "cond_into_time"),
-                           (attn_window is not None, "attn_window"),
-                           (remat, "remat")):
-            if flag:
-                raise NotImplementedError(
-                    f"UNet {name} is not ported yet (ROADMAP.md queue A)")
+        if remat:
+            raise NotImplementedError(
+                "UNet remat is not ported yet (ROADMAP.md queue A)")
         dev = resolve_device(device)
         ch = tuple(channels)
         self.channels = ch
@@ -58,9 +62,13 @@ class UNet(nn.Module):
         temb = ch[0] * 4
         common = dict(layers=3, use_time_emb=True, temb_channels=temb,
                       time_embedding_norm=time_embedding_norm, group=group,
-                      attn_max_len=attn_max_len, device=dev)
+                      attn_max_len=attn_max_len, attn_window=attn_window,
+                      cross_attention_dim=cross_attention_dim, device=dev)
 
         self.time_embedding = TimestepEmbedding(ch[0], temb, device=dev)
+        self.cond_time_proj = (Dense(cross_attention_dim, temb, bias=False,
+                                     device=dev)
+                               if cond_into_time else None)
         self.conv_in = SparseConv(ch[0], ch[0], kernel_size=3, device=dev)
 
         def group_of(name, cin, cout, after, n, attn):
@@ -68,7 +76,7 @@ class UNet(nn.Module):
                 setattr(self, f"{name}_{i}", ResNetStack(
                     cin if i == 0 else cout, cout,
                     after=after if i == 0 else None, with_attn=attn,
-                    **common))
+                    with_cross_attn=attn and with_cross_attn, **common))
             return [getattr(self, f"{name}_{i}") for i in range(n)]
 
         self._groups = [
@@ -96,10 +104,14 @@ class UNet(nn.Module):
     def forward(self, x: SparseTensor, timesteps: torch.Tensor,
                 encoder_hidden_state: Optional[torch.Tensor] = None
                 ) -> SparseTensor:
-        """``encoder_hidden_state`` is accepted and unused, as in the JAX
-        package without cross-attention or ``cond_into_time``."""
+        """``encoder_hidden_state`` [B, S, cross_attention_dim] is the
+        condition; it is unused without cross-attention or
+        ``cond_into_time``, as in the JAX package."""
         ch = self.channels
+        ehs = encoder_hidden_state
         temb = self.time_embedding(timesteps_embedding(timesteps, ch[0]))
+        if self.cond_time_proj is not None and ehs is not None:
+            temb = temb + self.cond_time_proj(ehs.mean(dim=1))
 
         def cap_bound(level: int) -> Optional[int]:
             if x.grid.extent is None:
@@ -124,7 +136,8 @@ class UNet(nn.Module):
             for i, blk in enumerate(blocks):
                 pin = out_grid if i == len(blocks) - 1 else None
                 h = blk(h, temb, out_grid=pin,
-                        out_capacity=cap if i == 0 else None)
+                        out_capacity=cap if i == 0 else None,
+                        encoder_hidden_state=ehs)
             return h
 
         out_s1 = run("block1", x, down_caps[0])

@@ -11,20 +11,27 @@ force-kept so that deeper levels always receive supervision.  A new `VAE`
 is in ``.eval()`` (BatchNorm on running statistics, as generation needs);
 a trainer calls ``.train()``.
 
-Not ported yet (raise): the Morton-window attention of the encoder and the
-dense latent canvas (``latent_canvas``, `ops/canvas.py`).
+``Encoder.with_window_attn`` adds a Morton-window transformer after
+``block3``.  ``VAE.latent_canvas`` scatters the sampled latent onto the
+full dense stride-8 canvas before decoding (`ops/canvas.py`), with
+N(0, ``canvas_noise_std``²) features at the empty cells in ``.train()``,
+so that diffusion can sample from pure noise on a grid that depends on
+no data.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..nn.attention import MortonWindowTransformer
 from ..nn.blocks import ResNetStack
 from ..nn.conv import SparseConv
 from ..nn.init import init_parameters
+from ..ops.canvas import canvas_grid, expand_to_canvas
 from ..ops.coords import SparseGrid, stride_grid
 from ..ops.neighbors import membership
 from ..ops.pruning import prune, top_k_mask
@@ -38,11 +45,8 @@ class Encoder(nn.Module):
                  level_capacities: Sequence[int] = (16384, 8192, 2048, 2048,
                                                     2048),
                  in_channels: int = 1, with_window_attn: bool = False,
-                 device=None):
+                 window_size: int = 50, device=None):
         super().__init__()
-        if with_window_attn:
-            raise NotImplementedError(
-                "the encoder's Morton-window attention is not ported yet")
         ch, caps = tuple(channels), tuple(level_capacities)
         self.block1 = ResNetStack(in_channels, ch[0], after="downsample",
                                   out_capacity=caps[0], device=device)
@@ -50,6 +54,9 @@ class Encoder(nn.Module):
                                   out_capacity=caps[1], device=device)
         self.block3 = ResNetStack(ch[1], ch[2], after="downsample",
                                   out_capacity=caps[2], device=device)
+        self.window_attn = (MortonWindowTransformer(ch[2], window_size,
+                                                    device=device)
+                            if with_window_attn else None)
         self.block4 = ResNetStack(ch[2], ch[3], device=device)
         self.block5 = ResNetStack(ch[3], ch[4], device=device)
         self.mean_conv = SparseConv(ch[4], ch[4], kernel_size=3, device=device)
@@ -57,8 +64,11 @@ class Encoder(nn.Module):
                                        device=device)
 
     def forward(self, x: SparseTensor):
-        for blk in (self.block1, self.block2, self.block3, self.block4,
-                    self.block5):
+        for blk in (self.block1, self.block2, self.block3):
+            x = blk(x)
+        if self.window_attn is not None:
+            x = self.window_attn(x)
+        for blk in (self.block4, self.block5):
             x = blk(x)
         return self.mean_conv(x), self.log_var_conv(x)
 
@@ -112,19 +122,43 @@ class VAE(nn.Module):
                  decoder_capacities: Sequence[int] = (2048, 8192, 16384,
                                                       32768),
                  max_keep: Optional[int] = None, in_channels: int = 1,
-                 with_window_attn: bool = False, latent_canvas: bool = False,
+                 with_window_attn: bool = False, window_size: int = 50,
+                 latent_canvas: bool = False, canvas_noise_std: float = 1.0,
                  device=None, seed: int = 0):
         super().__init__()
-        if latent_canvas:
-            raise NotImplementedError(
-                "the dense latent canvas (ops/canvas.py) is not ported yet")
         dev = resolve_device(device)
+        self.decoder_capacities = tuple(decoder_capacities)
+        self.latent_canvas = latent_canvas
+        self.canvas_noise_std = canvas_noise_std
         self.encoder = Encoder(channels, encoder_capacities, in_channels,
-                               with_window_attn, device=dev)
+                               with_window_attn, window_size, device=dev)
         self.decoder = Decoder(tuple(reversed(tuple(channels))),
                                decoder_capacities, max_keep, device=dev)
         init_parameters(self, make_generator(seed, dev))
         self.eval()
+
+    def to_canvas(self, z: SparseTensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> SparseTensor:
+        """Scatter a sparse latent onto the full dense canvas at its
+        stride; the empty cells get N(0, ``canvas_noise_std``²) from
+        ``generator`` where one is given, else zeros.  The decoder's
+        level-0 buffer must hold every canvas cell (a smaller one would
+        truncate the level-0 membership target)."""
+        if z.grid.extent is None:
+            raise ValueError(
+                "latent_canvas needs a bounded input grid (extent=...)")
+        cells = z.batch_size * int(np.prod(
+            [-(-e // s) for e, s in zip(z.grid.extent, z.grid.stride)]))
+        if self.decoder_capacities[0] < cells:
+            raise ValueError(
+                f"latent_canvas needs decoder_capacities[0] >= batch*canvas "
+                f"cells ({cells}); got {self.decoder_capacities[0]}")
+        canvas = canvas_grid(z.batch_size, z.grid.extent, z.grid.stride,
+                             z.grid.ndim, device=z.features.device)
+        std = self.canvas_noise_std if generator is not None else 0.0
+        return expand_to_canvas(z, canvas, empty_noise_std=std,
+                                generator=generator)
 
     def encode(self, sinput: SparseTensor):
         return self.encoder(sinput)
@@ -135,16 +169,23 @@ class VAE(nn.Module):
     def forward(self, sinput: SparseTensor, target_grid: SparseGrid,
                 eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        """encode → reparameterize → decode.  ``eps`` is the N(0,1) noise
-        of the reparameterisation, shaped like the latent's features; when
-        it is not given it is drawn from ``generator``.  Returns (out_clss,
-        targets, sout, mean, log_var, z)."""
+        """encode → reparameterize → (canvas) → decode.  ``eps`` is the
+        N(0,1) noise of the reparameterisation, shaped like the latent's
+        features; when it is not given it is drawn from ``generator``.
+        With ``latent_canvas``, ``z`` is scattered onto the canvas, whose
+        empty cells get noise from ``generator`` in ``.train()``.  Returns
+        (out_clss, targets, sout, mean, log_var, z)."""
         mean, log_var = self.encode(sinput)
         if eps is None:
             eps = torch.randn(log_var.features.shape, generator=generator,
                               device=log_var.features.device)
         z = mean.with_features(mean.features +
                                torch.exp(0.5 * log_var.features) * eps)
+        if self.latent_canvas:
+            if self.training and generator is None:
+                raise ValueError("latent_canvas in .train() draws the canvas "
+                                 "noise from a generator")
+            z = self.to_canvas(z, generator if self.training else None)
         out_clss, targets, sout = self.decode(z, target_grid)
         return out_clss, targets, sout, mean, log_var, z
 

@@ -1,7 +1,8 @@
 """Sparse network layers (``torch.nn.Module``s over SparseTensor)."""
 
 from .act import get_act
-from .attention import SparseAttention, SparseTransformer
+from .attention import (AttentionRoute, MortonWindowTransformer,
+                        SparseAttention, SparseTransformer, record_attention)
 from .blocks import BasicBlock, ResNetStack
 from .conv import (GenerativeConvTranspose, Route, SparseConv,
                    SparseConvTranspose, record_routes)

@@ -1,9 +1,10 @@
 """Residual blocks over sparse tensors.
 
 Port of `_Norm`, `BasicBlock`, `_HeadConvNormAct` and `ResNetStack` from
-`mink_octtree_stablediffusion_tpu/nn/blocks.py`, conv heads only (the
-avg-pool, pool-transpose and interpolate heads are not ported yet).
-Submodule names follow the flax tree (``head``/``blockJ``/``tail``,
+`mink_octtree_stablediffusion_tpu/nn/blocks.py` (its `_per_instance_cells`
+lives in `nn/attention.py` here), conv heads only (the avg-pool,
+pool-transpose and interpolate heads are not ported yet).  Submodule
+names follow the flax tree (``head``/``blockJ``/``tail``,
 ``conv1``/``norm1``/…), so `utils.convert.from_flax` maps one onto the
 other by name.
 """
@@ -19,7 +20,8 @@ from torch import nn
 from ..ops.coords import SparseGrid
 from ..tensor import SparseTensor
 from .act import get_act
-from .attention import SparseTransformer
+from .attention import (SparseTransformer, _per_instance_cells,
+                        morton_window_attention)
 from .conv import GenerativeConvTranspose, SparseConv, SparseConvTranspose
 from .linear import Dense
 from .norm import BatchNorm, StableInstanceNorm
@@ -43,23 +45,25 @@ class _Norm(nn.Module):
 
 class BasicBlock(nn.Module):
     """conv3 → norm (+ time-embedding add or FiLM) → act → conv3 → norm →
-    + residual → optional self-attention → act.  ``prenorm`` moves each
-    norm before its conv."""
+    + residual → optional self-attention → optional cross-attention →
+    act.  ``prenorm`` moves each norm before its conv.
+
+    With ``attn_window``, a grid whose per-instance cell bound exceeds
+    ``attn_max_len`` takes Morton-window self-attention and any other
+    grid full attention, chosen at each call; both use the projections
+    of ``attentions.attn``.  Cross-attention (``with_cross_attn``, only
+    with ``with_attn``) stays full: its keys are the condition's few
+    tokens."""
 
     def __init__(self, channels: int, use_time_emb: bool = False,
                  temb_channels: Optional[int] = None,
                  time_embedding_norm: str = "default", group: int = 1,
                  with_attn: bool = False, attn_max_len: int = 256,
-                 with_cross_attn: bool = False, attn_window=None,
-                 act_fn: str = "elu", prenorm: bool = False, device=None):
+                 with_cross_attn: bool = False,
+                 cross_attention_dim: int = 768,
+                 attn_window: Optional[int] = None, act_fn: str = "elu",
+                 prenorm: bool = False, device=None):
         super().__init__()
-        if with_cross_attn:
-            raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP.md queue A)")
-        if with_attn and attn_window is not None:
-            raise NotImplementedError(
-                "Morton-window attention is not ported yet (ROADMAP.md "
-                "queue A)")
         p = channels
         kind = "instance" if use_time_emb else "batch"
         self.act = get_act("silu" if prenorm and act_fn == "elu" else act_fn)
@@ -73,11 +77,19 @@ class BasicBlock(nn.Module):
         if use_time_emb:
             width = p if time_embedding_norm == "default" else 2 * p
             self.time_emb_proj = Dense(temb_channels, width, device=device)
+        self.attn_max_len = attn_max_len
+        self.attn_window = attn_window
         self.attentions = (SparseTransformer(p, attn_max_len, device=device)
                            if with_attn else None)
+        self.cross_attention = (
+            SparseTransformer(p, attn_max_len,
+                              cross_attention_dim=cross_attention_dim,
+                              device=device)
+            if with_attn and with_cross_attn else None)
 
-    def forward(self, x: SparseTensor,
-                emb: Optional[torch.Tensor] = None) -> SparseTensor:
+    def forward(self, x: SparseTensor, emb: Optional[torch.Tensor] = None,
+                encoder_hidden_state: Optional[torch.Tensor] = None
+                ) -> SparseTensor:
         p = self.conv1.out_channels
         if self.prenorm:
             out = self.conv1(self.norm1(x))
@@ -99,7 +111,15 @@ class BasicBlock(nn.Module):
         out = out + x
         if self.attentions is not None:
             out = out.with_features(self.act(out.features))
-            out = self.attentions(out)
+            if (self.attn_window is not None and
+                    _per_instance_cells(out.grid) > self.attn_max_len):
+                out = morton_window_attention(out, self.attentions.attn,
+                                              self.attn_window)
+            else:
+                out = self.attentions(out)
+            if self.cross_attention is not None:
+                out = out.with_features(self.act(out.features))
+                out = self.cross_attention(out, encoder_hidden_state)
         return out.with_features(self.act(out.features))
 
 
@@ -156,7 +176,9 @@ class ResNetStack(nn.Module):
                  temb_channels: Optional[int] = None,
                  time_embedding_norm: str = "default", group: int = 1,
                  with_attn: bool = False, attn_max_len: int = 256,
-                 with_cross_attn: bool = False, attn_window=None,
+                 with_cross_attn: bool = False,
+                 cross_attention_dim: int = 768,
+                 attn_window: Optional[int] = None,
                  out_capacity: Optional[int] = None, act_fn: str = "elu",
                  device=None):
         super().__init__()
@@ -180,8 +202,9 @@ class ResNetStack(nn.Module):
                 temb_channels=temb_channels,
                 time_embedding_norm=time_embedding_norm, group=group,
                 with_attn=with_attn, attn_max_len=attn_max_len,
-                with_cross_attn=with_cross_attn, attn_window=attn_window,
-                act_fn=act_fn, device=device))
+                with_cross_attn=with_cross_attn,
+                cross_attention_dim=cross_attention_dim,
+                attn_window=attn_window, act_fn=act_fn, device=device))
         self.tail = (_HeadConvNormAct(out_channels, out_channels, "adapt",
                                       norm_kind, group, None, act_fn,
                                       device=device)
@@ -189,7 +212,9 @@ class ResNetStack(nn.Module):
 
     def forward(self, x: SparseTensor, emb: Optional[torch.Tensor] = None,
                 out_grid: Optional[SparseGrid] = None,
-                out_capacity: Optional[int] = None) -> SparseTensor:
+                out_capacity: Optional[int] = None,
+                encoder_hidden_state: Optional[torch.Tensor] = None
+                ) -> SparseTensor:
         has_tail = self.tail is not None
         # a pinned-transpose head always receives the target grid; without
         # a tail the head carries the pin (except a generative head)
@@ -202,7 +227,7 @@ class ResNetStack(nn.Module):
         x = self.head(x, out_grid=head_grid,
                       out_capacity=out_capacity or self.out_capacity)
         for i in range(1, self.num_blocks + 1):
-            x = getattr(self, f"block{i}")(x, emb)
+            x = getattr(self, f"block{i}")(x, emb, encoder_hidden_state)
         if has_tail:
             x = self.tail(x, out_grid=out_grid)
         return x

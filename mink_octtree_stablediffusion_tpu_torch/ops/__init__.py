@@ -1,5 +1,6 @@
 """Sparse ops: coordinate engine, kernel maps, convolutions, reductions."""
 
+from .canvas import canvas_grid, expand_to_canvas
 from .conv import (default_compute_dtype, gather_rows, linear_apply,
                    set_default_compute_dtype, sparse_conv_apply)
 from .coords import (INVALID_COORD, SparseGrid, batched_coordinates_np,
@@ -10,6 +11,7 @@ from .dense_conv import (dense_conv_apply, dense_conv_general_apply,
 from .fused_conv import fused_sparse_conv
 from .kernels import KernelSpec, RegionType, region_offsets
 from .lut import LUT_MAX_ENTRIES, build_lut, lut_lookup
+from .morton import morton_decode, morton_encode, morton_encode_np
 from .neighbors import grid_lookup, kernel_map, membership
 # as in the JAX package; the name onehot_conv stays the submodule
 from .onehot_conv import onehot_sparse_conv, use_onehot_conv

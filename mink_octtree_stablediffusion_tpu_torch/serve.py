@@ -9,7 +9,11 @@ return the generated stride-1 voxel set.
 ``generation_models`` builds the configuration of `examples/generate.py`
 (VAE with the `capacities()` schedule of `examples/train_vae.py`, UNet with
 the latent-derived ``attn_max_len`` and down capacities) from the port's
-own initialisers.
+own initialisers, and the conditioned, canvas configuration of
+`scripts/cond_control.py` and `scripts/e2e_generalize.py` with their flags.
+Template-free sampling on the canvas is composed as those scripts compose
+it: ``ops.canvas_grid``, ``diffusion.sample_latent`` on a zero template,
+then ``VAE.decode``.
 """
 
 from __future__ import annotations
@@ -42,25 +46,52 @@ def generation_models(*, input_capacity: int, batch_size: int,
                       unet_channel: Sequence[int] = (4, 320, 640, 960),
                       group: int = 32, attn_max_len: int = 0,
                       time_embedding_norm: str = "default",
-                      max_keep: Optional[int] = None, device=None,
-                      seed: int = 0):
+                      max_keep: Optional[int] = None,
+                      attn_window: Optional[int] = None,
+                      with_cross_attn: bool = False,
+                      cross_attention_dim: int = 768,
+                      cond_into_time: bool = False,
+                      with_window_attn: bool = False,
+                      latent_canvas: bool = False, resolution: int = 128,
+                      device=None, seed: int = 0):
     """(vae, unet) of `examples/generate.py`'s configuration (and of
     `examples/train_diffusion.py`'s), with weights from the port's
     initialisers and a seeded generator on ``device``.  ``max_keep`` is
-    the decoder's per-level top-k clamp (`VAE.max_keep`)."""
+    the decoder's per-level top-k clamp (`VAE.max_keep`).
+
+    The UNet flags ``attn_window``, ``with_cross_attn``,
+    ``cross_attention_dim`` and ``cond_into_time`` and the VAE flags
+    ``with_window_attn`` and ``latent_canvas`` pass through.  With
+    ``latent_canvas`` the sizes follow the dense stride-8 canvas of
+    ``resolution``, as `scripts/e2e_generalize.py` and
+    `scripts/cond_control.py` size them: the decoder's level 0 holds at
+    least ``batch_size`` canvases, the UNet's down capacities are the
+    canvas's dense bounds at strides 16, 32 and 64, and the default
+    ``attn_max_len`` covers one canvas."""
     enc_caps, dec_caps = capacities(input_capacity)
     latent_cap = enc_caps[2]
-    attn_max_len = attn_max_len or max(
-        -(-latent_cap * 3 // (2 * batch_size) // 128) * 128, 128)
+    if latent_canvas:
+        cells = (-(-resolution // 8)) ** 3
+        dec_caps = (max(dec_caps[0], batch_size * cells),) + dec_caps[1:]
+        attn_max_len = attn_max_len or max(-(-cells // 128) * 128, 128)
+        down_caps = (max(batch_size * cells // 8, 16),
+                     max(batch_size * cells // 64, 8),
+                     max(batch_size * cells // 512, 8))
+    else:
+        attn_max_len = attn_max_len or max(
+            -(-latent_cap * 3 // (2 * batch_size) // 128) * 128, 128)
+        down_caps = (max(latent_cap // 2, 16), max(latent_cap // 4, 8),
+                     max(latent_cap // 8, 8))
     vae = VAE(channels=tuple(vae_channel), encoder_capacities=enc_caps,
-              decoder_capacities=dec_caps, max_keep=max_keep, device=device,
-              seed=seed)
+              decoder_capacities=dec_caps, max_keep=max_keep,
+              with_window_attn=with_window_attn, latent_canvas=latent_canvas,
+              device=device, seed=seed)
     unet = UNet(channels=tuple(unet_channel), group=group,
-                attn_max_len=attn_max_len,
+                attn_max_len=attn_max_len, attn_window=attn_window,
                 time_embedding_norm=time_embedding_norm,
-                down_capacities=(max(latent_cap // 2, 16),
-                                 max(latent_cap // 4, 8),
-                                 max(latent_cap // 8, 8)),
+                with_cross_attn=with_cross_attn,
+                cross_attention_dim=cross_attention_dim,
+                cond_into_time=cond_into_time, down_capacities=down_caps,
                 device=device, seed=seed + 1)
     return vae, unet
 

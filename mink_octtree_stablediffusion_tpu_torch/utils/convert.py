@@ -9,7 +9,11 @@ returns a ``state_dict`` for the matching port module:
 - ``BatchNorm_0`` → ``bn``: ``params/{scale,bias}`` → ``weight``/``bias``,
   ``batch_stats/{mean,var}`` → ``running_mean``/``running_var``;
 - ``StableInstanceNorm_0`` → ``inorm``, ``weight``/``bias`` 1:1;
-- ``SparseAttention_0`` → ``attn``;
+- ``SparseAttention_0`` → ``attn``; a ``MortonWindowTransformer`` keeps
+  its projections ``to_q``/``to_kv``/``to_out`` directly under its own
+  name (a `BasicBlock`'s ``attentions`` on the window path, the encoder's
+  ``window_attn``), and the port holds them under ``attn`` there too, so
+  both flax layouts land on one set of projections;
 - the diffusion trainer's ``CoordNLLParams`` (a NamedTuple leaf of the
   params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1.
 
@@ -30,6 +34,7 @@ import torch
 _MODULE_NAMES = {"BatchNorm_0": "bn", "StableInstanceNorm_0": "inorm",
                  "SparseAttention_0": "attn"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_PROJECTIONS = ("to_q", "to_kv", "to_out")
 
 
 def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -44,6 +49,9 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
 
 def _translate(collection: str, path: Tuple[str, ...], value):
     *mods, leaf = path
+    if mods and mods[-1] in _PROJECTIONS and (
+            len(mods) < 2 or mods[-2] != "SparseAttention_0"):
+        mods = mods[:-1] + ["SparseAttention_0", mods[-1]]
     name = [_MODULE_NAMES.get(m, m) for m in mods]
     arr = np.array(value, np.float32)
     if collection == "batch_stats" and leaf in _STATS:
