@@ -56,6 +56,20 @@ read just after:
   ``warmup_cosine``'s; the denoise loss of step 10 must be below step
   1's.  Before the steps, step 1 runs with the gate off and then on
   (``gate_compare``, with its planted fault).
+- **canvas and conditioned training** — ``canvas_train_phase``: at the
+  canvas path's widths on a batch of 4 `ProceduralShapes` (32,768
+  points, ``composite_prob`` 0.25): 10 canvas VAE steps
+  (`scripts/e2e_generalize.py` phase 1, its optimizer); the same VAE with
+  bf16 parameter storage (``TrainState.create_mixed_precision``), whose
+  loss must lie within the bf16 rounding control of the float32 loss;
+  10 conditioned canvas diffusion steps (`scripts/cond_control.py`: a
+  learned [4, 77, 768] class table, 10% condition dropout, the dropped
+  class's table row without a gradient); one canvas diffusion step with
+  and without ``remat`` (within the rounding control of each other) and
+  two ``--remat --diff_opt adafactor`` steps; two ``train.diffusion``
+  steps with ``--remat --noise_point_mode uniform --noise_near`` and the
+  brick gate on.  Every step's launches must match its routes, the
+  recompute's forward launches included.
 - **the library path** — `bench_conv`, the counterpart of `bench.py`'s
   conv metric and its stage scripts, on its three workloads (seed 0): the
   room (26,098 points, 3→32), the finest octree level (131,072 rows,
@@ -81,7 +95,8 @@ the VAE gate-on step and the diffusion step (``b6_pass_table``: the
 same, with the share of live tiles).
 B1, B2 and B3 are all checked at every launch
 shape of the VAE train path, so that its kernel account is complete
-(``vae_step_kernel_account``).  Last, tiny configurations run on the card
+(``vae_step_kernel_account``), and of the canvas VAE's steps, on float32
+and on bf16 weights (``canvas_vae_step_kernel_account``).  Last, tiny configurations run on the card
 and on the CPU (plain versions under the same bf16 compute policy) with
 the same weights, inputs and noise: a generation (``tiny_reference``),
 conditioned canvas generation (``tiny_canvas_reference``), a VAE train
@@ -147,6 +162,10 @@ TRAIN_STEPS, TRAIN_LR, TRAIN_KLD = 10, 1e-3, 1e-6  # train_vae.py's defaults
 # diffusion phase: 10 steps; the warmup cut from 1000 to 1 (see the module
 # docstring); seed 0 for the weights, as the other paths
 DIFF_STEPS, DIFF_FLAGS = 10, ["--seed", "0", "--warmup", "1"]
+# the canvas train path (``canvas_train_phase``): `scripts/e2e_generalize.
+# py`'s points a shape; 10 steps of the canvas VAE and of conditioned
+# diffusion
+CANVAS_POINTS, CANVAS_TRAIN_STEPS = 32768, 10
 # gate_compare's bounds, gate off vs gate on at step 1 (see there): the
 # loss's relative difference, and the relative RMS of the gradients at the
 # median tensor and at the worst.  Measured on the H100 (80GB HBM3, 700 W):
@@ -390,8 +409,8 @@ def check_conv_launch(mp, kernel, case, kind, ops, transpose_weight=False,
     wp = w16.transpose(1, 2) if transpose_weight else w16
     k, cin, cout = wp.shape
     n_out = oc.shape[0]
-    nbytes = (4 * f.numel() + 4 * w.numel() + 4 * keys.numel() +
-              17 * n_out + 4 * n_out * cout)
+    nbytes = (4 * f.numel() + w.element_size() * w.numel() +
+              4 * keys.numel() + 17 * n_out + 4 * n_out * cout)
     return timed_check(
         kernel, case, kind,
         lambda: fc._launch(*ops, torch.bfloat16,
@@ -969,13 +988,16 @@ def counters(mp) -> dict:
 
 def expected_launches(routes) -> dict:
     """Each kernel's launches that ``routes`` call for: B1 (B5) for every
-    fused-route (brick-route) conv, B3 (B6) where its kernel is trained,
-    B2 (the dF pass) where its input carries a gradient."""
+    fused-route (brick-route) conv, a rematerialized stack's recompute in
+    the backward pass included; B3 (B6) where its kernel is trained, B2
+    (the dF pass) where its input carries a gradient, once per conv (a
+    recompute launches no backward kernel)."""
     out = {}
     for names, branch in ((FUSED, "fused"), (BRICK, "brick")):
         rs = [r for r in routes if r.branch == branch]
-        out.update(zip(names, (len(rs), sum(r.grad_in for r in rs),
-                               sum(r.grad_w for r in rs))))
+        first = [r for r in rs if not r.recompute]
+        out.update(zip(names, (len(rs), sum(r.grad_in for r in first),
+                               sum(r.grad_w for r in first))))
     return out
 
 
@@ -1258,12 +1280,7 @@ def gate_compare(mp, label, model, run_loss, cap, restore=None):
     tol = GATE_TOL[label]
 
     def against_off(loss, grads):
-        rel = (rel_rms(grads, g0) if set(g0) == set(grads)
-               else {"(names differ)": 1e9})
-        worst = max(rel, key=rel.get)
-        return {"loss_rel_err": abs(loss - l0) / abs(l0),
-                "grad_rel_rms_median": statistics.median(rel.values()),
-                "grad_rel_rms_max": rel[worst], "grad_worst": worst}
+        return against(loss, grads, l0, g0)
 
     def holds(d):
         return (d["loss_rel_err"] <= tol["loss"] and
@@ -1399,6 +1416,394 @@ def diffusion_phase(mp, dev, cap) -> dict:
             "steps": steps, "routes": first_routes, "launches": totals,
             "compare": compare, "peak_memory_bytes": peak,
             "one_more_step": one_more_step}
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().float().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
+
+
+def against(loss, grads, loss0, grads0) -> dict:
+    """A run's loss and gradients against a reference run's: the loss's
+    relative difference, the gradients' relative RMS at the median tensor
+    and at the worst."""
+    rel = (rel_rms(grads, grads0) if set(grads) == set(grads0)
+           else {"(names differ)": 1e9})
+    worst = max(rel, key=rel.get)
+    return {"loss_rel_err": abs(loss - loss0) / max(abs(loss0), 1e-30),
+            "grad_rel_rms_median": statistics.median(rel.values()),
+            "grad_rel_rms_max": rel[worst], "grad_worst": worst}
+
+
+def canvas_train_phase(mp, dev, cap, power) -> dict:
+    """Training of the canvas and conditioned models (`scripts/
+    e2e_generalize.py` phases 1 and 2, `scripts/cond_control.py`'s
+    diffusion) at the canvas path's full widths: resolution 128, batch 4
+    of `ProceduralShapes` (samples 0-3 of the train split, seed 0,
+    32,768 points, ``composite_prob`` 0.25; one of each class), the VAE
+    (32, 128, 512, 512, 4) with ``latent_canvas`` (decoder level 0:
+    16,384 canvas rows), random weights from seed 0.  With the kernels'
+    counts at 0:
+
+    a. 10 canvas VAE steps (``train.generalize``'s loss and optimizer:
+       clipping at 1.0, Adam on the 20-step warmup of a 6000-step cosine)
+       on the batch.  Every loss and gradient finite, every parameter with
+       a gradient, B1/B2/B3 launched as the routes call for, the loss of
+       step 10 below step 1's and the BCE too.  ``cap`` keeps step 1's
+       B1/B2/B3 operands (path ``canvas_vae``).
+    b. The same VAE (fresh, seed 0) with bf16 parameter storage
+       (``TrainState.create_mixed_precision``): 3 steps from fixed draws.
+       Step 1's loss must lie within the bf16 rounding control of the
+       float32 loss: |L_bf16 − L_fp32| ≤ 2·|L_round − L_fp32| +
+       1e-5·|L_fp32|, L_round being the float32 model with its weights
+       rounded to bf16; the live parameters stay bf16 and equal
+       round(master).  ``cap`` keeps step 1's operands (path
+       ``canvas_vae_bf16``: every launch reads a bf16 weight).
+    c. 10 steps of conditioned canvas diffusion (``train.cond``'s loss on
+       the frozen VAE of (a): the UNet (4, 320, 640, 960), group 32, with
+       cross-attention on a learned [4, 77, 768] class table,
+       ``cond_into_time``, ``attn_max_len`` 512, ``attn_window`` 64, the
+       ``sample`` target, ``cond_dropout`` 0.1, AdamW at 2e-4 on a
+       100-step warmup).  Step 1 drops instance 0 (class 0) by a given
+       mask: the table's row 0 must get a zero gradient, the others not;
+       every parameter gets a gradient at every step.
+    d. One canvas diffusion step of phase 2 (the same UNet without the
+       condition) with and without ``remat``, from the same weights and
+       draws, and a control without remat on noise rounded to bf16: the
+       remat step's loss and gradients must lie within the control's
+       distance of the plain step's; then two ``--remat --diff_opt
+       adafactor`` steps must stay finite and move the weights.  Peak
+       memory with and without remat.
+    e. Two ``train.diffusion`` steps at the diffusion phase's
+       configuration with ``--remat --noise_point_mode uniform
+       --noise_near`` and the brick gate on: B1/B2/B3 and B5/dF/B6
+       launched as the routes call for, the recompute's forward launches
+       included (``expected_launches``).  ``cap`` keeps step 1's operands
+       of every kernel (path ``noise_points``).
+
+    Reports each part's step walls, peak memory and launches, the
+    device's busy share and elementwise time of one float32 and one bf16
+    canvas VAE step, and the busy share of one conditioned step
+    (``profile_run``)."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import (
+        cond as tcond, diffusion as td, generalize as tg, vae as tv)
+    failures = []
+
+    def need(ok, what):
+        if not ok:
+            failures.append(what)
+    ds = mp.data.ProceduralShapes(resolution=RES, num_samples=BATCH,
+                                  points_per_shape=CANVAS_POINTS, seed=0,
+                                  composite_prob=0.25)
+    batch = tg.collate([ds[i] for i in range(BATCH)], CAP)
+    sizes = dict(input_capacity=CAP, batch_size=BATCH, resolution=RES)
+    count = counters(mp)
+    for c in count.values():
+        c.launches = 0  # counts from here on are the canvas train path's
+    out = {"records": {}}
+
+    def run_steps(label, step_fn, n, model, on=FUSED, each=None):
+        recs = []
+        for i in range(n):
+            cap.at(label, on if i == 0 else ())
+            kw = each(i) if each else {}
+            before = {k: c.launches for k, c in count.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mp.nn.record_routes() as routes:
+                loss, aux = step_fn(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cap.at(None)
+            launched = {k: c.launches - before[k] for k, c in count.items()}
+            missing = [k for k, p in model.named_parameters()
+                       if p.requires_grad and p.grad is None]
+            finite = bool(torch.stack(
+                [torch.isfinite(loss)] +
+                [torch.isfinite(p.grad).all() for p in model.parameters()
+                 if p.grad is not None]).all().item())
+            rec = {label + "_step": i + 1, "wall_s": wall,
+                   "loss": float(loss),
+                   **{k: float(v) for k, v in aux.items()},
+                   "launches": launched,
+                   "expected_launches": expected_launches(routes),
+                   "convs": len(routes),
+                   "recomputed_convs": sum(r.recompute for r in routes),
+                   "branches": dict(Counter(r.branch for r in routes)),
+                   "params_without_grad": missing[:5],
+                   "all_finite": finite}
+            emit(rec)
+            recs.append(rec)
+            need(finite and not missing, f"{label} step {i + 1}: finite "
+                 "loss and a gradient for every parameter")
+            need(launched == rec["expected_launches"],
+                 f"{label} step {i + 1}: launches")
+            if i == 0:
+                out.setdefault("routes", {})[label] = routes
+        return recs
+
+    # (a) the canvas VAE, 10 steps
+    t0 = time.perf_counter()
+    vae = tg.canvas_vae(vae_channel=VAE_CH, device=dev, seed=0, **sizes)
+    loss_fn = tv.build_loss_fn(kld_weight=TRAIN_KLD, device=dev, **sizes)
+    state = mp.train.TrainState(vae, mp.train.canvas_vae_optimizer(
+        vae.parameters(), TRAIN_LR, 6000))
+    step = mp.train.make_train_step(loss_fn)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    emit({"canvas_train_models_built_s": time.perf_counter() - t0,
+          "input_voxels_per_instance": [int((batch[0][:, 0] == i).sum())
+                                        for i in range(BATCH)],
+          "labels": batch[3].tolist(),
+          "decoder_capacities": list(vae.decoder_capacities)})
+    torch.cuda.reset_peak_memory_stats(dev)
+    vae_recs = run_steps("canvas_vae", lambda: step(state, batch[:3], gen),
+                         CANVAS_TRAIN_STEPS, vae)
+    peak_vae = torch.cuda.max_memory_allocated(dev)
+    loss = [r["loss"] for r in vae_recs]
+    need(loss[-1] < loss[0] and vae_recs[-1]["bce"] < vae_recs[0]["bce"],
+         "canvas VAE: the loss and the BCE fall")
+    wall_vae = statistics.median(r["wall_s"] for r in vae_recs[1:])
+    prof32 = profile_run("one canvas VAE step (float32 weights)",
+                         lambda: step(state, batch[:3], gen), wall_vae)
+    launches_a = {k: c.launches for k, c in count.items()}
+
+    # (b) bf16 parameter storage, from fixed draws
+    enc_caps = mp.serve.capacities(CAP)[0]
+    g1 = torch.Generator(device=dev).manual_seed(1)
+    eps = torch.randn((enc_caps[2], VAE_CH[4]), generator=g1, device=dev)
+    cnoise = torch.randn((BATCH * (RES // 8) ** 3, VAE_CH[4]), generator=g1,
+                         device=dev)
+    draws = dict(eps=eps, canvas_noise=cnoise)
+
+    def fresh_vae():
+        return tg.canvas_vae(vae_channel=VAE_CH, device=dev, seed=0,
+                             **sizes).train()
+
+    def loss_at(model):
+        stats = [b.clone() for b in model.buffers()]
+        with torch.no_grad():
+            val = float(loss_fn(model, batch[:3], **draws)[0])
+            for b, s in zip(model.buffers(), stats):
+                b.copy_(s)
+        return val
+    l32 = loss_at(fresh_vae())
+    rounded = fresh_vae()
+    with torch.no_grad():
+        for p in rounded.parameters():
+            p.copy_(p.bfloat16().float())
+    l_round = loss_at(rounded)
+    del rounded
+    vae16 = fresh_vae()
+    state16 = mp.train.TrainState.create_mixed_precision(
+        vae16, lambda ps: mp.train.canvas_vae_optimizer(ps, TRAIN_LR, 6000))
+    step16 = mp.train.make_train_step(loss_fn)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bf16_recs = run_steps(
+        "canvas_vae_bf16", lambda: step16(state16, batch[:3], **draws), 3,
+        vae16)
+    peak_bf16 = torch.cuda.max_memory_allocated(dev)
+    l16 = bf16_recs[0]["loss"]
+    live_ok = all(p.dtype == torch.bfloat16 and torch.equal(
+        p, m.to(torch.bfloat16)) for p, m in zip(state16.optimizer.params,
+                                                 state16.optimizer.master))
+    bound = 2 * abs(l_round - l32) + 1e-5 * abs(l32)
+    rec_b = {"canvas_vae_bf16_loss_step1": l16, "loss_fp32": l32,
+             "loss_fp32_rounded_weights": l_round,
+             "bf16_minus_fp32": abs(l16 - l32),
+             "control_rounded_minus_fp32": abs(l_round - l32),
+             "bound": bound, "live_equals_round_master": live_ok}
+    emit(rec_b)
+    need(abs(l16 - l32) <= bound, "canvas VAE bf16: the loss within the "
+         "bf16 rounding control")
+    need(live_ok, "canvas VAE bf16: live parameters are round(master)")
+    wall_bf16 = statistics.median(r["wall_s"] for r in bf16_recs[1:])
+    prof16 = profile_run("one canvas VAE step (bf16 weights)",
+                         lambda: step16(state16, batch[:3], **draws),
+                         wall_bf16)
+    del vae16, state16, step16
+    torch.cuda.empty_cache()
+    launches_b = {k: c.launches for k, c in count.items()}
+
+    # (c) conditioned canvas diffusion on the frozen VAE of (a)
+    del state, step
+    vae.requires_grad_(False)
+    vae.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    table = torch.as_tensor(tcond.class_table(4, COND_TOKENS, COND_DIM),
+                            device=dev)
+    unet_kw = dict(unet_channel=UNET_CH, batch_size=BATCH, resolution=RES,
+                   group=GROUP, attn_max_len=512, attn_window=64,
+                   device=dev, seed=1)
+    unet = tg.canvas_unet(with_cross_attn=True, cross_attention_dim=COND_DIM,
+                          cond_into_time=True, **unet_kw)
+    model = torch.nn.ModuleDict({"unet": unet})
+    model.register_parameter("cond_table", torch.nn.Parameter(table.clone()))
+    cstate = mp.train.TrainState(model, mp.train.diffusion_optimizer(
+        model.parameters(), 2e-4, 100, 10000))
+    sample = mp.diffusion.DDPMScheduler.create(prediction_type="sample")
+    cstep = mp.train.make_train_step(tg.build_diffusion_loss_fn(
+        vae, sample, vae_scale=VAE_SCALE, prediction_type="sample",
+        device=dev, cond_table=table, cond_dropout=0.1, **sizes))
+    gen_c = torch.Generator(device=dev).manual_seed(2)
+    drop1 = torch.arange(BATCH, device=dev) == 0  # instance 0 only
+    table_rows = {}
+
+    def cond_step(drop=None):
+        loss, aux = cstep(cstate, batch, gen_c, drop=drop)
+        if drop is not None:
+            g = model.cond_table.grad
+            table_rows["grad_max_per_row"] = g.abs().amax((1, 2)).tolist()
+        return loss, aux
+    torch.cuda.reset_peak_memory_stats(dev)
+    cond_recs = run_steps("cond_canvas_diffusion", cond_step,
+                          CANVAS_TRAIN_STEPS, model, on=(),
+                          each=lambda i: {"drop": drop1} if i == 0 else {})
+    peak_cond = torch.cuda.max_memory_allocated(dev)
+    wall_cond = statistics.median(r["wall_s"] for r in cond_recs[1:])
+    prof_cond = profile_run("one conditioned canvas diffusion step",
+                            cond_step, wall_cond)
+    rows = table_rows["grad_max_per_row"]
+    # every instance has its canvas, an empty one too: each undropped
+    # instance's class gets a gradient
+    kept = {int(c) for c, d in zip(batch[3], drop1.tolist()) if not d}
+    need(all((r > 0) == (c in kept) for c, r in enumerate(rows)),
+         "cond diffusion: only the undropped classes' table rows get a "
+         "gradient")
+    emit({"cond_table_grad_max_per_row_step1": rows,
+          "labels": batch[3].tolist(), "dropped": [0]})
+    del cstate, cstep, model, unet
+    torch.cuda.empty_cache()
+    launches_c = {k: c.launches for k, c in count.items()}
+
+    # (d) phase 2's step with and without remat; then remat + Adafactor
+    unet = tg.canvas_unet(**unet_kw)
+    dmodel = torch.nn.ModuleDict({"unet": unet})
+    dloss = tg.build_diffusion_loss_fn(
+        vae, sample, vae_scale=VAE_SCALE, prediction_type="sample",
+        device=dev, **sizes)
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    t = torch.randint(0, 1000, (BATCH,), generator=g3, device=dev,
+                      dtype=torch.int32)
+    dnoise = torch.randn((BATCH * (RES // 8) ** 3, UNET_CH[0]),
+                         generator=g3, device=dev)
+    runs, gr0, l0 = {}, None, None
+    dmodel.train()
+    for name, remat, perturb in (("plain", False, False),
+                                 ("control", False, True),
+                                 ("remat", True, False)):
+        unet.remat = remat
+        dmodel.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mp.nn.record_routes() as routes:
+            loss, _ = dloss(dmodel, batch, timesteps=t,
+                            noise=dnoise.bfloat16().float() if perturb
+                            else dnoise)
+            loss.backward()
+        torch.cuda.synchronize()
+        # the step's own peak: above what was allocated when it began
+        peak = torch.cuda.max_memory_allocated(dev) - start
+        recomputed = sum(r.recompute for r in routes)
+        if name == "plain":
+            l0, gr0 = float(loss.detach()), grads_of(dmodel)
+            runs[name] = {"peak_memory_bytes": peak, "loss": l0}
+        else:
+            runs[name] = {"peak_memory_bytes": peak,
+                          "loss": float(loss.detach()),
+                          **against(float(loss.detach()),
+                                    grads_of(dmodel), l0, gr0)}
+        runs[name]["recomputed_convs"] = recomputed
+    remat_d, control_d = runs["remat"], runs["control"]
+    within = all(remat_d[k] <= max(control_d[k], 1e-6)
+                 for k in ("loss_rel_err", "grad_rel_rms_median",
+                           "grad_rel_rms_max"))
+    rec_d = {"remat_compare": runs, "params_with_grad": len(gr0),
+             "unet_params": sum(p.numel() for p in dmodel.parameters()),
+             "within_control": within}
+    emit(rec_d)
+    need(within and remat_d["recomputed_convs"] > 0 and len(gr0) == sum(
+        1 for _ in dmodel.parameters()), "remat: the step within the "
+        "rounding control of the plain step")
+    del runs, gr0
+    unet.remat = True
+    dmodel.zero_grad(set_to_none=True)
+    dstate = mp.train.TrainState(dmodel, mp.train.adafactor_diffusion_optimizer(
+        dmodel.parameters(), 2e-4, 100, 15000))
+    before = {n: p.detach().clone() for n, p in dmodel.named_parameters()}
+    dstep = mp.train.make_train_step(dloss)
+    ada_recs = run_steps("remat_adafactor", lambda: dstep(
+        dstate, batch, timesteps=t, noise=dnoise), 2, dmodel, on=())
+    moved = sum(not torch.equal(p, before[n])
+                for n, p in dmodel.named_parameters())
+    finite = all(bool(torch.isfinite(p).all()) for p in dmodel.parameters())
+    emit({"remat_adafactor_params_moved": moved,
+          "params": len(before), "weights_finite": finite,
+          "lr_per_update": [dstate.optimizer.schedule(i) for i in range(2)]})
+    need(moved > 0 and finite, "remat + Adafactor: finite weights that move")
+    del dstate, dstep, dmodel, unet, before, vae
+    torch.cuda.empty_cache()
+    launches_d = {k: c.launches for k, c in count.items()}
+
+    # (e) train.diffusion with noise points and remat, brick gate on
+    cfg = td.parse_args(DIFF_FLAGS + ["--remat", "--noise_point_mode",
+                                      "uniform", "--noise_near"])
+    run = td.setup(cfg, dev)
+    ds_e = mp.data.SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [ds_e[i]["coords"] for i in range(cfg.batch_size)],
+        cfg.input_capacity, cfg.max_batch_len)
+    gen_e = torch.Generator(device=dev).manual_seed(4)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mp.ops.enable_brick_conv(True)
+    try:
+        np_recs = run_steps("noise_points", lambda: run.step_fn(
+            run.state, (cpad, valid), gen_e), 2, run.model, on=KERNELS)
+    finally:
+        mp.ops.enable_brick_conv(False)
+    peak_np = torch.cuda.max_memory_allocated(dev)
+    need(all(r["recomputed_convs"] > 0 for r in np_recs) and
+         np_recs[0]["launches"]["B5"] > 0 and np_recs[0]["launches"]["B6"]
+         > 0, "noise points: the remat step runs the brick kernels")
+    del run
+    torch.cuda.empty_cache()
+    launches = {k: c.launches for k, c in count.items()}
+    walls = {label: [r["wall_s"] for r in recs]
+             for label, recs in (("canvas_vae", vae_recs),
+                                 ("canvas_vae_bf16", bf16_recs),
+                                 ("cond_canvas_diffusion", cond_recs),
+                                 ("remat_adafactor", ada_recs),
+                                 ("noise_points", np_recs))}
+    rec = {"canvas_train_path_launches": launches, "card": power,
+           "launches_by_part": {"a": launches_a, "b_minus_a": {
+               k: launches_b[k] - launches_a[k] for k in launches},
+               "c_minus_b": {k: launches_c[k] - launches_b[k]
+                             for k in launches},
+               "d_minus_c": {k: launches_d[k] - launches_c[k]
+                             for k in launches},
+               "e_minus_d": {k: launches[k] - launches_d[k]
+                             for k in launches}},
+           "wall_s": walls,
+           "wall_s_median_canvas_vae_steps_2_on": wall_vae,
+           "wall_s_median_canvas_vae_bf16_steps_2_on": wall_bf16,
+           "wall_s_median_cond_steps_2_on": wall_cond,
+           "device_busy_share_cond_step": prof_cond["device_busy_share"],
+           "device_busy_share_canvas_vae_fp32":
+               prof32["device_busy_share"],
+           "device_busy_share_canvas_vae_bf16":
+               prof16["device_busy_share"],
+           "elementwise_device_s_fp32": prof32["elementwise_s"],
+           "elementwise_device_s_bf16": prof16["elementwise_s"],
+           "peak_memory_bytes": {"canvas_vae": peak_vae,
+                                 "canvas_vae_bf16": peak_bf16,
+                                 "cond_canvas_diffusion": peak_cond,
+                                 "noise_points": peak_np},
+           "failures": failures}
+    emit(rec)
+    out.update(ok=not failures, failures=failures, launches=launches,
+               record=rec, vae_steps=len(vae_recs))
+    return out
 
 
 def tiny_diffusion_reference(mp, dev) -> dict:
@@ -2140,6 +2545,21 @@ def main(argv) -> int:
     del diff["one_more_step"]
     torch.cuda.empty_cache()
 
+    # -- path 3b: training of the canvas and conditioned models ---------
+    try:
+        with cap:
+            ctrain = canvas_train_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        ctrain = {"ok": False, "failures": ["canvas train phase raised"],
+                  "routes": {}, "launches": dict.fromkeys(KERNELS, 0),
+                  "vae_steps": CANVAS_TRAIN_STEPS}
+    need(ctrain["ok"], "canvas train path: " + ", ".join(ctrain["failures"]))
+    for label, rs in ctrain["routes"].items():
+        emit_histogram(f"{label}_fused_launch_shapes_step1", histogram(
+            rs, lambda r: r.branch == "fused"))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -2165,7 +2585,8 @@ def main(argv) -> int:
 
     kinds = {(r.n_out, r.cin, r.cout, r.k): r.layer
              for rs in (per_request_routes[0], canv["all_routes"],
-                        train_routes, droutes, vae_off, diff_off)
+                        train_routes, droutes, vae_off, diff_off,
+                        *ctrain["routes"].values())
              for r in rs}
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
@@ -2187,6 +2608,14 @@ def main(argv) -> int:
             check_all(kernel, path, brick_check(kernel, path), kinds)
     for path in ("diffusion_gate_off", "vae_gate_off"):
         check_all("B1", path, fused_check("B1", path), kinds)
+    # the canvas train path: the canvas VAE's shapes on float32 and on bf16
+    # weights, and train.diffusion's with noise points under remat
+    for path in ("canvas_vae", "canvas_vae_bf16", "noise_points"):
+        for kernel in FUSED:
+            check_all(kernel, path, fused_check(kernel, path), kinds)
+    for kernel in BRICK:
+        check_all(kernel, "noise_points", brick_check(kernel,
+                                                      "noise_points"), kinds)
     all_recs = [r for got in recs.values() for r in got.values()] + extras
     emit({"kernel_checks": len(all_recs),
           "failed": [(r["kernel"], r["case"], r.get("forward_shape"))
@@ -2199,7 +2628,9 @@ def main(argv) -> int:
     for path, kernels in (("generation", ("B1",)), ("canvas", ("B1",)),
                           ("vae_train", FUSED),
                           ("diffusion", KERNELS),
-                          ("vae_gate_on", BRICK)):
+                          ("vae_gate_on", BRICK),
+                          ("canvas_vae", FUSED), ("canvas_vae_bf16", FUSED),
+                          ("noise_points", KERNELS)):
         for kernel in kernels:
             need(shapes(path, kernel) == set(recs[(kernel, path)]),
                  f"{kernel} checked at every launch shape of {path}")
@@ -2230,6 +2661,28 @@ def main(argv) -> int:
         "ms_b1_b2_b3": sum(t["ms"] for t in tot_vae.values())})
     tot_diff = {n: totals(per_diff_step[n], recs[(n, "diffusion")])
                 for n in KERNELS}
+    # per canvas VAE step: each launch shape's time x its launches
+    try:
+        per_cvae = {n: cap.per_step("canvas_vae", n, ctrain["vae_steps"])
+                    for n in FUSED}
+    except AssertionError:
+        need(False, "canvas VAE launches the same shapes at every step")
+        per_cvae = {n: Counter() for n in FUSED}
+    tot_cvae = {n: totals(per_cvae[n], recs[(n, "canvas_vae")])
+                for n in FUSED}
+    emit({"canvas_vae_step_kernel_account": {
+        n: {"launches": sum(per_cvae[n].values()),
+            "launch_shapes": [
+                {"shape": list(k), "count": c,
+                 "kind": kinds.get(k[:4], "?"),
+                 "ms": recs[(n, "canvas_vae")][k]["ms"],
+                 "plain_ms": recs[(n, "canvas_vae")][k]["plain_ms"],
+                 "bound_ms": recs[(n, "canvas_vae")][k]["bound_ms"],
+                 "ms_bf16_weight": recs[(n, "canvas_vae_bf16")].get(
+                     k, {}).get("ms")}
+                for k, c in sorted(per_cvae[n].items())],
+            **tot_cvae[n]} for n in FUSED},
+        "ms_b1_b2_b3": sum(t["ms"] for t in tot_cvae.values())})
     emit({"per_diffusion_step": {
         n: {"launch_shapes": [{"shape": list(k), "count": c}
                               for k, c in sorted(per_diff_step[n].items())],
@@ -2372,12 +2825,18 @@ def main(argv) -> int:
                   "launches_vae_train_path": train_launches[name],
                   "launches_diffusion_path": diff["launches"][name],
                   "ms_per_diffusion_step": tot_diff[name]["ms"],
-                  "bound_ms_per_diffusion_step": tot_diff[name]["bound_ms"]})
+                  "bound_ms_per_diffusion_step": tot_diff[name]["bound_ms"],
+                  "launches_canvas_train_path": ctrain["launches"][name],
+                  "ms_per_canvas_vae_step": tot_cvae[name]["ms"],
+                  "plain_ms_per_canvas_vae_step": tot_cvae[name]["plain_ms"],
+                  "bound_ms_per_canvas_vae_step":
+                      tot_cvae[name]["bound_ms"]})
         kernels.append(e)
     for name in BRICK:
         e = entry(name, diff["launches"][name], tot_diff[name],
                   "one diffusion train step")
         e["path"] = "diffusion"
+        e["launches_canvas_train_path"] = ctrain["launches"][name]
         if name == "B6":
             e["ms_per_vae_gate_on_step"] = tot_gate_on["ms"]
             e["bound_ms_per_vae_gate_on_step"] = tot_gate_on["bound_ms"]
@@ -2426,6 +2885,8 @@ def profile_run(label: str, run, wall_unprofiled: float) -> dict:
            "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
            "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
            "B6_s": kernel_s("brick_conv_dw::"),  # all its passes
+           # PyTorch's elementwise kernels (casts among them)
+           "elementwise_s": kernel_s("elementwise"),
            "wall_s_unprofiled": wall_unprofiled,
            "device_busy_share": busy_s / wall_unprofiled,
            "top_kernels": [{"name": n[:90], "device_ms": d / 1e3, "calls": c}

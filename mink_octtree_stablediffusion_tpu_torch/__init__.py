@@ -2,7 +2,9 @@
 
 The JAX package stays the reference; this package mirrors its module names
 and runs the generation path (VAE encode → DDIM on the fixed latent grid →
-pruning decode) and VAE training (`train.vae`) with PyTorch.  Every
+pruning decode), template-free and conditioned generation on the latent
+canvas, and their training (`train.vae`, `train.diffusion`,
+`train.generalize`, `train.cond`, `train.diffusion_cross`) with PyTorch.  Every
 bounded-grid sparse conv that is not densified goes through hand-written
 CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.  It imports neither

@@ -230,11 +230,21 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
 }
 
 // The weight pack (`ops/vol_conv.py::pack_weight` is its plain version):
-// fp32 W [27, Cin, Cout] (for dF, `mirror`, the forward's [27, Cout, Cin]
-// read as W'[k] = W[26 - k]^T) -> bf16 [Cout tiles][Cin chunks][27][nt/8]
-// [2][8][8], element (t, c, k, nb, kb, ni, ki) = W[k][16c + 8kb + ki]
-// [nt t + 8nb + ni], zero past Cin and Cout; one thread per element.
-__global__ void pack_weight_kernel(const float* __restrict__ w,
+// W [27, Cin, Cout], fp32 or (parameters stored in bf16) bf16 (for dF,
+// `mirror`, the forward's [27, Cout, Cin] read as W'[k] = W[26 - k]^T) ->
+// bf16 [Cout tiles][Cin chunks][27][nt/8][2][8][8], element (t, c, k, nb,
+// kb, ni, ki) = W[k][16c + 8kb + ki][nt t + 8nb + ni], zero past Cin and
+// Cout; one thread per element.
+__device__ __forceinline__ float load_weight(const float* w, size_t i) {
+  return w[i];
+}
+__device__ __forceinline__ float load_weight(const __nv_bfloat16* w,
+                                             size_t i) {
+  return __bfloat162float(w[i]);
+}
+
+template <typename W>
+__global__ void pack_weight_kernel(const W* __restrict__ w,
                                    __nv_bfloat16* __restrict__ wp, int cin,
                                    int cout, int nch, int nct, int nt,
                                    int mirror) {
@@ -252,19 +262,25 @@ __global__ void pack_weight_kernel(const float* __restrict__ w,
     const int i = c * CK + kb * 8 + ki, j = t * nt + nb * 8 + ni;
     float v = 0.0f;
     if (i < cin && j < cout)
-      v = mirror ? w[((size_t)(26 - k) * cout + j) * cin + i]
-                 : w[((size_t)k * cin + i) * cout + j];
+      v = load_weight(w, mirror ? ((size_t)(26 - k) * cout + j) * cin + i
+                                : ((size_t)k * cin + i) * cout + j);
     wp[e] = __float2bfloat16(v);
   }
 }
 
 int pack(const void* w, void* wp, int cin, int cout, int nt, int mirror,
-         cudaStream_t stream) {
+         int w_bf16, cudaStream_t stream) {
   const int nch = (cin + CK - 1) / CK, nct = (cout + nt - 1) / nt;
   const int total = nct * nch * 27 * CK * nt;
   const int blocks = total / 256 + 1 < 1024 ? total / 256 + 1 : 1024;
-  pack_weight_kernel<<<blocks, 256, 0, stream>>>(
-      (const float*)w, (__nv_bfloat16*)wp, cin, cout, nch, nct, nt, mirror);
+  if (w_bf16)
+    pack_weight_kernel<<<blocks, 256, 0, stream>>>(
+        (const __nv_bfloat16*)w, (__nv_bfloat16*)wp, cin, cout, nch, nct, nt,
+        mirror);
+  else
+    pack_weight_kernel<<<blocks, 256, 0, stream>>>(
+        (const float*)w, (__nv_bfloat16*)wp, cin, cout, nch, nct, nt,
+        mirror);
   return (int)cudaGetLastError();
 }
 
@@ -288,12 +304,13 @@ bool valid_tile(int nt) { return nt == 16 || nt == 32 || nt == 64 || nt == 128; 
 }  // namespace
 
 // Packs the weight alone (the pass `brick_conv_forward` runs first): w
-// fp32 [27, cin, cout] ([27, cout, cin], the forward's, with mirror), wp
-// bf16 [ceil(cout / nt) * ceil(cin / 16) * 27 * 16 * nt].
+// fp32, or bf16 with w_bf16, [27, cin, cout] ([27, cout, cin], the
+// forward's, with mirror), wp bf16 [ceil(cout / nt) * ceil(cin / 16) * 27 *
+// 16 * nt].
 extern "C" int brick_conv_pack(const void* w, void* wp, int cin, int cout,
-                               int nt, int mirror, void* stream) {
+                               int nt, int mirror, int w_bf16, void* stream) {
   if (cin < 1 || cout < 1 || !valid_tile(nt)) return (int)cudaErrorInvalidValue;
-  return pack(w, wp, cin, cout, nt, mirror, (cudaStream_t)stream);
+  return pack(w, wp, cin, cout, nt, mirror, w_bf16, (cudaStream_t)stream);
 }
 
 // Launch on `stream`: the weight pack into `wp`, then the conv; returns
@@ -304,13 +321,13 @@ extern "C" int brick_conv_pack(const void* w, void* wp, int cin, int cout,
 extern "C" int brick_conv_forward(const void* vol, const void* w, void* wp,
                                   void* out, int b, int x, int y, int z,
                                   int cs, int cin, int cout, int nt,
-                                  int mirror, void* stream) {
+                                  int mirror, int w_bf16, void* stream) {
   const int nch = (cin + CK - 1) / CK;
   if (b < 1 || x < 1 || y < 1 || z < 1 || cin < 1 || cout < 1 ||
       cs % CK != 0 || nch * CK > cs || nch > MAX_CHUNKS || !valid_tile(nt))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = pack(w, wp, cin, cout, nt, mirror, s);
+  const int rc = pack(w, wp, cin, cout, nt, mirror, w_bf16, s);
   if (rc != 0) return rc;
   switch (nt) {
     case 16: return launch<16>(vol, wp, out, b, x, y, z, cs, nch, cout, s);

@@ -396,12 +396,23 @@ int launch_tile(int bn, int bk, const Args& a, const Geom& g,
 
 // The operand casts, one pass before the conv (`ops/fused_conv.py::
 // pad_features` and `pack_weight` are their plain versions): features fp32
-// [n_in, cin] -> bf16 [n_in, cinf], zero past cin; weight fp32 [k, cin,
-// cout] ([k, cout, cin], the forward's, read transposed for dF) -> bf16
-// [k, cinw, coutp], zero past cin and cout.  Rounds as __float2bfloat16.
+// [n_in, cin] -> bf16 [n_in, cinf], zero past cin; weight W (fp32, or bf16
+// where the parameters are stored in bf16) [k, cin, cout] ([k, cout, cin],
+// the forward's, read transposed for dF) -> bf16 [k, cinw, coutp], zero
+// past cin and cout.  Rounds as __float2bfloat16 (a bf16 weight is copied
+// as it is).
+__device__ __forceinline__ float load_weight(const float* w, long long i) {
+  return w[i];
+}
+__device__ __forceinline__ float load_weight(const __nv_bfloat16* w,
+                                             long long i) {
+  return __bfloat162float(w[i]);
+}
+
+template <typename W>
 __global__ void cast_operands_kernel(const float* __restrict__ f,
                                      __nv_bfloat16* __restrict__ fb,
-                                     const float* __restrict__ w,
+                                     const W* __restrict__ w,
                                      __nv_bfloat16* __restrict__ wp,
                                      int n_in, int cin, int cinf, int cout,
                                      int k, int cinw, int coutp,
@@ -421,7 +432,8 @@ __global__ void cast_operands_kernel(const float* __restrict__ f,
       const int i = rem / coutp, j = rem - i * coutp;
       float v = 0.0f;
       if (i < cin && j < cout)
-        v = transpose ? w[(o * cout + j) * cin + i] : w[(o * cin + i) * cout + j];
+        v = load_weight(w, transpose ? (o * cout + j) * cin + i
+                                     : (o * cin + i) * cout + j);
       wp[q] = __float2bfloat16(v);
     }
   }
@@ -429,15 +441,22 @@ __global__ void cast_operands_kernel(const float* __restrict__ f,
 
 int cast_operands(const void* feat, const void* w, void* fb, void* wp,
                   int n_in, int cin, int cout, int k, int bn, int bk,
-                  int transpose, cudaStream_t stream) {
+                  int transpose, int w_bf16, cudaStream_t stream) {
   const int cinf = (cin + 7) / 8 * 8, cinw = (cin + bk - 1) / bk * bk;
   const int coutp = (cout + bn - 1) / bn * bn;
   const long long total =
       (long long)n_in * cinf + (long long)k * cinw * coutp;
   const int blocks = (int)(total / 256 + 1 < 4096 ? total / 256 + 1 : 4096);
-  cast_operands_kernel<<<blocks, 256, 0, stream>>>(
-      (const float*)feat, (__nv_bfloat16*)fb, (const float*)w,
-      (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp, transpose);
+  if (w_bf16)
+    cast_operands_kernel<<<blocks, 256, 0, stream>>>(
+        (const float*)feat, (__nv_bfloat16*)fb, (const __nv_bfloat16*)w,
+        (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp,
+        transpose);
+  else
+    cast_operands_kernel<<<blocks, 256, 0, stream>>>(
+        (const float*)feat, (__nv_bfloat16*)fb, (const float*)w,
+        (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp,
+        transpose);
   return (int)cudaGetLastError();
 }
 
@@ -450,20 +469,21 @@ bool valid_tile(int bn, int bk) {
 
 // The operand casts alone (the pass `fused_sparse_conv_forward` runs
 // first): feat fp32 [n_in, cin] -> fb bf16 [n_in, cin rounded up to 8];
-// w fp32 [k, cin, cout] ([k, cout, cin] with transpose) -> wp bf16 [k, cin
-// rounded up to bk, cout rounded up to bn].
+// w fp32, or bf16 with w_bf16, [k, cin, cout] ([k, cout, cin] with
+// transpose) -> wp bf16 [k, cin rounded up to bk, cout rounded up to bn].
 extern "C" int fused_sparse_conv_cast(const void* feat, const void* w,
                                       void* fb, void* wp, int n_in, int cin,
                                       int cout, int k, int bn, int bk,
-                                      int transpose, void* stream) {
+                                      int transpose, int w_bf16,
+                                      void* stream) {
   if (n_in < 0 || cin < 1 || cout < 1 || k < 1 || !valid_tile(bn, bk))
     return (int)cudaErrorInvalidValue;
   return cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
-                       transpose, (cudaStream_t)stream);
+                       transpose, w_bf16, (cudaStream_t)stream);
 }
 
 // Launch on `stream`: the operand casts into fb and wp (as
-// `fused_sparse_conv_cast`), then the conv; returns cudaGetLastError()
+// `fused_sparse_conv_cast`, the weight bf16 with w_bf16), then the conv; returns cudaGetLastError()
 // right after the launches.  in_keys int32 [n_in] (sorted, INT32_MAX on
 // padding rows), out_coords int32 [n_out, 4], out_valid bool [n_out], out
 // fp32 [n_out, cout]; offs [k*3], s_in [3] and cells [3] are host arrays.
@@ -473,7 +493,7 @@ extern "C" int fused_sparse_conv_forward(
     const void* feat, const void* w, void* fb, void* wp, const void* in_keys,
     const void* out_coords, const void* out_valid, void* out, int n_in,
     int n_out, int cin, int cout, int k, const int* offs, const int* s_in,
-    const int* cells, int bn, int bk, int transpose, int stage,
+    const int* cells, int bn, int bk, int transpose, int w_bf16, int stage,
     void* stream) {
   if (k < 1 || k > MAX_K || n_in < 1 || n_out < 1 || cout < 1 || cin < 1 ||
       !valid_tile(bn, bk) || stage < kFull || stage > kGather ||
@@ -481,7 +501,7 @@ extern "C" int fused_sparse_conv_forward(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc = cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
-                         transpose, s);
+                         transpose, w_bf16, s);
   if (rc != 0) return rc;
   const Args a{fb, wp, in_keys, out_coords, out_valid, out, n_in, n_out,
                (cin + 7) / 8 * 8, cin, (cin + bk - 1) / bk * bk, cout,

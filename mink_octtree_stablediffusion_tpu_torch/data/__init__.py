@@ -1,4 +1,6 @@
-"""Host-side data: synthetic shapes, batching and collation."""
+"""Host-side data: synthetic and procedural shapes, batching and
+collation."""
 
 from .collate import collate_pointclouds
-from .datasets import SyntheticShapes, batch_iterator, normalize_to_resolution
+from .datasets import (ProceduralShapes, SyntheticShapes, batch_iterator,
+                       normalize_to_resolution)

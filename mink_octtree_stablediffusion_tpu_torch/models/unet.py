@@ -17,7 +17,9 @@ condition, CFG's unconditional branch, leaves it exactly as it was).
 ``attn_window`` sends levels whose per-instance cell bound exceeds
 ``attn_max_len`` to Morton-window self-attention.
 
-Not ported yet (raises): ``remat`` (training).
+``remat`` rematerializes each ResNet stack in the backward pass
+(``nn.blocks.remat_call``) while gradients are recorded; the parameters
+are the same as without it.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn.blocks import ResNetStack
+from ..nn.blocks import ResNetStack, remat_call
 from ..nn.conv import SparseConv
 from ..nn.embed import TimestepEmbedding, timesteps_embedding
 from ..nn.init import init_parameters
@@ -50,15 +52,13 @@ class UNet(nn.Module):
                  level0_skip: bool = False, cond_into_time: bool = False,
                  device=None, seed: int = 0):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                "UNet remat is not ported yet (ROADMAP.md queue A)")
         dev = resolve_device(device)
         ch = tuple(channels)
         self.channels = ch
         self.down_capacities = tuple(down_capacities)
         self.up_capacity_factor = up_capacity_factor
         self.level0_skip = level0_skip
+        self.remat = remat
         temb = ch[0] * 4
         common = dict(layers=3, use_time_emb=True, temb_channels=temb,
                       time_embedding_norm=time_embedding_norm, group=group,
@@ -131,13 +131,16 @@ class UNet(nn.Module):
         x = self.conv_in(x)
         h0 = x
 
+        call = (remat_call if self.remat and torch.is_grad_enabled() else
+                lambda blk, *a, **kw: blk(*a, **kw))
+
         def run(name, h, cap=None, out_grid=None):
             blocks = dict(self._groups)[name]
             for i, blk in enumerate(blocks):
                 pin = out_grid if i == len(blocks) - 1 else None
-                h = blk(h, temb, out_grid=pin,
-                        out_capacity=cap if i == 0 else None,
-                        encoder_hidden_state=ehs)
+                h = call(blk, h, temb, out_grid=pin,
+                         out_capacity=cap if i == 0 else None,
+                         encoder_hidden_state=ehs)
             return h
 
         out_s1 = run("block1", x, down_caps[0])

@@ -138,11 +138,12 @@ class VAE(nn.Module):
         self.eval()
 
     def to_canvas(self, z: SparseTensor,
-                  generator: Optional[torch.Generator] = None
-                  ) -> SparseTensor:
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> SparseTensor:
         """Scatter a sparse latent onto the full dense canvas at its
         stride; the empty cells get N(0, ``canvas_noise_std``²) from
-        ``generator`` where one is given, else zeros.  The decoder's
+        ``noise`` (N(0,1) draws, one row per canvas cell) or ``generator``
+        where either is given, else zeros.  The decoder's
         level-0 buffer must hold every canvas cell (a smaller one would
         truncate the level-0 membership target)."""
         if z.grid.extent is None:
@@ -156,9 +157,10 @@ class VAE(nn.Module):
                 f"cells ({cells}); got {self.decoder_capacities[0]}")
         canvas = canvas_grid(z.batch_size, z.grid.extent, z.grid.stride,
                              z.grid.ndim, device=z.features.device)
-        std = self.canvas_noise_std if generator is not None else 0.0
-        return expand_to_canvas(z, canvas, empty_noise_std=std,
-                                generator=generator)
+        noisy = generator is not None or noise is not None
+        return expand_to_canvas(z, canvas,
+                                self.canvas_noise_std if noisy else 0.0,
+                                generator=generator, noise=noise)
 
     def encode(self, sinput: SparseTensor):
         return self.encoder(sinput)
@@ -168,13 +170,16 @@ class VAE(nn.Module):
 
     def forward(self, sinput: SparseTensor, target_grid: SparseGrid,
                 eps: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                canvas_noise: Optional[torch.Tensor] = None):
         """encode → reparameterize → (canvas) → decode.  ``eps`` is the
         N(0,1) noise of the reparameterisation, shaped like the latent's
         features; when it is not given it is drawn from ``generator``.
         With ``latent_canvas``, ``z`` is scattered onto the canvas, whose
-        empty cells get noise from ``generator`` in ``.train()``.  Returns
-        (out_clss, targets, sout, mean, log_var, z)."""
+        empty cells get noise in ``.train()``: ``canvas_noise`` (N(0,1),
+        one row per canvas cell) where given, else a draw from
+        ``generator``.  Returns (out_clss, targets, sout, mean, log_var,
+        z)."""
         mean, log_var = self.encode(sinput)
         if eps is None:
             eps = torch.randn(log_var.features.shape, generator=generator,
@@ -182,10 +187,11 @@ class VAE(nn.Module):
         z = mean.with_features(mean.features +
                                torch.exp(0.5 * log_var.features) * eps)
         if self.latent_canvas:
-            if self.training and generator is None:
+            if self.training and generator is None and canvas_noise is None:
                 raise ValueError("latent_canvas in .train() draws the canvas "
                                  "noise from a generator")
-            z = self.to_canvas(z, generator if self.training else None)
+            z = (self.to_canvas(z, generator, canvas_noise) if self.training
+                 else self.to_canvas(z))
         out_clss, targets, sout = self.decode(z, target_grid)
         return out_clss, targets, sout, mean, log_var, z
 

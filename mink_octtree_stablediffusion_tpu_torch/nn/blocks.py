@@ -1,6 +1,7 @@
 """Residual blocks over sparse tensors.
 
-Port of `_Norm`, `BasicBlock`, `_HeadConvNormAct` and `ResNetStack` from
+Port of `_Norm`, `BasicBlock`, `_HeadConvNormAct`, `ResNetStack` and
+`remat_stack` (as ``remat_call``) from
 `mink_octtree_stablediffusion_tpu/nn/blocks.py` (its `_per_instance_cells`
 lives in `nn/attention.py` here), conv heads only (the avg-pool,
 pool-transpose and interpolate heads are not ported yet).  Submodule
@@ -16,13 +17,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.coords import SparseGrid
 from ..tensor import SparseTensor
 from .act import get_act
 from .attention import (SparseTransformer, _per_instance_cells,
                         morton_window_attention)
-from .conv import GenerativeConvTranspose, SparseConv, SparseConvTranspose
+from .conv import (GenerativeConvTranspose, SparseConv, SparseConvTranspose,
+                   recomputing)
 from .linear import Dense
 from .norm import BatchNorm, StableInstanceNorm
 from .pool import broadcast_op
@@ -231,3 +234,23 @@ class ResNetStack(nn.Module):
         if has_tail:
             x = self.tail(x, out_grid=out_grid)
         return x
+
+
+def remat_call(stack: nn.Module, x: SparseTensor, *args, **kw):
+    """``stack(x, *args, **kw)`` with its activations rematerialized in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant; JAX's
+    `remat_stack`): only the inputs are kept, and the forward runs again
+    when the backward reaches it.  The returned object is the first
+    forward's, so a pinned output grid keeps its identity.  The recompute
+    restores the global RNG state but not a ``torch.Generator`` passed
+    in, so nothing inside ``stack`` may draw from one.  Its conv calls are
+    marked as a recompute (``nn.conv.recomputing``)."""
+    calls = 0
+
+    def run(x, *args):
+        nonlocal calls
+        calls += 1
+        with recomputing(calls > 1):
+            return stack(x, *args, **kw)
+
+    return checkpoint(run, x, *args, use_reentrant=False)

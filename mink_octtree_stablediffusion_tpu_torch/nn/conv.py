@@ -9,12 +9,13 @@ gather-GEMM over a kernel map.  Kernel
 layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
 
 ``record_routes()`` collects, for every conv call, the branch it took, its
-shape ``(N_out, Cin, Cout, K)`` and whether its input and its kernel get a
-gradient,
-independently of the kernels' own launch counters — so a run can check
-that every fused-route (brick-route) conv launched the forward kernel and,
-in training, the dW kernel and (where its input carries a gradient) the
-dF kernel.
+shape ``(N_out, Cin, Cout, K)``, whether its input and its kernel get a
+gradient and whether it is a rematerialized stack's recompute in the
+backward pass (``recomputing``), independently of the kernels' own launch
+counters — so a run can check that every fused-route (brick-route) conv
+launched the forward kernel and, in training, the dW kernel and (where its
+input carries a gradient) the dF kernel, once per conv and not per
+recompute.
 """
 
 from __future__ import annotations
@@ -51,9 +52,24 @@ class Route(NamedTuple):
     # the kernel gets a gradient (the conv's backward needs dW); false for
     # a frozen model and under ``torch.no_grad``
     grad_w: bool = False
+    # the call recomputes a rematerialized stack's forward in the backward
+    # pass: it launches the forward kernel again, and no backward kernel
+    recompute: bool = False
 
 
 _ROUTES: Optional[list] = None
+_RECOMPUTE = False
+
+
+@contextlib.contextmanager
+def recomputing(on: bool = True):
+    """Mark the conv calls inside the block as a recompute (``Route``)."""
+    global _RECOMPUTE
+    prev, _RECOMPUTE = _RECOMPUTE, on
+    try:
+        yield
+    finally:
+        _RECOMPUTE = prev
 
 
 @contextlib.contextmanager
@@ -133,7 +149,8 @@ class _ConvBase(nn.Module):
         if _ROUTES is not None:
             _ROUTES.append(Route(self._layer_name(), branch, out_grid.capacity,
                                  cin, self.out_channels, spec.volume,
-                                 x.features.requires_grad, self._grad_w()))
+                                 x.features.requires_grad, self._grad_w(),
+                                 _RECOMPUTE))
         return SparseTensor(grid=out_grid, features=out).mask_features()
 
 
@@ -162,7 +179,7 @@ class SparseConv(_ConvBase):
                                      x.capacity, x.num_channels,
                                      self.out_channels, 1,
                                      x.features.requires_grad,
-                                     self._grad_w()))
+                                     self._grad_w(), _RECOMPUTE))
             return x.with_features(linear_apply(x.features, self.kernel,
                                                 self.bias))
         if out_grid is None:

@@ -3,6 +3,9 @@
 A flax ``nn.Dense`` keeps its kernel as ``[in, out]``; the port uses
 ``torch.nn.Linear`` (``weight [out, in]``).  Initialisation is LeCun normal
 (std ``1/sqrt(in)``) with a zero bias, drawn from an explicit generator.
+Parameters stored in another dtype than the input's (bf16 storage,
+``train.optim.cast_params``) are widened to the input's dtype, as flax's
+``Dense`` promotes them.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -21,3 +25,8 @@ class Dense(nn.Linear):
                                 generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if b is None else b.to(x.dtype))

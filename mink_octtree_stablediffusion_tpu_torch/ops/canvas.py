@@ -47,11 +47,13 @@ def canvas_grid(batch_size: int, resolution, stride, ndim: int = 3,
 
 def expand_to_canvas(latent, canvas: SparseGrid,
                      empty_noise_std: float = 0.0,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None):
     """Scatter a sparse latent's features onto the dense ``canvas``: cells
     present in the latent keep their features, absent cells get zeros or,
-    with ``empty_noise_std > 0``, N(0, std²) noise drawn from
-    ``generator`` (which must then be given)."""
+    with ``empty_noise_std > 0``, N(0, std²) noise: ``std·noise`` where
+    ``noise`` (N(0,1) draws, the canvas features' shape) is given, else a
+    draw from ``generator`` (which must then be given)."""
     from ..tensor import SparseTensor
 
     idx = grid_lookup(latent.grid, canvas.coords, canvas.valid)
@@ -59,10 +61,10 @@ def expand_to_canvas(latent, canvas: SparseGrid,
     feats = torch.where(present, latent.features[idx.clamp(min=0).long()],
                         0.0)
     if empty_noise_std > 0.0:
-        if generator is None:
-            raise ValueError("empty_noise_std needs a generator")
-        noise = empty_noise_std * torch.randn(
-            feats.shape, generator=generator, dtype=feats.dtype,
-            device=feats.device)
-        feats = torch.where(present, feats, noise)
+        if noise is None:
+            if generator is None:
+                raise ValueError("empty_noise_std needs a generator")
+            noise = torch.randn(feats.shape, generator=generator,
+                                dtype=feats.dtype, device=feats.device)
+        feats = torch.where(present, feats, empty_noise_std * noise)
     return SparseTensor(grid=canvas, features=feats)

@@ -278,9 +278,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEOM = [ctypes.POINTER(ctypes.c_int)] * 3
 _ENTRIES = {
     "fused_sparse_conv_forward": (SOURCE, [_P] * 8 + [_I] * 5 + _GEOM
-                                  + [_I] * 4 + [_P],
+                                  + [_I] * 5 + [_P],
                                   "fused_sparse_conv_error_string"),
-    "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 7 + [_P],
+    "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 8 + [_P],
                                "fused_sparse_conv_error_string"),
     "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 14 + [_I] * 5 + _GEOM
                                   + [_I] * 4 + [_P],
@@ -399,7 +399,7 @@ def _launch_cast(features: torch.Tensor, kernel: torch.Tensor,
     with guard:
         rc = fn(features.data_ptr(), kernel.data_ptr(), fb.data_ptr(),
                 wp.data_ptr(), features.shape[0], cin, cout, k, bn, bk,
-                int(transpose), stream)
+                int(transpose), int(kernel.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_cast launch failed: " +
                            err(rc).decode())
@@ -416,7 +416,8 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
     stream: its operand cast (``pad_features``, ``pack_weight``), then the
     conv (B1; B2 with ``transpose_weight``, where ``kernel`` is the
     forward's [K, Cout, Cin] weight, cast transposed; B8/B9 with ``stage``
-    other than ``full``).  Counts nothing: the wrappers do."""
+    other than ``full``).  The weight is float32, or bf16 where the
+    parameters are stored in bf16.  Counts nothing: the wrappers do."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
     if transpose_weight and stage != "full":
@@ -429,7 +430,10 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
     n_out = out_coords.shape[0]
     _check_operands(dev, compute_dtype, offs, k,
                     ("features", features, torch.float32),
-                    ("kernel", kernel, torch.float32),
+                    # the cast pass reads a float32 weight, or a bf16 one
+                    # where the parameters are stored in bf16
+                    ("kernel", kernel, torch.bfloat16
+                     if kernel.dtype == torch.bfloat16 else torch.float32),
                     ("in_keys", in_keys, torch.int32),
                     ("out_coords", out_coords, torch.int32),
                     ("out_valid", out_valid, torch.bool))
@@ -449,7 +453,8 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
                 wp.data_ptr(), in_keys.data_ptr(), out_coords.data_ptr(),
                 out_valid.data_ptr(), out.data_ptr(), features.shape[0],
                 n_out, cin, cout, k, *_geometry_args(offs, s_in, cells), bn,
-                bk, int(transpose_weight), STAGES.index(stage), stream)
+                bk, int(transpose_weight), int(kernel.dtype == torch.bfloat16),
+                STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_forward launch failed: "
                            + err(rc).decode())

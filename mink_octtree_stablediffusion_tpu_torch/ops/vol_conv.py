@@ -200,10 +200,10 @@ def _vol_conv_dw_splits_plain(volp: torch.Tensor, gvolp: torch.Tensor,
 # kernel entry → (source, its argtypes, error-string function)
 _ENTRIES = {
     "brick_conv_forward": (SOURCE,
-                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 +
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
                            [ctypes.c_void_p], "brick_conv_error_string"),
     "brick_conv_pack": (SOURCE,
-                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 +
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 +
                         [ctypes.c_void_p], "brick_conv_error_string"),
     "brick_conv_dkernel": (DW_SOURCE,
                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 +
@@ -268,11 +268,14 @@ def _packed_shape(cin: int, cout: int, nt: int) -> tuple:
 
 
 def _check_kernel(kernel: torch.Tensor, dev) -> None:
-    if (kernel.device != dev or kernel.dtype != torch.float32 or
+    """A float32 weight, or a bf16 one where the parameters are stored in
+    bf16 (``train.optim.cast_params``): the pack pass reads either."""
+    if (kernel.device != dev or
+            kernel.dtype not in (torch.float32, torch.bfloat16) or
             kernel.dim() != 3 or kernel.shape[0] != 27 or
             not kernel.is_contiguous()):
-        raise ValueError(f"kernel: need a contiguous float32 [27, Cin, Cout]"
-                         f" tensor on {dev}, got {kernel.dtype} "
+        raise ValueError(f"kernel: need a contiguous float32 or bf16 [27, "
+                         f"Cin, Cout] tensor on {dev}, got {kernel.dtype} "
                          f"{tuple(kernel.shape)} on {kernel.device}")
 
 
@@ -290,7 +293,7 @@ def _launch_pack(kernel: torch.Tensor, mirror: bool = False) -> torch.Tensor:
     stream, guard = stream_guard(kernel.device)
     with guard:
         rc = fn(kernel.data_ptr(), wp.data_ptr(), cin, cout, nt, int(mirror),
-                stream)
+                int(kernel.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("brick_conv_pack launch failed: " +
                            err(rc).decode())
@@ -326,7 +329,7 @@ def _launch(volp: torch.Tensor, kernel: torch.Tensor,
     with guard:
         rc = fn(volp.data_ptr(), kernel.data_ptr(), wp.data_ptr(),
                 out.data_ptr(), b, xp - 2, yp - 2, zp - 2, cs, cin, cout, nt,
-                int(mirror), stream)
+                int(mirror), int(kernel.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("brick_conv launch failed: " + err(rc).decode())
     return out

@@ -53,15 +53,15 @@ def generation_models(*, input_capacity: int, batch_size: int,
                       cond_into_time: bool = False,
                       with_window_attn: bool = False,
                       latent_canvas: bool = False, resolution: int = 128,
-                      device=None, seed: int = 0):
+                      remat: bool = False, device=None, seed: int = 0):
     """(vae, unet) of `examples/generate.py`'s configuration (and of
     `examples/train_diffusion.py`'s), with weights from the port's
     initialisers and a seeded generator on ``device``.  ``max_keep`` is
     the decoder's per-level top-k clamp (`VAE.max_keep`).
 
     The UNet flags ``attn_window``, ``with_cross_attn``,
-    ``cross_attention_dim`` and ``cond_into_time`` and the VAE flags
-    ``with_window_attn`` and ``latent_canvas`` pass through.  With
+    ``cross_attention_dim``, ``cond_into_time`` and ``remat`` and the VAE
+    flags ``with_window_attn`` and ``latent_canvas`` pass through.  With
     ``latent_canvas`` the sizes follow the dense stride-8 canvas of
     ``resolution``, as `scripts/e2e_generalize.py` and
     `scripts/cond_control.py` size them: the decoder's level 0 holds at
@@ -92,7 +92,7 @@ def generation_models(*, input_capacity: int, batch_size: int,
                 with_cross_attn=with_cross_attn,
                 cross_attention_dim=cross_attention_dim,
                 cond_into_time=cond_into_time, down_capacities=down_caps,
-                device=device, seed=seed + 1)
+                remat=remat, device=device, seed=seed + 1)
     return vae, unet
 
 

@@ -1,8 +1,11 @@
 """Training: the optimizers, the train state and step, checkpoints.  The
-entry points are the modules ``train.vae`` and ``train.diffusion``
+entry points are the modules ``train.vae``, ``train.diffusion``,
+``train.generalize``, ``train.cond`` and ``train.diffusion_cross``
 (imported on demand, so that ``python -m
 mink_octtree_stablediffusion_tpu_torch.train.vae`` runs them)."""
 
-from .optim import (DiffusionOptimizer, diffusion_optimizer, vae_optimizer,
-                    warmup_cosine)
+from .optim import (AdafactorOptimizer, DiffusionOptimizer,
+                    MixedPrecisionParams, adafactor_diffusion_optimizer,
+                    canvas_vae_optimizer, cast_params, diffusion_optimizer,
+                    factored_dims, vae_optimizer, warmup_cosine)
 from .trainer import CheckpointManager, TrainState, make_train_step

@@ -25,11 +25,15 @@ from the latest checkpoint in ``--ckpt_dir`` (the example always does),
 logs every 10 steps and checkpoints every ``--save_every`` steps and at
 the step cap; without a cap (``--steps 0``) it runs on, as the example.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP.md queue A):
-noise-point augmentation (``--noise_point_mode`` other than ``none``,
-``--noise_near``), the sampling validation (``--val_every``), the UNet's
-``--remat`` and the ModelNet40 dataset (``--data`` without
-``--synthetic``).
+``--noise_point_mode uniform|all`` and ``--noise_near`` union noise
+points into the latent before it is noised
+(`diffusion.inject_noise_points`, ``--noise_point_max`` a instance, the
+draws from the run's generator); ``--remat`` rematerializes the UNet's
+stacks in the backward pass.
+
+Not ported yet (raise ``NotImplementedError``; ROADMAP.md queue A): the
+sampling validation (``--val_every``; its PNGs need matplotlib) and the
+ModelNet40 dataset (``--data`` without ``--synthetic``).
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ import numpy as np
 import torch
 
 from ..data import SyntheticShapes, batch_iterator, collate_pointclouds
-from ..diffusion import CoordNLLParams, DDPMScheduler, diffusion_training_loss
+from ..diffusion import (CoordNLLParams, DDPMScheduler,
+                         diffusion_training_loss, inject_noise_points)
 from ..serve import generation_models
 from ..tensor import sparse_tensor
 from ..utils.device import make_generator, resolve_device
@@ -101,13 +106,8 @@ def parse_args(argv=None):
 
 
 def check_ported(cfg) -> None:
-    if cfg.noise_point_mode != "none" or cfg.noise_near:
-        raise NotImplementedError(
-            f"noise-point augmentation (diffusion/noise_points.py) {NOT_PORTED}")
     if cfg.val_every > 0:
         raise NotImplementedError(f"the sampling validation {NOT_PORTED}")
-    if cfg.remat:
-        raise NotImplementedError(f"the UNet's remat {NOT_PORTED}")
     if cfg.data is not None and not cfg.synthetic:
         raise NotImplementedError(f"ModelNet40Dataset {NOT_PORTED}")
 
@@ -127,14 +127,21 @@ def load_vae_checkpoint(vae, directory: str, device) -> int:
 
 def build_loss_fn(vae, scheduler, *, input_capacity: int, batch_size: int,
                   resolution: int, vae_scale: float, prediction_type: str,
-                  no_vae: bool, device):
-    """``loss_fn(model, batch, generator=None, timesteps=None, noise=None)
-    -> (loss, aux)`` of `examples/train_diffusion.py`: ``batch`` is a
-    collated ``(cpad, valid)`` (numpy or tensors), ``model`` the
-    ``ModuleDict`` of the UNet and the NLL; the frozen ``vae`` encodes."""
+                  no_vae: bool, device, noise_point_mode: str = "none",
+                  noise_point_max: int = 64, noise_near: bool = False,
+                  with_nll: bool = True):
+    """``loss_fn(model, batch, generator=None, timesteps=None, noise=None,
+    encoder_hidden_state=None) -> (loss, aux)`` of
+    `examples/train_diffusion.py` (without the NLL, ``with_nll=False``, of
+    `examples/diffusion_cross.py`): ``batch`` is a collated ``(cpad,
+    valid)`` (numpy or tensors), ``model`` the ``ModuleDict`` of the UNet
+    and the NLL; the frozen ``vae`` encodes, and noise points are unioned
+    into the latent where asked (their draws from ``generator``)."""
     dev = torch.device(device)
+    latent_res = max(resolution // 8, 1)
 
-    def loss_fn(model, batch, generator=None, timesteps=None, noise=None):
+    def loss_fn(model, batch, generator=None, timesteps=None, noise=None,
+                encoder_hidden_state=None):
         cpad, valid = (torch.as_tensor(np.asarray(a), device=dev)
                        for a in batch)
         feats = torch.ones((input_capacity, 1), device=dev) * valid[:, None]
@@ -148,9 +155,16 @@ def build_loss_fn(vae, scheduler, *, input_capacity: int, batch_size: int,
             with torch.no_grad():
                 mean, _ = vae.encode(st)
             latent = mean.with_features(mean.features * vae_scale)
+        if noise_point_mode != "none" or noise_near:
+            latent = inject_noise_points(
+                latent, noise_point_mode, latent_res, noise_point_max,
+                capacity=latent.capacity, noise_near=noise_near,
+                generator=generator)
         return diffusion_training_loss(
-            model["unet"], scheduler, latent, nll_params=model["nll"],
+            model["unet"], scheduler, latent,
+            nll_params=model["nll"] if with_nll else None,
             resolution=resolution, prediction_type=prediction_type,
+            encoder_hidden_state=encoder_hidden_state,
             timesteps=timesteps, noise=noise, generator=generator)
 
     return loss_fn
@@ -166,8 +180,8 @@ def setup(cfg, device=None) -> SimpleNamespace:
         input_capacity=cfg.input_capacity, batch_size=cfg.batch_size,
         vae_channel=cfg.vae_channel, unet_channel=cfg.unet_channel,
         group=cfg.group, attn_max_len=cfg.attn_max_len,
-        time_embedding_norm=cfg.time_embedding_norm, device=dev,
-        seed=cfg.seed)
+        time_embedding_norm=cfg.time_embedding_norm, remat=cfg.remat,
+        device=dev, seed=cfg.seed)
     if cfg.vae_ckpt:
         load_vae_checkpoint(vae, cfg.vae_ckpt, dev)
     vae.requires_grad_(False)
@@ -182,7 +196,9 @@ def setup(cfg, device=None) -> SimpleNamespace:
         vae, sched, input_capacity=cfg.input_capacity,
         batch_size=cfg.batch_size, resolution=cfg.resolution,
         vae_scale=cfg.vae_scale, prediction_type=cfg.prediction_type,
-        no_vae=cfg.no_vae, device=dev)
+        no_vae=cfg.no_vae, device=dev,
+        noise_point_mode=cfg.noise_point_mode,
+        noise_point_max=cfg.noise_point_max, noise_near=cfg.noise_near)
     return SimpleNamespace(device=dev, vae=vae, unet=unet, model=model,
                            scheduler=sched, state=state, loss_fn=loss_fn,
                            step_fn=make_train_step(loss_fn))

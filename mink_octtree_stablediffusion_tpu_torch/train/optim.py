@@ -1,15 +1,20 @@
-"""Optimizers and learning-rate schedules.
+"""Optimizers, learning-rate schedules and bf16 parameter storage.
 
-Port of `vae_optimizer`, `warmup_cosine` and `diffusion_optimizer` from
-`mink_octtree_stablediffusion_tpu/train/optim.py`: Adam for the VAE
+Port of `vae_optimizer`, `warmup_cosine`, `diffusion_optimizer`,
+`adafactor_diffusion_optimizer`, `cast_params` and `mixed_precision_params`
+from `mink_octtree_stablediffusion_tpu/train/optim.py`: Adam for the VAE
 (`examples/ae_res.py:908-913` of the reference); for diffusion, global-norm
 clipping at 0.5, then AdamW with a linear-warmup → cosine schedule
-(`examples/diffusion.py:661-694,834`).  Adafactor is not ported yet.
+(`examples/diffusion.py:661-694,834`), or optax's Adafactor on the same
+schedule; the canvas VAE of `scripts/e2e_generalize.py` takes clipping at
+1.0 and Adam on a 20-step warmup (``canvas_vae_optimizer``).  With
+``MixedPrecisionParams`` the module holds bf16 parameters and the
+optimizer a float32 master copy.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,3 +106,168 @@ def diffusion_optimizer(params: Iterable[torch.nn.Parameter],
     return DiffusionOptimizer(
         params, warmup_cosine(base_lr, warmup_steps, total_steps),
         weight_decay=weight_decay, clip_norm=clip_norm)
+
+
+def canvas_vae_optimizer(params: Iterable[torch.nn.Parameter],
+                         base_lr: float = 1e-3,
+                         total_steps: int = 6000) -> DiffusionOptimizer:
+    """`scripts/e2e_generalize.py`'s VAE optimizer: ``optax.chain(
+    clip_by_global_norm(1.0), adam(warmup_cosine(base_lr, 20,
+    total_steps)))`` (Adam is AdamW without weight decay)."""
+    return DiffusionOptimizer(params, warmup_cosine(base_lr, 20, total_steps),
+                              weight_decay=0.0, clip_norm=1.0)
+
+
+# optax 0.2.6's adafactor defaults: factor a second moment only over two
+# dimensions of at least 128; decay 1 − (t + 1)^−0.8; eps added to g²
+MIN_DIM_TO_FACTOR, DECAY_RATE, ADAFACTOR_EPS = 128, 0.8, 1e-30
+
+
+def factored_dims(shape: Sequence[int]) -> Optional[tuple]:
+    """optax's rule: the two largest dimensions ``(d1, d0)`` (second
+    largest, largest; ties as ``np.argsort``), or None below 2 dimensions
+    or when the second largest is smaller than ``MIN_DIM_TO_FACTOR``
+    (the second moment is then kept whole)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class AdafactorOptimizer(torch.optim.Optimizer):
+    """``optax.chain(clip_by_global_norm(clip_norm), adafactor(schedule,
+    multiply_by_parameter_scale=False, clipping_threshold=None,
+    momentum=None))`` with optax 0.2.6's other defaults.  Each ``step``
+    clips the gradients and, with ``t`` the update count from 0 and
+    ``β_t = 1 − (t + 1)^−0.8``, keeps for a parameter factored over
+    ``factored_dims`` (d1, d0) the row and column means of ``g² + eps``
+    (over d0 and d1) as EMAs ``R``, ``C`` and steps ``p ← p −
+    schedule(t)·g·(R/mean(R))^−½·C^−½``; any other parameter keeps the
+    whole EMA ``V`` of ``g² + eps`` and steps ``p ← p −
+    schedule(t)·g·V^−½``.  No momentum, no update clipping, no parameter
+    scaling, no weight decay.  This is not ``torch.optim.Adafactor``,
+    which factors the last two dimensions of every tensor and clips its
+    update."""
+
+    def __init__(self, params, schedule: Callable[[int], float],
+                 clip_norm: float = 0.5):
+        super().__init__(params, dict(lr=schedule(0)))
+        self.schedule = schedule
+        self.clip_norm = clip_norm
+        for group in self.param_groups:
+            group["update_count"] = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        grads = [p.grad for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        if grads:
+            clip_by_global_norm_(grads, self.clip_norm)
+        f = np.float32
+        for group in self.param_groups:
+            t = group["update_count"]
+            group["lr"] = lr = self.schedule(t)
+            group["update_count"] += 1
+            beta = float(f(1.0) - f(t + 1) ** f(-DECAY_RATE))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                g2 = g * g + ADAFACTOR_EPS
+                st = self.state[p]
+                dims = factored_dims(tuple(p.shape))
+                if dims is None:
+                    if not st:
+                        st["v"] = torch.zeros_like(p)
+                    st["v"].mul_(beta).add_(g2, alpha=1.0 - beta)
+                    u = g * st["v"].rsqrt()
+                else:
+                    d1, d0 = dims
+                    if not st:
+                        st["v_row"] = g2.new_zeros(g2.mean(d0).shape)
+                        st["v_col"] = g2.new_zeros(g2.mean(d1).shape)
+                    vr = st["v_row"].mul_(beta).add_(g2.mean(d0),
+                                                      alpha=1.0 - beta)
+                    vc = st["v_col"].mul_(beta).add_(g2.mean(d1),
+                                                      alpha=1.0 - beta)
+                    rd1 = d1 - 1 if d1 > d0 else d1
+                    row = (vr / vr.mean(rd1, keepdim=True)).rsqrt()
+                    u = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
+                p.add_(u * lr, alpha=-1.0)
+        return None
+
+
+def adafactor_diffusion_optimizer(params: Iterable[torch.nn.Parameter],
+                                  base_lr: float = 1e-4,
+                                  warmup_steps: int = 1000,
+                                  total_steps: int = 100_000,
+                                  clip_norm: float = 0.5
+                                  ) -> AdafactorOptimizer:
+    """Adafactor + warmup-cosine + global-norm clipping at 0.5: the
+    memory-lean diffusion recipe (factored second moments in place of
+    Adam's two moments per parameter)."""
+    return AdafactorOptimizer(
+        params, warmup_cosine(base_lr, warmup_steps, total_steps),
+        clip_norm=clip_norm)
+
+
+def cast_params(module: torch.nn.Module,
+                dtype: torch.dtype = torch.bfloat16) -> torch.nn.Module:
+    """Cast the floating-point parameters of ``module`` to ``dtype`` in
+    place (buffers, such as BatchNorm's running statistics, stay as they
+    are).  For training, prefer ``TrainState.create_mixed_precision``,
+    which seeds the float32 master from the parameters before the cast."""
+    for p in module.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return module
+
+
+class MixedPrecisionParams:
+    """Half-precision parameter storage with a full-precision master copy
+    (`mixed_precision_params`): the module's parameters stay in bf16, so
+    no layer casts its weight on each call; the float32 master lives here
+    and ``inner`` (built by ``make_inner`` over the master) steps it with
+    the gradients upcast to float32, so updates below one bf16 ulp
+    accumulate; after each step the live parameters are exactly
+    ``round(master)``.  The master is taken from ``params`` as they are
+    when this is made: make it before ``cast_params``.  Duck-types the
+    ``torch.optim.Optimizer`` calls that ``make_train_step`` and
+    ``CheckpointManager`` make."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter],
+                 make_inner: Callable):
+        self.params = list(params)
+        self.master = [torch.nn.Parameter(p.detach().float().clone())
+                       for p in self.params]
+        self.inner = make_inner(self.master)
+
+    @property
+    def param_groups(self):
+        return self.inner.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        for p in self.params:
+            p.grad = None
+        self.inner.zero_grad(set_to_none=set_to_none)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for p, m in zip(self.params, self.master):
+            m.grad = None if p.grad is None else p.grad.to(m.dtype)
+        self.inner.step()
+        for p, m in zip(self.params, self.master):
+            p.copy_(m)
+
+    def state_dict(self) -> dict:
+        return {"master": [m.detach() for m in self.master],
+                "inner": self.inner.state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for p, m, saved in zip(self.params, self.master, state["master"]):
+            m.copy_(saved)
+            p.copy_(m)
+        self.inner.load_state_dict(state["inner"])

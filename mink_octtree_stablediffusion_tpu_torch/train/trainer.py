@@ -1,6 +1,7 @@
 """Training harness: train state, the single-device step, checkpoints.
 
-Port of `TrainState`, `make_train_step` and `CheckpointManager` from
+Port of `TrainState` (with `create_mixed_precision`), `make_train_step`
+and `CheckpointManager` from
 `mink_octtree_stablediffusion_tpu/train/trainer.py`, with ``torch.save``/
 ``torch.load`` in place of orbax.  PyTorch keeps the parameters, the
 BatchNorm running statistics and the optimizer state inside the module and
@@ -25,6 +26,22 @@ class TrainState:
     module: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+
+    @classmethod
+    def create_mixed_precision(cls, module: torch.nn.Module,
+                               make_optimizer: Callable,
+                               dtype: torch.dtype = torch.bfloat16
+                               ) -> "TrainState":
+        """bf16 parameter storage without losing the float32 start: the
+        optimizer (``make_optimizer(params)`` inside
+        ``MixedPrecisionParams``) takes its float32 master from the
+        parameters as they are, and only then are the module's parameters
+        rounded to ``dtype``."""
+        from .optim import MixedPrecisionParams, cast_params
+
+        opt = MixedPrecisionParams(module.parameters(), make_optimizer)
+        cast_params(module, dtype)
+        return cls(module, opt)
 
 
 def make_train_step(loss_fn: Callable):

@@ -70,21 +70,24 @@ def parse_args(argv=None):
 
 def build_loss_fn(*, input_capacity: int, batch_size: int, resolution: int,
                   kld_weight: float, device):
-    """``loss_fn(model, batch, generator=None, eps=None) -> (loss, aux)``
-    of `examples/train_vae.py`: ``batch`` is a collated ``(cpad, valid,
-    feats)`` (numpy or tensors); the VAE decodes against the input's own
-    grid; ``eps`` (else a draw from ``generator``) is the
-    reparameterisation noise."""
+    """``loss_fn(model, batch, generator=None, eps=None, canvas_noise=None)
+    -> (loss, aux)`` of `examples/train_vae.py` (and of phase 1 of
+    `scripts/e2e_generalize.py`, for a ``latent_canvas`` VAE): ``batch`` is
+    a collated ``(cpad, valid, feats)`` (numpy or tensors); the VAE decodes
+    against the input's own grid; ``eps`` and ``canvas_noise`` (else draws
+    from ``generator``) are the reparameterisation noise and the canvas
+    noise (`VAE.forward`)."""
     dev = torch.device(device)
 
-    def loss_fn(model, batch, generator=None, eps=None):
+    def loss_fn(model, batch, generator=None, eps=None, canvas_noise=None):
         cpad, valid, feats = (torch.as_tensor(np.asarray(a), device=dev)
                               for a in batch)
         st = sparse_tensor(cpad, feats, capacity=input_capacity,
                            batch_size=batch_size, valid=valid,
                            extent=(resolution,) * 3)
         out_clss, targets, _, mean, log_var, _ = model(
-            st, st.grid, eps=eps, generator=generator)
+            st, st.grid, eps=eps, generator=generator,
+            canvas_noise=canvas_noise)
         return vae_loss(out_clss, targets, mean, log_var, kld_weight)
 
     return loss_fn

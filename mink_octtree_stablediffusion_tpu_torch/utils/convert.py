@@ -15,7 +15,12 @@ returns a ``state_dict`` for the matching port module:
   ``window_attn``), and the port holds them under ``attn`` there too, so
   both flax layouts land on one set of projections;
 - the diffusion trainer's ``CoordNLLParams`` (a NamedTuple leaf of the
-  params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1.
+  params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1;
+- the learned class table of conditioned training (``params["cond_table"]``
+  beside ``params["unet"]``) → the ``cond_table`` parameter 1:1.
+
+A UNet with ``remat`` has the same tree as one without (the stacks keep
+their names), so it needs nothing more.
 
 Every other module name is the same in both trees.  Given the module, the
 cover is checked one to one: every flax leaf lands on a port parameter or
@@ -61,7 +66,7 @@ def _translate(collection: str, path: Tuple[str, ...], value):
             return ".".join(name + ["kernel"]), arr
         if leaf == "kernel" and arr.ndim == 2:
             return ".".join(name + ["weight"]), arr.T
-        if leaf in ("bias", "weight", "mu", "sigma"):
+        if leaf in ("bias", "weight", "mu", "sigma", "cond_table"):
             return ".".join(name + [leaf]), arr
         if leaf == "scale":
             return ".".join(name + ["weight"]), arr

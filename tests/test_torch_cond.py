@@ -331,9 +331,13 @@ def test_conditioned_canvas_generation_matches_jax(models):
 
 
 def test_generation_flags_are_ported():
-    """No generation flag raises any more; ``remat`` (training) does."""
-    with pytest.raises(NotImplementedError, match="remat"):
-        mp.models.UNet(channels=(4, 8, 8, 8), remat=True, device="cpu")
+    """No generation flag raises any more, and neither does ``remat``
+    (training), whose UNet holds the same parameters."""
+    plain = mp.models.UNet(channels=(4, 8, 8, 8), device="cpu")
+    remat = mp.models.UNet(channels=(4, 8, 8, 8), remat=True, device="cpu")
+    assert remat.remat and {n: p.shape for n, p in plain.named_parameters()
+                            } == {n: p.shape for n, p in
+                                  remat.named_parameters()}
     unet = mp.models.UNet(channels=(4, 8, 8, 8), with_cross_attn=True,
                           cross_attention_dim=16, cond_into_time=True,
                           attn_window=8, device="cpu")

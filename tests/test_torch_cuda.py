@@ -228,6 +228,40 @@ def test_b1_cast_pass_matches_plain(cin, cout):
         assert torch.equal(wp, fused_conv.pack_weight(k, transpose, bn, bk))
 
 
+@pytest.mark.cuda
+def test_cast_passes_read_bf16_weights():
+    """With bf16 parameter storage the kernels get bf16 weights: B1's cast
+    pass (plain and transposed, for dF) and B5's pack pass (forward and
+    mirrored) read them and give, bit for bit, the packs of the same
+    weight in float32; B1 and B5 on the bf16 weight equal B1 and B5 on
+    its float32 copy."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    f = torch.randn(1000, 40, device=dev, generator=gen)
+    for transpose in (False, True):
+        k = torch.randn(8, 40, 72, device=dev, generator=gen).bfloat16()
+        if transpose:
+            k = k.transpose(1, 2).contiguous()
+        got = fused_conv._launch_cast(f, k, transpose)
+        ref = fused_conv._launch_cast(f, k.float(), transpose)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    k = torch.randn(27, 24, 40, device=dev, generator=gen).bfloat16()
+    for mirror in (False, True):
+        assert torch.equal(vol_conv._launch_pack(k, mirror),
+                           vol_conv._launch_pack(k.float(), mirror))
+    g = _grid(dev)
+    x = torch.randn(g.capacity, 24, device=dev, generator=gen) * \
+        g.valid[:, None]
+    spec = mp.ops.KernelSpec(3, 1, ndim=3)
+    assert torch.equal(mp.ops.fused_sparse_conv(x, k, g, g, spec),
+                       mp.ops.fused_sparse_conv(x, k.float(), g, g, spec))
+    volp = vol_conv.pad_volume(torch.randn(1, 4, 4, 16, 24, device=dev,
+                                           generator=gen))
+    assert torch.equal(vol_conv.vol_conv_tiles(volp, k),
+                       vol_conv.vol_conv_tiles(volp, k.float()))
+
+
 def _b3_case(gi, go, spec, cin, cout, seed):
     """B3's operands on one conv: (features, cotangent, keys, output
     coordinates, valid mask, offsets, stride, cells), drawn from a

@@ -16,7 +16,9 @@
   within a relative RMS of 1e-4 at the median and 5e-3 at the worst
   tensor (``GRAD_RTOL_*``: float32 summation order only).
 - The ``train.diffusion`` entry point at a tiny size: 3 steps, a
-  checkpoint, and a resume that carries the schedule's position.
+  checkpoint, and a resume that carries the schedule's position; then
+  one step each with ``--remat``, ``--noise_point_mode uniform`` and
+  ``--noise_near``.
 """
 
 import jax
@@ -308,7 +310,10 @@ def test_train_diffusion_entry_point_runs_and_resumes(tmp_path, caplog):
     done = [r.getMessage() for r in caplog.records
             if r.getMessage().startswith("done")]
     assert len(done) == 2 and "nan" not in " ".join(done)
-    for flags in (["--remat"], ["--val_every", "5"],
-                  ["--noise_point_mode", "uniform"], ["--noise_near"]):
-        with pytest.raises(NotImplementedError):
-            tdiff.main(argv + flags)
+    with pytest.raises(NotImplementedError):
+        tdiff.main(argv + ["--val_every", "5"])
+    # the flags ported since: one more step each, resumed from the last
+    for i, flags in enumerate((["--remat"], ["--noise_point_mode", "uniform"],
+                               ["--noise_near"])):
+        assert tdiff.main(argv + flags + ["--steps", str(4 + i)]) == 0
+        assert ckpt.latest_step() == 4 + i
