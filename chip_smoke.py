@@ -28,6 +28,16 @@ read just after:
   second condition must move the latent.  It prints the requests' wall
   times, the device's busy share (one profiled request) and the peak
   memory.
+- **serving** — ``serve_phase``: the exported generation artifact
+  (`serve.py`'s ``export_program``, ``save_artifact``, ``load_artifact``)
+  of the generation configuration cut to ``SERVE_STEPS`` DDIM steps,
+  exported on the card and loaded from a temporary directory; 2 requests
+  through it must equal the direct calls bit for bit (under a control of
+  two direct calls) and launch B1 as often.  It prints the export, save
+  and load seconds, the program's and weights' bytes and the graph's
+  census.  Then the generation entry point (``generate.run``, the path of
+  ``python -m ...generate`` without its render) at its full-width
+  defaults, DDIM cut to ``STEPS`` steps.
 - **VAE training** — `examples/train_vae.py`'s default configuration (the
   same VAE with the `capacities()` schedule, Adam at lr 1e-3,
   ``kld_weight`` 1e-6, random weights from seed 0): 10 steps of
@@ -66,7 +76,10 @@ read just after:
   learned [4, 77, 768] class table, 10% condition dropout, the dropped
   class's table row without a gradient); one canvas diffusion step with
   and without ``remat`` (within the rounding control of each other) and
-  two ``--remat --diff_opt adafactor`` steps; two ``train.diffusion``
+  two ``--remat --diff_opt adafactor`` steps, then one round of phase 3
+  (template-free samples on the canvas, ``STEPS`` DDPM steps, and their
+  membership and novelty metrics, ``train.generalize.generation_metrics``);
+  two ``train.diffusion``
   steps with ``--remat --noise_point_mode uniform --noise_near`` and the
   brick gate on.  Every step's launches must match its routes, the
   recompute's forward launches included.
@@ -93,6 +106,7 @@ on the VAE step's two heaviest (``b3_pass_table``, which also holds two
 launches bit for bit equal), and B6's passes at every B6 launch shape of
 the VAE gate-on step and the diffusion step (``b6_pass_table``: the
 same, with the share of live tiles).
+B1 is also checked at every launch shape of the artifact's requests.
 B1, B2 and B3 are all checked at every launch
 shape of the VAE train path, so that its kernel account is complete
 (``vae_step_kernel_account``), and of the canvas VAE's steps, on float32
@@ -137,6 +151,7 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # what TF32 (10-bit mantissa) or bf16 rounding of the operands gives
 B7_F32_RTOL = 2e-5
 RES, BATCH, CAP, STEPS = 128, 4, 65536, 8
+SERVE_STEPS = 2  # the serve phase's DDIM steps (its graph grows with them)
 VAE_CH, UNET_CH, GROUP = (32, 128, 512, 512, 4), (4, 320, 640, 960), 32
 DEVICE = "cuda"
 # The decoder's per-level top-k clamp (`VAE.max_keep`).  Random occupancy
@@ -844,6 +859,165 @@ def canvas_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
             "routes": per_request_routes[0],
             "all_routes": enc_routes + per_request_routes[0],
             "launches": launches, "record": rec, "requests": requests}
+
+
+def serve_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
+    """The serving artifact (`serve.py`: ``export_program``,
+    ``save_artifact``, ``load_artifact``) of path 1's configuration at full
+    width, cut to ``SERVE_STEPS`` DDIM steps (the exported graph grows with
+    the steps): random weights from seed 0, the decoder clamped at
+    ``max_keep``.  With the kernels' counts at 0:
+
+    - the control: two direct calls of ``build_generate_fn``'s function
+      with seed 0 must agree bit for bit (else both differences are
+      printed and the phase fails), and each must launch B1 once per
+      fused-route conv; one more direct call with seed 1;
+    - the program is exported on the card, written to a temporary
+      directory with the two state dicts, and loaded (``load_artifact``);
+    - 2 requests through the artifact (seeds 0 and 1) must give the direct
+      calls' (coords, valid) bit for bit, and launch B1 as often as a
+      direct call.  ``cap`` keeps B1's operands at every launch shape of
+      the artifact's run (path ``serve``).
+
+    Prints the export, save and load seconds, the program's and the
+    weights' bytes, the graph's nodes and their census by operator, and
+    the request walls (artifact and direct)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    failures = []
+
+    def need(cond, what):
+        if not cond:
+            failures.append(what)
+    vae, unet = mp.serve.generation_models(
+        input_capacity=CAP, batch_size=BATCH, vae_channel=VAE_CH,
+        unet_channel=UNET_CH, group=GROUP, max_keep=max_keep, device=dev,
+        seed=0)
+    fn = mp.serve.build_generate_fn(
+        vae, unet, mp.diffusion.DDIMScheduler.create(), input_capacity=CAP,
+        batch_size=BATCH, resolution=RES, vae_scale=VAE_SCALE,
+        sample_steps=SERVE_STEPS, device=dev)
+    count = counters(mp)
+    b1 = count["B1"]
+    for c in count.values():
+        c.launches = 0  # counts from here on are the serve path's
+
+    def request(run):
+        before = b1.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mp.nn.record_routes() as routes:
+            out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, b1.launches - before, routes
+
+    def direct(seed):
+        return fn(cpad, valid, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+    refs, direct_walls = {}, []
+    for seed in (0, 0, 1):
+        out, wall, launched, routes = request(lambda: direct(seed))
+        fused = sum(r.branch == "fused" for r in routes)
+        need(launched == fused > 0, f"direct call (seed {seed}): B1 "
+             "launches")
+        direct_walls.append(wall)
+        if seed in refs:  # the control: the same seed twice
+            same = [torch.equal(a, b) for a, b in zip(out, refs[seed])]
+            if not all(same):
+                emit({"serve_control_differs": {
+                    "coords_rows": int((out[0] != refs[seed][0]).any(
+                        1).sum()),
+                    "valid_rows": int((out[1] != refs[seed][1]).sum())}})
+            need(all(same), "two direct calls with one seed agree")
+        refs[seed] = out
+        direct_launches = launched
+    vs, us = vae.state_dict(), unet.state_dict()
+    t0 = time.perf_counter()
+    ep = mp.serve.export_program(fn, vs, us, cpad, valid)
+    export_s = time.perf_counter() - t0
+    census = Counter(str(n.target) for n in ep.graph.nodes
+                     if n.op == "call_function")
+    nodes = len(ep.graph.nodes)
+    d = tempfile.mkdtemp(prefix="serve_artifact_")
+    try:
+        t0 = time.perf_counter()
+        data = mp.serve.serialize(ep)
+        mp.serve.save_artifact(d, fn, vs, us, (cpad, valid), program=data)
+        save_s = time.perf_counter() - t0
+        del ep
+        t0 = time.perf_counter()
+        generate = mp.serve.load_artifact(d)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    artifact_walls, artifact_launches = [], []
+    for seed in (0, 1):
+        cap.at("serve", ("B1",))
+        (coords, mask), wall, launched, _ = request(
+            lambda: generate(cpad, valid, seed=seed))
+        cap.at(None)
+        ref = [t.cpu().numpy() for t in refs[seed]]
+        equal = (np.array_equal(coords, ref[0]) and
+                 np.array_equal(mask, ref[1]))
+        per_inst = np.bincount(coords[mask][:, 0], minlength=BATCH).tolist()
+        emit({"serve_request": seed, "wall_s": wall,
+              "kernel_launches": launched, "voxels_per_instance": per_inst,
+              "equals_direct_call": equal})
+        need(equal, f"artifact request {seed}: (coords, valid) equal the "
+             "direct call's")
+        need(launched == direct_launches, f"artifact request {seed}: B1 "
+             "launches per request equal the direct call's")
+        need(min(per_inst) > 0, f"artifact request {seed}: an empty "
+             "instance")
+        artifact_walls.append(wall)
+        artifact_launches.append(launched)
+    launches = {n: c.launches for n, c in count.items()}
+    need(not any(launches[n] for n in KERNELS if n != "B1"),
+         "serve path launches only B1")
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in list(vs.values()) + list(us.values()))
+    rec = {"serve_path_launches": launches, "card": power,
+           "sample_steps": SERVE_STEPS, "export_s": export_s,
+           "save_s": save_s, "load_s": load_s, "program_bytes": len(data),
+           "weight_bytes": weight_bytes, "graph_nodes": nodes,
+           "graph_census": dict(census.most_common()),
+           "b1_launches_per_request": {"direct": direct_launches,
+                                       "artifact": artifact_launches},
+           "wall_s_direct": direct_walls, "wall_s_artifact": artifact_walls,
+           "failures": failures}
+    emit(rec)
+    return {"ok": not failures, "failures": failures, "launches": launches,
+            "record": rec}
+
+
+def generate_cli_phase(mp, dev) -> dict:
+    """The generation entry point (``python -m ...generate``) without its
+    render: ``generate.run`` at its full-width defaults (random weights
+    from seed 0, no decoder clamp), with DDIM cut to ``STEPS`` steps: an
+    encode and two sampling runs.  Every value finite, > 0 voxels, and B1
+    launched once per fused-route conv."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import generate as gen_cli
+    cfg = gen_cli.parse_args(["--scheduler", "ddim", "--sample_steps",
+                              str(STEPS)])
+    b1 = counters(mp)["B1"]
+    before = b1.launches
+    with mp.nn.record_routes() as routes:
+        out = gen_cli.run(cfg)
+    torch.cuda.synchronize()
+    sout = out["sout"]
+    rec = {"generate_cli": True, "first_s": out["first_s"],
+           "steady_s": out["steady_s"], "voxels": int(sout.valid.sum()),
+           "finite": bool(torch.isfinite(sout.features).all()),
+           "kernel_launches": b1.launches - before,
+           "fused_route_convs": sum(r.branch == "fused" for r in routes)}
+    rec["ok"] = (rec["finite"] and rec["voxels"] > 0 and
+                 rec["kernel_launches"] == rec["fused_route_convs"] > 0)
+    emit(rec)
+    return rec
 
 
 def tiny_canvas_reference(mp, dev) -> dict:
@@ -1742,7 +1916,31 @@ def canvas_train_phase(mp, dev, cap, power) -> dict:
           "params": len(before), "weights_finite": finite,
           "lr_per_update": [dstate.optimizer.schedule(i) for i in range(2)]})
     need(moved > 0 and finite, "remat + Adafactor: finite weights that move")
-    del dstate, dstep, dmodel, unet, before, vae
+    # phase 3 of e2e_generalize on (a)'s VAE and this UNet: one round of
+    # template-free samples (DDPM, STEPS steps) and its metrics against
+    # the batch's shapes (train) and 4 val shapes
+    t0 = time.perf_counter()
+    sout = tg.generate_canvas(
+        vae, unet, sample, tg.build_input(batch, device=dev, **sizes).grid,
+        batch_size=BATCH, resolution=RES, latent_channels=VAE_CH[-1],
+        vae_scale=VAE_SCALE, sample_steps=STEPS, seed=100)
+    sets = tg.voxel_sets(sout)
+    gen_sets = [sets.get(j, set()) for j in range(BATCH)]
+    val_ds = mp.data.ProceduralShapes(
+        resolution=RES, num_samples=BATCH, points_per_shape=CANVAS_POINTS,
+        seed=0, composite_prob=0.25, split="val")
+    m = tg.generation_metrics(gen_sets, [ds[i]["coords"] for i in range(
+        BATCH)], [val_ds[i]["coords"] for i in range(BATCH)], RES)
+    emit({"phase3": {k: v for k, v in m.items()},
+          "phase3_s": time.perf_counter() - t0,
+          "finite": bool(torch.isfinite(sout.features).all())})
+    need(bool(torch.isfinite(sout.features).all()) and
+         m["counts"] == [len(g) for g in gen_sets] and
+         0.0 <= m["gen_size_valid_frac"] <= 1.0 and
+         0.0 <= m["gen_nearest_train_iou_max"] <= 1.0 and
+         0.0 <= m["gen_nearest_val_iou_mean"] <= 1.0,
+         "phase 3: template-free samples and their metrics")
+    del dstate, dstep, dmodel, unet, before, vae, sout
     torch.cuda.empty_cache()
     launches_d = {k: c.launches for k, c in count.items()}
 
@@ -2512,6 +2710,24 @@ def main(argv) -> int:
         canv["routes"], lambda r: r.branch == "dense"))
     torch.cuda.empty_cache()
 
+    # -- path 1c: the serving artifact, and the generation entry point ----
+    try:
+        with cap:
+            serve = serve_phase(mp, dev, cap, cpad, valid,
+                                args.max_keep or None, power)
+    except Exception:
+        traceback.print_exc()
+        serve = {"ok": False, "failures": ["serve phase raised"],
+                 "launches": {"B1": 0}}
+    need(serve["ok"], "serve path: " + ", ".join(serve["failures"]))
+    torch.cuda.empty_cache()
+    try:
+        need(generate_cli_phase(mp, dev)["ok"], "generate entry point")
+    except Exception:
+        traceback.print_exc()
+        need(False, "generate entry point")
+    torch.cuda.empty_cache()
+
     # -- path 2: 10 steps of full-width VAE training --------------------
     with cap:
         (train_ok, steps, train_routes, train_launches, one_more_step,
@@ -2590,6 +2806,7 @@ def main(argv) -> int:
              for r in rs}
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
+    check_all("B1", "serve", fused_check("B1", "serve_path"), kinds)
     st = mp.sparse_tensor(torch.as_tensor(cpad, device=dev),
                           torch.as_tensor(valid, device=dev)[:, None].float(),
                           capacity=CAP, batch_size=BATCH,
@@ -2626,6 +2843,7 @@ def main(argv) -> int:
     def shapes(path, kernel):
         return set(cap.counts.get(path, {}).get(kernel, {}))
     for path, kernels in (("generation", ("B1",)), ("canvas", ("B1",)),
+                          ("serve", ("B1",)),
                           ("vae_train", FUSED),
                           ("diffusion", KERNELS),
                           ("vae_gate_on", BRICK),
@@ -2814,6 +3032,7 @@ def main(argv) -> int:
         e = entry(name, launches, tot[name], per)
         if name == "B1":
             e.update({"launches_canvas_path": canv["launches"]["B1"],
+                      "launches_serve_path": serve["launches"]["B1"],
                       "ms_per_canvas_request": tot_canvas["ms"],
                       "plain_ms_per_canvas_request": tot_canvas["plain_ms"],
                       "bound_ms_per_canvas_request":

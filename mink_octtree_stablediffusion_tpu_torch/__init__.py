@@ -4,9 +4,12 @@ The JAX package stays the reference; this package mirrors its module names
 and runs the generation path (VAE encode → DDIM on the fixed latent grid →
 pruning decode), template-free and conditioned generation on the latent
 canvas, and their training (`train.vae`, `train.diffusion`,
-`train.generalize`, `train.cond`, `train.diffusion_cross`) with PyTorch.  Every
+`train.generalize`, `train.cond`, `train.diffusion_cross`) with PyTorch, and
+serves generation as an exported artifact (`serve.save_artifact`,
+`serve.load_artifact`; `python -m ...generate`).  Every
 bounded-grid sparse conv that is not densified goes through hand-written
-CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`).  Entry points run on
+CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`), each
+launch a PyTorch operator (`ops/library.py`).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.  It imports neither
 JAX nor anything of the JAX package.
 """

@@ -24,3 +24,6 @@ from .union import union
 # name vol_conv stays the submodule
 from .vol_conv import brick_pallas_conv, enable_brick_conv
 from .vol_conv import vol_conv as vol_conv3d
+# the kernels as operators (torch.ops.mink_torch): imported last, after
+# the modules whose launchers and plain versions it registers
+from . import library  # noqa: E402,F401

@@ -8,7 +8,7 @@ the canonical order of the row-major flat cell key (``flat_cell_key``);
 padding rows hold ``INVALID_COORD`` in every column.
 
 Unbounded grids (``extent=None``: Morton order, hash-table lookups) are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md queue A, item 2).
+ported yet and raise ``NotImplementedError`` (ROADMAP.md queue A, item 4).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ INVALID_COORD = 1 << 14
 INT32_MAX = int(np.iinfo(np.int32).max)
 
 UNBOUNDED_MSG = ("unbounded grids (extent=None: Morton order, hash-table "
-                 "lookups) are not ported yet — ROADMAP.md queue A, item 2")
+                 "lookups) are not ported yet — ROADMAP.md queue A, item 4")
 
 _CONSTS: dict = {}
 
@@ -35,13 +35,15 @@ _CONSTS: dict = {}
 def device_const(values, dtype: torch.dtype, device) -> torch.Tensor:
     """A cached device copy of a small static host array (kernel offsets,
     strides): the host-to-device copy happens once per (value, device), not
-    on every layer call."""
+    on every layer call.  A tensor made while a program is traced
+    (``torch.export``'s fake tensors) is not kept."""
     arr = np.ascontiguousarray(np.asarray(values))
     key = (arr.tobytes(), arr.shape, dtype, str(device))
     t = _CONSTS.get(key)
     if t is None:
         t = torch.as_tensor(arr).to(dtype=dtype, device=device)
-        _CONSTS[key] = t
+        if type(t) is torch.Tensor:  # not a tracer's fake tensor
+            _CONSTS[key] = t
     return t
 
 

@@ -30,21 +30,23 @@ lie on the input lattice, inside the extent, and row j must be valid; its
 int32 flat key is then matched against the sorted input keys
 (``flat_cell_key``) and ``out_j = sum_k f[match_k(j)] · W_k``.  One kernel
 serves plain, strided, pinned-transpose and generative convs.  The
-backward (``FusedSparseConv``) runs the same search in the transpose
-direction for dF -- the grids swap roles, the offsets negate, the searched
-lattice is the forward's output lattice -- and the forward's search for
-``dW_k = sum_j f[match_k(j)]ᵀ · g_j``.  Coordinates, valid masks and keys
-get no gradient; the bias add stays outside the Function, as in JAX.
+backward (the operator's autograd formula) runs the same search in the
+transpose direction for dF -- the grids swap roles, the offsets negate,
+the searched lattice is the forward's output lattice -- and the forward's
+search for ``dW_k = sum_j f[match_k(j)]ᵀ · g_j``.  Coordinates, valid
+masks and keys get no gradient; the bias add stays outside the operator,
+as in JAX.
 
 Each wrapper (``fused_sparse_conv``, ``fused_conv_dfeatures``,
-``fused_conv_dkernel``, ``fused_conv_stage``) launches its kernel for CUDA tensors (or raises)
-and takes its plain PyTorch version only for tensors on the CPU: there is
-no fallback.  Each counts its kernel launches in ``.launches``.  The
-Mosaic mechanics of the TPU kernels (one-hot gather as a matmul, lane
-padding, VMEM budgets, band schedules and the "over budget → XLA"
-fallbacks of the forward and the backward) are not carried over: every
-conv the JAX package would send to ``fused_sparse_conv`` goes to the
-kernels.
+``fused_conv_dkernel``, ``fused_conv_stage``) calls its operator of
+``ops/library.py``, which launches the kernel for CUDA tensors (or raises)
+and takes the plain PyTorch version only for tensors on the CPU: there is
+no fallback.  Each kernel's launches are counted in its wrapper's
+``.launches``.  The Mosaic mechanics of the TPU kernels (one-hot gather
+as a matmul, lane padding, VMEM budgets, band schedules and the "over
+budget → XLA" fallbacks of the forward and the backward) are not carried
+over: every conv the JAX package would send to ``fused_sparse_conv`` goes
+to the kernels.
 """
 
 from __future__ import annotations
@@ -575,7 +577,11 @@ def _launch_dkernel_passes(features: torch.Tensor, g: torch.Tensor,
             view("pair_out", torch.int32, k * n_out)[:n])
 
 
-# -- the three wrappers and the autograd Function ---------------------------
+# -- the wrappers, over the operators of ``ops/library.py`` -------------------
+
+
+def _flat(offs: np.ndarray) -> list:
+    return [int(v) for v in offs.reshape(-1)]
 
 
 def fused_conv_dfeatures(g: torch.Tensor, kernel: torch.Tensor,
@@ -585,15 +591,9 @@ def fused_conv_dfeatures(g: torch.Tensor, kernel: torch.Tensor,
     onto ``out_grid``, given the cotangent ``g`` [N_out, Cout] -- the
     transpose-direction conv of ``g`` with ``W_kᵀ``."""
     f_offs, s_out, cells = flipped_geometry(out_grid, offs)
-    args = (g, out_grid.flat_keys(), in_grid.coords, in_grid.valid, f_offs,
-            s_out, cells, compute_dtype)
-    if g.device.type == "cpu":
-        return _fused_sparse_conv_plain(args[0], kernel.transpose(1, 2),
-                                        *args[1:])
-    out = _launch(args[0], kernel, *args[1:], transpose_weight=True)
-    if out.numel() and g.numel():  # an empty conv launches nothing
-        fused_conv_dfeatures.launches += 1
-    return out
+    return torch.ops.mink_torch.fused_conv_dfeatures(
+        g, kernel, out_grid.flat_keys(), in_grid.coords, in_grid.valid,
+        _flat(f_offs), list(s_out), cells, compute_dtype)
 
 
 def fused_conv_dkernel(features: torch.Tensor, g: torch.Tensor,
@@ -602,48 +602,9 @@ def fused_conv_dkernel(features: torch.Tensor, g: torch.Tensor,
                        compute_dtype) -> torch.Tensor:
     """B3: dW float32 [K, Cin, Cout] of the conv, given its input
     ``features`` and the cotangent ``g``."""
-    args = (features, g, in_grid.flat_keys(), out_grid.coords,
-            out_grid.valid, offs, s_in, cells, compute_dtype)
-    if features.device.type == "cpu":
-        return _dkernel_plain(*args)
-    out = _launch_dkernel(*args)
-    if features.numel() and g.numel():
-        fused_conv_dkernel.launches += 1
-    return out
-
-
-class FusedSparseConv(torch.autograd.Function):
-    """The fused conv with its backward as kernels: forward B1, dF B2, dW
-    B3 (JAX ``_fused_conv``'s custom VJP).  On the CPU each direction is
-    its plain version, so the CPU tests cover the backward formulas
-    themselves, not autograd of the plain forward."""
-
-    @staticmethod
-    def forward(ctx, features, kernel, in_grid, out_grid, offs, s_in, cells,
-                compute_dtype):
-        ctx.save_for_backward(features, kernel)
-        ctx.geometry = (in_grid, out_grid, offs, s_in, cells, compute_dtype)
-        args = (features, kernel, in_grid.flat_keys(), out_grid.coords,
-                out_grid.valid, offs, s_in, cells, compute_dtype)
-        if features.device.type == "cpu":
-            return _fused_sparse_conv_plain(*args)
-        out = _launch(*args)
-        if out.numel() and features.numel():
-            fused_sparse_conv.launches += 1
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        features, kernel = ctx.saved_tensors
-        in_grid, out_grid, offs, s_in, cells, cd = ctx.geometry
-        g = g.contiguous()
-        df = dk = None
-        if ctx.needs_input_grad[0]:
-            df = fused_conv_dfeatures(g, kernel, in_grid, out_grid, offs, cd)
-        if ctx.needs_input_grad[1]:
-            dk = fused_conv_dkernel(features, g, in_grid, out_grid, offs,
-                                    s_in, cells, cd).to(kernel.dtype)
-        return df, dk, None, None, None, None, None, None
+    return torch.ops.mink_torch.fused_conv_dkernel(
+        features, g, in_grid.flat_keys(), out_grid.coords, out_grid.valid,
+        _flat(offs), list(s_in), list(cells), compute_dtype)
 
 
 def fused_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
@@ -652,14 +613,26 @@ def fused_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
                       compute_dtype=None) -> torch.Tensor:
     """Sparse conv of ``features`` [N_in, Cin] (rows in ``in_grid``'s
     canonical flat-key order) with ``kernel`` [K, Cin, Cout] onto
-    ``out_grid``, differentiable in ``features``, ``kernel`` and ``bias``.
-    CUDA tensors launch the kernels; CPU tensors take the plain versions."""
-    if in_grid.extent is None:
-        raise ValueError("fused conv requires a bounded grid")
-    offs, s_in, cells = conv_geometry(in_grid, spec)
+    ``out_grid``, differentiable in ``features``, ``kernel`` and ``bias``
+    (the operator ``mink_torch::fused_conv``: forward B1, dF B2, dW B3, JAX
+    ``_fused_conv``'s custom VJP).  CUDA tensors launch the kernels; CPU
+    tensors take the plain versions, so the CPU tests cover the backward
+    formulas themselves, not autograd of the plain forward."""
+    if in_grid.extent is None or out_grid.extent is None:
+        raise ValueError("fused conv requires bounded grids")
+    offs, s_in, _ = conv_geometry(in_grid, spec)
+    s_out = _tuplize(out_grid.stride, out_grid.ndim)
     cd = compute_dtype or default_compute_dtype(features.device)
-    out = FusedSparseConv.apply(features, kernel, in_grid, out_grid, offs,
-                                s_in, cells, cd)
+    in_keys = in_grid.flat_keys()
+    # the output grid's keys serve only dF's search
+    backward = torch.is_grad_enabled() and (features.requires_grad or
+                                            kernel.requires_grad)
+    out_keys = out_grid.flat_keys() if backward else in_keys[:0]
+    out = torch.ops.mink_torch.fused_conv(
+        features, kernel, in_keys, in_grid.coords, in_grid.valid, out_keys,
+        out_grid.coords, out_grid.valid, _flat(offs), list(s_in),
+        [int(e) for e in in_grid.extent], list(s_out),
+        [int(e) for e in out_grid.extent], cd)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
@@ -679,16 +652,12 @@ def fused_conv_stage(features: torch.Tensor, kernel: torch.Tensor,
         raise ValueError("fused conv requires a bounded grid")
     offs, s_in, cells = conv_geometry(in_grid, spec)
     cd = compute_dtype or default_compute_dtype(features.device)
-    args = (features, kernel, in_grid.flat_keys(), out_grid.coords,
-            out_grid.valid, offs, s_in, cells, cd)
-    if features.device.type == "cpu":
-        return _stage_plain(*args, stage)
-    out = _launch(*args, stage=stage)
-    if out.numel() and features.numel():
-        fused_conv_stage.launches += 1
-    return out
+    return torch.ops.mink_torch.fused_conv_stage(
+        features, kernel, in_grid.flat_keys(), out_grid.coords,
+        out_grid.valid, _flat(offs), list(s_in), list(cells), cd, stage)
 
 
+# launches of each kernel, counted by its operator's CUDA implementation
 fused_sparse_conv.launches = 0
 fused_conv_dfeatures.launches = 0
 fused_conv_dkernel.launches = 0

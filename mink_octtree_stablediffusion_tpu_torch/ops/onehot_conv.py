@@ -17,11 +17,12 @@ onehot_conv.py` (the fused conv, its other half, is ``ops/fused_conv.py``):
   partials, and a sum of each row's partials in offset order
   (``_map_conv_pairs_plain``); its tile is ``map_tile_shape``'s, its
   offset groups ``map_groups``'.
-- ``onehot_conv`` is the autograd Function for JAX's ``custom_vjp``
-  ``onehot_conv``: forward B4, backward ``_xla_backward``, the JAX package's
-  XLA formula (a masked gather, two einsums and an ``index_add_``) in plain
-  PyTorch on both devices -- it is not a Pallas kernel there either.
-  ``nbr_idx`` gets no gradient.
+- ``onehot_conv`` is JAX's ``custom_vjp`` ``onehot_conv``: forward B4,
+  backward ``_xla_backward``, the JAX package's XLA formula (a masked
+  gather, two einsums and an ``index_add_``) in plain PyTorch on both
+  devices -- it is not a Pallas kernel there either -- registered as the
+  autograd formula of B4's operator (``ops/library.py``).  ``nbr_idx``
+  gets no gradient.
 - ``use_onehot_conv`` / ``enabled``: the route flag ``nn/conv.py`` reads.
   ``False`` sends bounded-grid convs to ``kernel_map`` +
   ``sparse_conv_apply`` (route ``"plain"``), as in the JAX package.
@@ -30,8 +31,9 @@ onehot_conv.py` (the fused conv, its other half, is ``ops/fused_conv.py``):
   takes the XLA gather route on its CPU backend; the two agree to 2e-5
   in float32 (`tests/test_torch_fused_conv.py`).
 
-There is no fallback: a CUDA tensor launches the kernel or raises.  The
-launch count is ``onehot_sparse_conv.launches``.
+There is no fallback: a CUDA tensor launches the kernel (through the
+operator's CUDA implementation) or raises.  The launch count is
+``onehot_sparse_conv.launches``.
 """
 
 from __future__ import annotations
@@ -334,23 +336,19 @@ def onehot_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
     """B4: the conv of ``features`` [N, Cin] with ``kernel`` [K, Cin, Cout]
     along ``nbr_idx`` int32[K, N_out] → [N_out, Cout] in the features'
     dtype, with ``compute_dtype`` operands (bf16 by default, as in JAX) and
-    float32 accumulation.  No gradient: use ``onehot_conv``.
+    float32 accumulation (the operator ``mink_torch::onehot_sparse_conv``,
+    whose gradient is ``onehot_conv``'s).
 
     The JAX kernel's Mosaic parameters ``tile``, ``tw`` and ``interpret``
     are left out: the CUDA kernel's tiles follow ``map_tile_shape``.  CUDA
     tensors launch the kernel (up to ``MAP_MAX_K`` offsets, a float32 or
     bf16 kernel), which computes in bf16 only (another ``compute_dtype``
     raises); CPU tensors take the plain version in ``compute_dtype``."""
-    if features.device.type == "cpu":
-        return map_conv_plain(features, kernel, nbr_idx, compute_dtype)
-    if compute_dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA one-hot conv computes in bfloat16, not {compute_dtype}")
-    out, launched = launch_map_conv(SOURCE, features, kernel, nbr_idx)
-    onehot_sparse_conv.launches += launched
-    return out
+    return torch.ops.mink_torch.onehot_sparse_conv(features, kernel, nbr_idx,
+                                                   compute_dtype)
 
 
+# launches of the kernel, counted by its operator's CUDA implementation
 onehot_sparse_conv.launches = 0
 
 
@@ -361,7 +359,7 @@ def _xla_backward(features: torch.Tensor, kernel: torch.Tensor,
     cotangent through ``W_kᵀ`` scattered back with ``index_add_``."""
     k, n_out = nbr_idx.shape
     cin = features.shape[1]
-    idx_t = nbr_idx.t()
+    idx_t = nbr_idx.t().contiguous()
     m = idx_t >= 0
     safe = torch.where(m, idx_t, 0).long()
     gathered = features[safe] * m[..., None].to(features.dtype)
@@ -372,23 +370,10 @@ def _xla_backward(features: torch.Tensor, kernel: torch.Tensor,
     return dfeat, dkernel
 
 
-class OnehotConv(torch.autograd.Function):
-    """JAX's ``onehot_conv`` custom VJP: forward B4 at its default compute
-    dtype, backward ``_xla_backward`` in plain PyTorch."""
-
-    @staticmethod
-    def forward(ctx, features, kernel, nbr_idx):
-        ctx.save_for_backward(features, kernel, nbr_idx)
-        return onehot_sparse_conv(features, kernel, nbr_idx)
-
-    @staticmethod
-    def backward(ctx, g):
-        features, kernel, nbr_idx = ctx.saved_tensors
-        df, dk = _xla_backward(features, kernel, nbr_idx, g.contiguous())
-        return df, dk.to(kernel.dtype), None
-
-
 def onehot_conv(features: torch.Tensor, kernel: torch.Tensor,
                 nbr_idx: torch.Tensor) -> torch.Tensor:
-    """B4, differentiable in ``features`` and ``kernel``."""
-    return OnehotConv.apply(features, kernel, nbr_idx)
+    """B4, differentiable in ``features`` and ``kernel``: JAX's
+    ``onehot_conv`` custom VJP, forward B4 at its default compute dtype,
+    backward ``_xla_backward`` in plain PyTorch (the operator's autograd
+    formula)."""
+    return onehot_sparse_conv(features, kernel, nbr_idx)

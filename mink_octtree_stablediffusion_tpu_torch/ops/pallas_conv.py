@@ -7,7 +7,8 @@ the same function as B4 (``out_j = Σ_k f[nbr[k, j]] · W_k``, -1 = missing)
 with the products the JAX kernel forms: the gathered rows in the features'
 dtype times the kernel as given (float32), summed in float32, the output in
 the features' dtype (bf16 features meet a float32 weight: only the output
-is rounded).  On the card it launches ``csrc/pallas_sparse_conv.cu``
+is rounded).  Through its operator (``ops/library.py``), on the card it
+launches ``csrc/pallas_sparse_conv.cu``
 (``csrc/map_conv.cuh``'s design, shared with B4, with float32-accurate
 products from bf16 split terms on the tensor cores); on the CPU it takes
 its plain version, ``map_conv_plain`` in float32.  There is no
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .onehot_conv import SOURCES, launch_map_conv, map_conv_plain
+from .onehot_conv import SOURCES
 
 SOURCE = SOURCES[1]
 
@@ -39,11 +40,8 @@ def pallas_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
     ignored, and JAX's ``interpret`` is left out."""
     if nbr_idx.shape[1] % tile:
         raise ValueError("pad N_out to a multiple of the tile size")
-    if features.device.type == "cpu":
-        return map_conv_plain(features, kernel, nbr_idx, torch.float32)
-    out, launched = launch_map_conv(SOURCE, features, kernel, nbr_idx)
-    pallas_sparse_conv.launches += launched
-    return out
+    return torch.ops.mink_torch.pallas_sparse_conv(features, kernel, nbr_idx)
 
 
+# launches of the kernel, counted by its operator's CUDA implementation
 pallas_sparse_conv.launches = 0

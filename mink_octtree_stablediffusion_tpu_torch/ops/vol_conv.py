@@ -25,11 +25,12 @@ in the compute dtype, with a 1-cell zero shell and the channels padded to
 ``CP``, a multiple of 16 (the MMA depth); the conv writes a dense float32
 ``[B, X, Y, Z, Co]`` volume that the gather reads.
 
-Each wrapper (``vol_conv_tiles``, ``vol_conv_dfeatures``, ``vol_conv_dw``)
-launches its kernel for CUDA tensors (or raises) and takes its plain
+Each wrapper (``vol_conv_tiles``, ``vol_conv_dfeatures``, ``vol_conv_dw``,
+``brick_pallas_conv``) calls its operator of ``ops/library.py``, which
+launches the kernel for CUDA tensors (or raises) and takes the plain
 PyTorch version -- 27 shifted slabs of the padded volume, each one float32
 GEMM, as ``ops/brick.py::brick_conv_xla`` -- only for tensors on the CPU.
-Each counts its launches in ``.launches``.
+Each kernel's launches are counted in its wrapper's ``.launches``.
 
 Routing: ``enable_brick_conv`` (off by default, as in the JAX package)
 sends the convs that ``brick_preferred`` accepts through
@@ -400,18 +401,13 @@ def _launch_dw_live(gvolp: torch.Tensor, cout: int) -> torch.Tensor:
     return flags.nonzero().flatten().to(torch.int32)
 
 
-# -- the three wrappers -------------------------------------------------------
+# -- the three wrappers, over the operators of ``ops/library.py`` -----------
 
 
 def vol_conv_tiles(volp: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """B5: k=3 s=1 VALID conv of the padded volume ``volp`` [B, X+2, Y+2,
     Z+2, CP] with ``kernel`` [27, Cin, Co] → float32 [B, X, Y, Z, Co]."""
-    if volp.device.type == "cpu":
-        return _vol_conv_plain(volp, kernel)
-    out = _launch(volp, kernel, mirror=False)
-    if out.numel():  # an empty volume launches nothing
-        vol_conv_tiles.launches += 1
-    return out
+    return torch.ops.mink_torch.vol_conv_tiles(volp, kernel)
 
 
 def vol_conv_dfeatures(gvolp: torch.Tensor,
@@ -419,25 +415,17 @@ def vol_conv_dfeatures(gvolp: torch.Tensor,
     """B5's dF pass: the conv of the padded cotangent volume ``gvolp``
     with ``W'[k] = W[26-k]ᵀ`` of the forward's ``kernel`` [27, Cin, Co] →
     float32 [B, X, Y, Z, Cin]."""
-    if gvolp.device.type == "cpu":
-        return _vol_conv_plain(gvolp, kernel, mirror=True)
-    out = _launch(gvolp, kernel, mirror=True)
-    if out.numel():
-        vol_conv_dfeatures.launches += 1
-    return out
+    return torch.ops.mink_torch.vol_conv_dfeatures(gvolp, kernel)
 
 
 def vol_conv_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int,
                 cout: int) -> torch.Tensor:
     """B6: dW float32 [27, Cin, Cout] from the forward's padded input
     volume and the padded cotangent volume."""
-    if volp.device.type == "cpu":
-        return _vol_conv_dw_plain(volp, gvolp, cin, cout)
-    out = _launch_dw(volp, gvolp, cin, cout)
-    vol_conv_dw.launches += 1
-    return out
+    return torch.ops.mink_torch.vol_conv_dw(volp, gvolp, cin, cout)
 
 
+# launches of each kernel, counted by its operator's CUDA implementation
 vol_conv_tiles.launches = 0
 vol_conv_dfeatures.launches = 0
 vol_conv_dw.launches = 0
@@ -484,38 +472,6 @@ def _gather(out: torch.Tensor, grid: SparseGrid, cells) -> torch.Tensor:
     return rows * grid.valid[:, None].to(rows.dtype)
 
 
-class BrickConv(torch.autograd.Function):
-    """The brick route with its backward as kernels (JAX ``_brick_conv``'s
-    custom VJP): forward B5 on the scattered rows; dF the B5 pass on the
-    cotangent volume (the cotangent masked and rounded to the compute
-    dtype) with the mirrored-transposed kernel; dW B6 from the saved input
-    volume and the same cotangent volume.  On the CPU each direction is its
-    plain version."""
-
-    @staticmethod
-    def forward(ctx, features, kernel, grid, compute_dtype):
-        cells = _cells(grid.extent, grid.stride)
-        volp = _scatter(features, grid, cells, compute_dtype)
-        rows = _gather(vol_conv_tiles(volp, kernel), grid, cells)
-        ctx.save_for_backward(volp, kernel)
-        ctx.geometry = (grid, cells, compute_dtype)
-        return rows.to(features.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        volp, kernel = ctx.saved_tensors
-        grid, cells, cd = ctx.geometry
-        gvolp = _scatter(g, grid, cells, cd)
-        df = dk = None
-        if ctx.needs_input_grad[0]:
-            df = _gather(vol_conv_dfeatures(gvolp, kernel), grid,
-                         cells).to(g.dtype)
-        if ctx.needs_input_grad[1]:
-            dk = vol_conv_dw(volp, gvolp, kernel.shape[1],
-                             kernel.shape[2]).to(kernel.dtype)
-        return df, dk, None, None
-
-
 def brick_pallas_applicable(spec: KernelSpec, grid: SparseGrid) -> bool:
     """k=3 s=1 HYPER_CUBE self-conv on a bounded 3-D extent with 8-aligned
     cell dims, z ≤ 256 cells and at most 4,194,304 cells in all (the JAX
@@ -539,8 +495,13 @@ def brick_pallas_conv(features: torch.Tensor, kernel: torch.Tensor,
                       compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Differentiable sparse k=3 s=1 self-grid conv of ``features`` [N,
     Cin] with ``kernel`` [27, Cin, Cout] through the dense volume (no
-    bias).  The grid must be a bounded 3-D grid with 8-aligned cell dims
-    and z ≤ 256 (``brick_pallas_applicable``)."""
+    bias): the operator ``mink_torch::brick_conv`` (JAX ``_brick_conv``'s
+    custom VJP): forward B5 on the scattered rows; dF the B5 pass on the
+    cotangent volume (the cotangent masked and rounded to the compute
+    dtype) with the mirrored-transposed kernel; dW B6 from the saved input
+    volume and the same cotangent volume.  The grid must be a bounded 3-D
+    grid with 8-aligned cell dims and z ≤ 256
+    (``brick_pallas_applicable``)."""
     if grid.extent is None or grid.ndim != 3:
         raise ValueError("brick_pallas_conv needs a bounded 3-D grid "
                          "(extent=...)")
@@ -548,7 +509,10 @@ def brick_pallas_conv(features: torch.Tensor, kernel: torch.Tensor,
     if any(c % T for c in cells) or cells[2] > 256:
         raise ValueError(f"brick_pallas_conv: cell dims {cells} must be "
                          f"multiples of {T} with z <= 256")
-    return BrickConv.apply(features, kernel, grid, compute_dtype)
+    rows, _ = torch.ops.mink_torch.brick_conv(
+        features, kernel, grid.coords, grid.valid, grid.batch_size,
+        [int(v) for v in grid.stride], cells, compute_dtype)
+    return rows
 
 
 _BRICK_ENABLED = False

@@ -28,7 +28,7 @@ Checkpoints go to ``<ckpt_dir>/diff_cond`` every 2000 steps and at the
 end; a run resumes there (``--skip_diff`` restores without training).
 
 Not ported: the script's classifier (the oracle, `models/classification.py`)
-and its sampling and scoring of each class (ROADMAP.md queue A item 10).
+and its sampling and scoring of each class (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations

@@ -31,8 +31,12 @@ points into the latent before it is noised
 draws from the run's generator); ``--remat`` rematerializes the UNet's
 stacks in the backward pass.
 
-Not ported yet (raise ``NotImplementedError``; ROADMAP.md queue A): the
-sampling validation (``--val_every``; its PNGs need matplotlib) and the
+``--val_every N`` samples the latent of the step's batch every N steps
+with the training scheduler over ``--sample_steps`` steps, decodes it and
+renders the batch's first instance beside its sample to
+``<viz_dir>/step_<step>.png`` (``validate``; matplotlib).
+
+Not ported yet (raises ``NotImplementedError``; ROADMAP.md queue A): the
 ModelNet40 dataset (``--data`` without ``--synthetic``).
 """
 
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from types import SimpleNamespace
@@ -50,6 +55,7 @@ import torch
 from ..data import SyntheticShapes, batch_iterator, collate_pointclouds
 from ..diffusion import (CoordNLLParams, DDPMScheduler,
                          diffusion_training_loss, inject_noise_points)
+from ..ops.coords import SparseGrid
 from ..serve import generation_models
 from ..tensor import sparse_tensor
 from ..utils.device import make_generator, resolve_device
@@ -106,8 +112,6 @@ def parse_args(argv=None):
 
 
 def check_ported(cfg) -> None:
-    if cfg.val_every > 0:
-        raise NotImplementedError(f"the sampling validation {NOT_PORTED}")
     if cfg.data is not None and not cfg.synthetic:
         raise NotImplementedError(f"ModelNet40Dataset {NOT_PORTED}")
 
@@ -204,6 +208,33 @@ def setup(cfg, device=None) -> SimpleNamespace:
                            step_fn=make_train_step(loss_fn))
 
 
+def validate(run, cfg, batch, step: int) -> str:
+    """`examples/train_diffusion.py`'s validation sample: the batch's
+    latent coordinates (the frozen VAE's encoding) denoised from N(0,1)
+    by the UNet in eval mode with the training scheduler over
+    ``--sample_steps`` steps (the noise from a generator seeded with
+    ``step``), decoded, and the first instance rendered beside its data;
+    returns the PNG's path."""
+    from ..serve import build_generate_fn
+    from ..utils.viz import render_pointclouds, sparse_tensor_clouds
+
+    was = run.unet.training
+    fn = build_generate_fn(
+        run.vae, run.unet, run.scheduler, input_capacity=cfg.input_capacity,
+        batch_size=cfg.batch_size, resolution=cfg.resolution,
+        vae_scale=cfg.vae_scale, sample_steps=cfg.sample_steps,
+        device=run.device)
+    coords, valid = fn(*batch, generator=make_generator(step, run.device))
+    run.unet.train(was)
+    data = torch.as_tensor(np.asarray(batch[0]))[np.asarray(batch[1])]
+    return render_pointclouds(
+        [data[data[:, 0] == 0][:, 1:].numpy(),
+         sparse_tensor_clouds(SparseGrid(coords, valid,
+                                         batch_size=cfg.batch_size), 1)[0]],
+        os.path.join(cfg.viz_dir, f"step_{step:06d}.png"),
+        titles=["data", "generated"], resolution=cfg.resolution)
+
+
 def main(argv=None) -> int:
     cfg = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -231,6 +262,9 @@ def main(argv=None) -> int:
                 t0 = time.time()
             if step % cfg.save_every == 0:
                 ckpt.save(step, state)
+            if cfg.val_every and step % cfg.val_every == 0:
+                log.info("validation sample written to %s",
+                         validate(run, cfg, (cpad, valid), step))
             if cfg.steps and step >= cfg.steps:
                 ckpt.save(step, state)
                 log.info("done (step cap) loss %.5f denoise %.5f nll %.5f",

@@ -28,13 +28,23 @@ with ``composite_prob`` 0.25, VAE (32, 128, 512, 512, 4), UNet (4, 128,
   or Adafactor (``--diff_opt``) on a 100-step warmup, and the
   ``sample`` / ``v_prediction`` / ``epsilon`` target without the NLL.
 
+- Phase 3 generates template-free: ``--gen_samples`` samples (rounds of
+  one batch, seeds ``seed + 100 + i``) denoised from N(0,1) on the
+  data-independent canvas (``ops.canvas_grid``, a zero template) over
+  ``--sample_steps`` DDPM steps and decoded by the pruning decoder, then
+  scored against the train and val shapes by ``generation_metrics``:
+  each sample's nearest-train and nearest-val voxel IoU (novelty: low
+  means not a copy), the novelty histogram, and the share of samples
+  whose voxel count lies within 0.3x-3x the train median
+  (``gen_size_valid_frac``).  ``--viz_dir`` renders a held-out shape,
+  its reconstruction and one batch of samples to
+  ``e2e_generalize[_<tag>].png``.
+
 Checkpoints go to ``<ckpt_dir>/vae`` and ``<ckpt_dir>/diff_<prediction>``
 every 2000 steps and at the end; a run resumes each phase from its
 latest, and ``--skip_vae`` / ``--skip_diff`` restore a phase instead of
-training it.  Not ported: phase 3 (template-free generation and its
-membership/novelty metrics, with ``--sample_steps``, ``--gen_samples``,
-``--tag`` and ``--viz_dir``; ROADMAP.md queue A item 10) and
-``--stream_device`` (on-device shapes, queue A item 11), which raises.
+training it.  Not ported: ``--stream_device`` (on-device shapes, queue A
+item 7), which raises.
 """
 
 from __future__ import annotations
@@ -54,12 +64,13 @@ import numpy as np
 import torch
 
 from ..data import ProceduralShapes, collate_pointclouds
-from ..diffusion import DDPMScheduler, diffusion_training_loss
+from ..diffusion import (DDPMScheduler, diffusion_training_loss,
+                         sample_latent)
 from ..models.unet import UNet
 from ..models.vae import VAE
 from ..ops.canvas import canvas_grid, expand_to_canvas
 from ..serve import capacities
-from ..tensor import sparse_tensor
+from ..tensor import SparseTensor, sparse_tensor
 from ..utils.device import make_generator, resolve_device
 from .optim import (adafactor_diffusion_optimizer, canvas_vae_optimizer,
                     diffusion_optimizer)
@@ -112,6 +123,11 @@ def parse_args(argv=None):
     p.add_argument("--ckpt_dir", type=str, default="ckpt_generalize")
     p.add_argument("--skip_vae", action="store_true")
     p.add_argument("--skip_diff", action="store_true")
+    p.add_argument("--sample_steps", type=int, default=50)
+    p.add_argument("--gen_samples", type=int, default=16)
+    p.add_argument("--tag", type=str, default="",
+                   help="suffix of the render's file name")
+    p.add_argument("--viz_dir", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     return p.parse_args(argv)
@@ -256,6 +272,79 @@ def mean_iou(sets_a: dict, sets_b: dict) -> float:
     return float(np.mean(vals)) if vals else 0.0
 
 
+def flat_keys(coords, resolution: int) -> np.ndarray:
+    """Sorted unique int64 flat keys ``(x·res + y)·res + z`` of [N, 3]
+    voxels: the banks' membership tests run on sorted key intersections,
+    not on Python sets of tuples (at resolution 128 a 4,096-shape bank of
+    tuple sets takes tens of GB)."""
+    c = np.asarray(coords, np.int64).reshape(-1, 3)
+    return np.unique((c[:, 0] * resolution + c[:, 1]) * resolution + c[:, 2])
+
+
+def iou_keys(a: np.ndarray, b: np.ndarray) -> float:
+    """Voxel IoU of two ``flat_keys`` arrays (1 for two empty sets)."""
+    inter = len(np.intersect1d(a, b, assume_unique=True))
+    u = len(a) + len(b) - inter
+    return inter / u if u else 1.0
+
+
+def generation_metrics(gen_sets, train_coords, val_coords,
+                       resolution: int) -> dict:
+    """`scripts/e2e_generalize.py`'s membership and novelty metrics of the
+    generated voxel sets (``gen_sets``: one set of (x, y, z) tuples a
+    sample) against the train and val shapes ([N, 3] arrays): each
+    sample's nearest-train and nearest-val IoU, the novelty histogram of
+    the nearest-train IoU (bins of 0.1 over [0, 1]), the voxel counts, and
+    the share of samples whose count lies within [0.3, 3] x the train
+    shapes' median count (the size validity; nearest IoU is a novelty
+    metric, not a validity gate)."""
+    train_bank = [flat_keys(c, resolution) for c in train_coords]
+    val_bank = [flat_keys(c, resolution) for c in val_coords]
+    gen_keys = [flat_keys(sorted(g), resolution) if g else
+                np.empty((0,), np.int64) for g in gen_sets]
+    counts = [len(g) for g in gen_sets]
+    median = float(np.median([len(t) for t in train_bank]))
+    nearest_train = [max((iou_keys(g, t) for t in train_bank), default=0.0)
+                     for g in gen_keys]
+    nearest_val = [max((iou_keys(g, t) for t in val_bank), default=0.0)
+                   for g in gen_keys]
+    hist, edges = np.histogram(nearest_train, bins=np.arange(0, 1.05, 0.1))
+    return {"counts": counts, "nearest_train": nearest_train,
+            "nearest_val": nearest_val,
+            "novelty_histogram": dict(zip([f"{e:.1f}" for e in edges[:-1]],
+                                          hist.tolist())),
+            "gen_size_valid_frac": float(np.mean(
+                [0.3 * median <= c <= 3.0 * median for c in counts])),
+            "gen_nearest_train_iou_mean": float(np.mean(nearest_train)),
+            "gen_nearest_train_iou_max": float(np.max(nearest_train)),
+            "gen_nearest_val_iou_mean": float(np.mean(nearest_val)),
+            "gen_voxels_median": int(np.median(counts))}
+
+
+@torch.no_grad()
+def generate_canvas(vae: VAE, unet: UNet, scheduler, target_grid, *,
+                    batch_size: int, resolution: int, latent_channels: int,
+                    vae_scale: float, sample_steps: int, seed: int):
+    """One batch of template-free samples (`scripts/e2e_generalize.py`
+    phase 3): N(0,1) features from ``seed`` on the stride-8 canvas,
+    ``sample_steps`` steps of ``scheduler`` with the UNet, then the
+    pruning decoder (eval mode; ``target_grid`` is only a structural
+    argument there: any grid of the batch)."""
+    vae.eval()
+    unet.eval()
+    dev = target_grid.coords.device
+    canvas = canvas_grid(batch_size, (resolution,) * 3, (8,) * 3,
+                         device=dev)
+    template = SparseTensor(grid=canvas, features=torch.zeros(
+        (canvas.capacity, latent_channels), device=dev))
+    z = sample_latent(unet, scheduler, template,
+                      num_inference_steps=sample_steps,
+                      generator=make_generator(seed, dev))
+    _, _, sout = vae.decode(z.with_features(z.features / vae_scale),
+                            target_grid)
+    return sout
+
+
 @torch.no_grad()
 def reconstruct(vae: VAE, batch, *, input_capacity: int, batch_size: int,
                 resolution: int, device, seed: int = 9):
@@ -346,7 +435,7 @@ def main(argv=None) -> dict:
     if cfg.stream_device:
         raise NotImplementedError(
             "--stream_device (data/device_shapes.py) is not ported yet "
-            "(ROADMAP.md queue A item 11)")
+            "(ROADMAP.md queue A item 7)")
     logging.basicConfig(level=logging.INFO)
     res, b, cap = cfg.resolution, cfg.batch_size, cfg.input_capacity
     if res % 8:
@@ -444,6 +533,53 @@ def main(argv=None) -> dict:
             "diff", dstate, dstep_fn, train_batch, gen, cfg.steps_diff,
             diff_ckpt, 200)
     result["steps_diff"] = dstate.step
+
+    # phase 3: template-free generation, membership and novelty
+    sched = DDPMScheduler.create(prediction_type=cfg.prediction_type)
+    tgt = build_input(val_batches[0], device=dev, **sizes).grid
+
+    def generate(i):
+        return generate_canvas(vae, unet, sched, tgt, batch_size=b,
+                               resolution=res,
+                               latent_channels=cfg.vae_channel[-1],
+                               vae_scale=cfg.vae_scale,
+                               sample_steps=cfg.sample_steps,
+                               seed=cfg.seed + 100 + i)
+    gen_sets = []
+    for i in range(max(cfg.gen_samples // b, 1)):
+        sets = voxel_sets(generate(i))
+        gen_sets.extend(sets.get(j, set()) for j in range(b))
+    m = generation_metrics(gen_sets, [s["coords"] for s in train_pool],
+                           [s["coords"] for s in val_pool], res)
+    log.info("generated %d samples; voxels/sample min %d median %d max %d",
+             len(gen_sets), min(m["counts"]), m["gen_voxels_median"],
+             max(m["counts"]))
+    log.info("nearest-train IoU per sample: %s",
+             [round(v, 3) for v in m["nearest_train"]])
+    log.info("nearest-val IoU per sample: %s",
+             [round(v, 3) for v in m["nearest_val"]])
+    log.info("novelty histogram (nearest-train IoU): %s",
+             m["novelty_histogram"])
+    if cfg.viz_dir:
+        from ..utils.viz import render_pointclouds, sparse_tensor_clouds
+
+        st_v, st_vrec = reconstruct(vae, val_batches[0], device=dev,
+                                    **sizes)
+        tag = f"_{cfg.tag}" if cfg.tag else ""
+        path = render_pointclouds(
+            [sparse_tensor_clouds(st_v, 1)[0],
+             sparse_tensor_clouds(st_vrec, 1)[0]] +
+            sparse_tensor_clouds(generate(0), b),
+            os.path.join(cfg.viz_dir, f"e2e_generalize{tag}.png"),
+            titles=["held-out data", "held-out recon"] +
+                   [f"generated {i}" for i in range(b)],
+            resolution=res)
+        log.info("render: %s", path)
+    result.update({k: m[k] for k in (
+        "gen_size_valid_frac", "gen_nearest_train_iou_mean",
+        "gen_nearest_train_iou_max", "gen_nearest_val_iou_mean",
+        "gen_voxels_median")},
+        prediction_type=cfg.prediction_type, stream_device=cfg.stream_device)
     print(json.dumps(result), flush=True)
     return result
 

@@ -16,15 +16,18 @@ checkpoint in ``--ckpt_dir`` (default ``ckpt_vae`` in the working
 directory; as in the JAX example, ``--recover`` is always on, so give each
 run its own directory to start afresh), logs loss, BCE and KLD every 10
 steps, and checkpoints
-every ``--save_every`` steps and at the end.  Not ported yet (raise): the
-ModelNet40 dataset (``--data`` without ``--synthetic``) and the PNG
-visualisation (``--viz_every``).
+every ``--save_every`` steps and at the end.  ``--viz_every N`` renders the
+step's batch (its first instance) beside its eval-mode reconstruction to
+``<viz_dir or viz_vae>/step_<step>.png`` every N steps (matplotlib).  Not
+ported yet (raises): the ModelNet40 dataset (``--data`` without
+``--synthetic``).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 
@@ -93,13 +96,28 @@ def build_loss_fn(*, input_capacity: int, batch_size: int, resolution: int,
     return loss_fn
 
 
+def render_reconstruction(vae: VAE, cfg, batch, step: int, device) -> str:
+    """`examples/train_vae.py`'s visualisation: the batch's first instance
+    beside its reconstruction (eval mode, no graph, the
+    reparameterisation noise from a fixed seed, the training generator
+    untouched); returns the PNG's path."""
+    from ..utils.viz import render_pointclouds, sparse_tensor_clouds
+    from .generalize import reconstruct
+
+    st, sout = reconstruct(vae, batch, input_capacity=cfg.input_capacity,
+                           batch_size=cfg.batch_size,
+                           resolution=cfg.resolution, device=device)
+    return render_pointclouds(
+        [sparse_tensor_clouds(st, 1)[0], sparse_tensor_clouds(sout, 1)[0]],
+        os.path.join(cfg.viz_dir or "viz_vae", f"step_{step:06d}.png"),
+        titles=["input", "reconstruction"], resolution=cfg.resolution)
+
+
 def main(argv=None) -> int:
     cfg = parse_args(argv)
     if cfg.data is not None and not cfg.synthetic:
         raise NotImplementedError(
             "ModelNet40Dataset is not ported yet; use --synthetic")
-    if cfg.viz_every:
-        raise NotImplementedError("the PNG visualisation is not ported yet")
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train_vae")
     dev = resolve_device(cfg.device)
@@ -135,6 +153,9 @@ def main(argv=None) -> int:
             if step % cfg.save_every == 0:
                 ckpt.save(step, state)
                 log.info("checkpointed step %d", step)
+            if cfg.viz_every and step % cfg.viz_every == 0:
+                log.info("wrote %s", render_reconstruction(
+                    vae, cfg, (cpad, valid, feats), step, dev))
             if cfg.steps and step >= cfg.steps:
                 ckpt.save(step, state)
                 log.info("done (step cap) loss %.5f bce %.5f kld %.3f",

@@ -310,10 +310,13 @@ def test_train_diffusion_entry_point_runs_and_resumes(tmp_path, caplog):
     done = [r.getMessage() for r in caplog.records
             if r.getMessage().startswith("done")]
     assert len(done) == 2 and "nan" not in " ".join(done)
-    with pytest.raises(NotImplementedError):
-        tdiff.main(argv + ["--val_every", "5"])
-    # the flags ported since: one more step each, resumed from the last
+    # the flags ported since: one more step each, resumed from the last;
+    # the sampling validation renders the step's batch and its sample
+    viz = tmp_path / "viz"
     for i, flags in enumerate((["--remat"], ["--noise_point_mode", "uniform"],
-                               ["--noise_near"])):
+                               ["--noise_near"],
+                               ["--val_every", "7", "--sample_steps", "2",
+                                "--viz_dir", str(viz)])):
         assert tdiff.main(argv + flags + ["--steps", str(4 + i)]) == 0
         assert ckpt.latest_step() == 4 + i
+    assert (viz / "step_000007.png").stat().st_size > 0
