@@ -90,6 +90,20 @@ read just after:
   room's pipeline through B1, B4 and B7; B4 and B7 alone on the others;
   B1's stages, B8 on the room and B9 on the finest level).  Every kernel
   of the path must launch; see ``library_phase`` for what it holds.
+- **data parallelism** — ``dp_phase``: two spawned ranks share the card
+  in a gloo group (NCCL refuses two ranks on one device), 2 shapes a
+  rank: (a) the VAE above with SyncBN, one step with the same batch on
+  both ranks against one process's step within a bf16 rounding control,
+  then 3 steps on distinct batches; (b) diffusion training as above, 2
+  steps; (c) one generation request a rank from its own generator, the
+  shards gathered through the host, distinct, each equal to this
+  process's request with that generator; (d) ``multigpu_dp``'s ResNet14
+  at full width, 2 steps.  After every training step the replicas must
+  be equal bit for bit, and in each rank the launches must equal its
+  routes'; rank 0 sends back the operands of its launch shapes that no
+  earlier path launched.  It prints step walls, the all-reduce's host
+  seconds and bytes, and each rank's peak memory.  No fallback: a failed
+  rank fails the run.
 
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
@@ -2579,6 +2593,484 @@ def library_phase(mp, dev, power) -> dict:
             "launches": launches}
 
 
+# -- the data-parallel phase ------------------------------------------------
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device; gloo's all_reduce and broadcast take CUDA tensors through the
+# host), DP_BATCH shapes a rank: the global batch of 4 of the
+# single-process paths.  A rank that stops answering fails the phase after
+# DP_TIMEOUT_S.
+DP_RANKS, DP_BATCH, DP_TIMEOUT_S = 2, 2, 300
+DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 3, 2, 2
+# the earlier paths whose operands main() checks at every launch shape, and
+# their kernels: the DP ranks send back only the shapes not among them
+CHECKED_PATHS = (("generation", ("B1",)), ("canvas", ("B1",)),
+                 ("serve", ("B1",)), ("vae_train", FUSED),
+                 ("diffusion", KERNELS), ("vae_gate_on", BRICK),
+                 ("diffusion_gate_off", ("B1",)), ("vae_gate_off", ("B1",)),
+                 ("canvas_vae", FUSED), ("canvas_vae_bf16", FUSED),
+                 ("noise_points", KERNELS))
+
+
+def dp_config() -> dict:
+    """The module constants a rank reads: it imports this script afresh,
+    so a caller's changes to them reach it only through here."""
+    names = ("RES", "CAP", "STEPS", "VAE_CH", "UNET_CH", "GROUP", "MAX_KEEP",
+             "VAE_SCALE", "TRAIN_LR", "TRAIN_KLD", "DIFF_FLAGS", "DEVICE",
+             "DP_BATCH", "DP_VAE_STEPS", "DP_DIFF_STEPS", "DP_RESNET_STEPS")
+    return {n: globals()[n] for n in names}
+
+
+def dp_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_peak(dev):
+    """This process's peak device memory since the last reset (None on
+    the CPU), and a reset."""
+    import torch
+    if dev.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return peak
+
+
+def dp_replicas_equal(module) -> bool:
+    """Every rank holds the same parameters and buffers, bit for bit."""
+    from mink_octtree_stablediffusion_tpu_torch.multigpu_dp import (
+        replica_digests)
+    return len(set(replica_digests(module))) == 1
+
+
+def dp_generate_fn(mp, dev):
+    """The generation program at the path's configuration (weights from
+    seed 0, as on every rank), a list that collects its decoder's output
+    features, one a request, and the hook that fills it."""
+    vae, unet = mp.serve.generation_models(
+        input_capacity=CAP, batch_size=DP_BATCH, vae_channel=VAE_CH,
+        unet_channel=UNET_CH, group=GROUP, max_keep=MAX_KEEP, device=dev,
+        seed=0)
+    fn = mp.serve.build_generate_fn(
+        vae, unet, mp.diffusion.DDIMScheduler.create(), input_capacity=CAP,
+        batch_size=DP_BATCH, resolution=RES, vae_scale=VAE_SCALE,
+        sample_steps=STEPS, device=dev)
+    decoded = []
+    hook = vae.decoder.register_forward_hook(
+        lambda m, i, o: decoded.append(o[2].features))
+    return fn, decoded, hook
+
+
+def dp_request_input(mp, rank: int):
+    """(cpad, valid) of rank ``rank``'s sampling request: `SyntheticShapes`
+    2r, 2r+1 (a single process rebuilds it to check the rank's shard)."""
+    ds = mp.data.SyntheticShapes(resolution=RES, num_samples=64)
+    return mp.data.collate_pointclouds(
+        [ds[DP_BATCH * rank + j]["coords"] for j in range(DP_BATCH)],
+        CAP)[:2]
+
+
+@contextlib.contextmanager
+def dp_sync_off(mp, model):
+    """Inside the block ``model``'s BatchNorms do not sync (one process's
+    step on the same model)."""
+    bns = [m for m in model.modules() if isinstance(m, mp.nn.BatchNorm)]
+    groups = [m.process_group for m in bns]
+    for m in bns:
+        m.process_group = None
+    try:
+        yield
+    finally:
+        for m, g in zip(bns, groups):
+            m.process_group = g
+
+
+def dp_emit(rank: int, rec: dict) -> None:
+    """Rank 0 prints its records as they come (two ranks' lines would
+    interleave); ``dp_phase`` prints every rank's summary."""
+    if rank == 0:
+        emit({"rank": rank, **rec})
+
+
+def dp_account(out, routes, launched) -> None:
+    """Keep each route's layer name by launch shape (``out["kinds"]``) and
+    add a DP run's launches to the path's (``out["launches"]``)."""
+    out.setdefault("kinds", {}).update(
+        {(r.n_out, r.cin, r.cout, r.k): r.layer for r in routes})
+    out.setdefault("launches", Counter()).update(launched)
+
+
+def dp_step(mp, dev, out, path, i, run) -> dict:
+    """One step (``run()`` → (loss, aux)) with its wall time and launches
+    against its routes'."""
+    count = counters(mp)
+    before = {n: c.launches for n, c in count.items()}
+    dp_sync(dev)
+    t0 = time.perf_counter()
+    with mp.nn.record_routes() as routes:
+        loss, _ = run()
+    dp_sync(dev)
+    wall = time.perf_counter() - t0
+    launched = {n: c.launches - before[n] for n, c in count.items()}
+    dp_account(out, routes, launched)
+    return {"dp_path": path, "step": i + 1, "wall_s": wall,
+            "loss": float(loss), "finite": bool(math.isfinite(float(loss))),
+            "launches": launched,
+            "launches_ok": launched == expected_launches(routes)}
+
+
+def dp_vae(mp, dev, cap, rank, world, out) -> None:
+    """(a) `examples/train_vae.py`'s VAE with SyncBN under DP: step 1 with
+    the same batch and reparameterisation noise on both ranks against one
+    process's step on that batch (rank 0, the sync off) and a bf16
+    rounding control beside it (the noise rounded to bf16), as
+    ``gate_compare``: the DP gradients' loss and relative RMS at the
+    median and worst tensor must be within the control's; then
+    ``DP_VAE_STEPS`` steps on distinct per-rank batches, each rank's own
+    noise (``split_device_rngs``), the replicas bit for bit equal after
+    every step."""
+    import torch
+    import torch.distributed as dist
+    from mink_octtree_stablediffusion_tpu_torch.train import vae as tv
+    enc, dec = mp.serve.capacities(CAP)
+    vae = mp.models.VAE(channels=VAE_CH, encoder_capacities=enc,
+                        decoder_capacities=dec,
+                        process_group=dist.group.WORLD, device=dev, seed=0)
+    mp.train.broadcast_module(vae)
+    state = mp.train.TrainState(vae, mp.train.vae_optimizer(
+        vae.parameters(), TRAIN_LR))
+    loss_fn = tv.build_loss_fn(input_capacity=CAP, batch_size=DP_BATCH,
+                               resolution=RES, kld_weight=TRAIN_KLD,
+                               device=dev)
+    step = mp.train.make_dp_train_step(loss_fn)
+    ds = mp.data.SyntheticShapes(resolution=RES, num_samples=256)
+
+    def batch(i, r):  # rank r's shapes of global batch i
+        return mp.data.collate_pointclouds(
+            [ds[(i * world + r) * DP_BATCH + j]["coords"]
+             for j in range(DP_BATCH)], CAP, 200_000)[:3]
+
+    same = batch(0, 0)
+    eps = torch.randn((enc[2], VAE_CH[4]), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    if rank == 0:
+        stats = {n: b.clone() for n, b in vae.named_buffers()}
+        ref = {}
+        vae.train()
+        with dp_sync_off(mp, vae):
+            for name, e in (("single", eps), ("control",
+                                              eps.bfloat16().float())):
+                vae.zero_grad(set_to_none=True)
+                loss, _ = loss_fn(vae, same, eps=e)
+                loss.backward()
+                ref[name] = (loss.item(), grads_of(vae))
+                with torch.no_grad():
+                    for n, b in vae.named_buffers():
+                        b.copy_(stats[n])
+        vae.zero_grad(set_to_none=True)
+    rec = dp_step(mp, dev, out, "dp_vae_same_batch", -1,
+                  lambda: step(state, same, eps=eps))
+    rec["replicas_equal"] = dp_replicas_equal(vae)
+    if rank == 0:
+        d = against(rec["loss"], grads_of(vae), *ref["single"])
+        c = against(*ref["control"], *ref["single"])
+        rec.update({**d, **{"control_" + k: v for k, v in c.items()},
+                    "bit_equal": d["loss_rel_err"] == 0 and
+                    d["grad_rel_rms_max"] == 0,
+                    "within_control": all(d[k] <= c[k] for k in (
+                        "loss_rel_err", "grad_rel_rms_median",
+                        "grad_rel_rms_max"))})
+        del ref
+    dp_emit(rank, rec)
+    out["vae_same_batch"] = rec
+    gen = mp.train.split_device_rngs(0, world, dev)[rank]
+    steps = []
+    for i in range(DP_VAE_STEPS):
+        cap.at("dp_vae", FUSED if i == 0 else ())
+        rec = dp_step(mp, dev, out, "dp_vae", i, lambda: step(
+            state, batch(i + 1, rank), generator=gen))
+        cap.at(None)
+        rec["comm"] = dict(step.comm)
+        rec["replicas_equal"] = dp_replicas_equal(vae)
+        dp_emit(rank, rec)
+        steps.append(rec)
+    out["vae_steps"] = steps
+    out["vae_peak_bytes"] = dp_peak(dev)
+
+
+def dp_diffusion(mp, dev, cap, rank, world, out) -> None:
+    """(b) `examples/train_diffusion.py`'s defaults under DP (the frozen
+    VAE, the UNet (4, 320, 640, 960), the brick gate on): ``DP_DIFF_STEPS``
+    steps on distinct per-rank batches, each rank's own timestep and
+    noise draws; finite, the launches those of the routes, the replicas
+    bit for bit equal after every step."""
+    from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
+    cfg = td.parse_args(DIFF_FLAGS + ["--batch_size", str(DP_BATCH)])
+    run = td.setup(cfg, dev)
+    mp.train.broadcast_module(run.model)
+    step = mp.train.make_dp_train_step(run.loss_fn)
+    ds = mp.data.SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    gen = mp.train.split_device_rngs(1, world, dev)[rank]
+    steps = []
+    mp.ops.enable_brick_conv(True)
+    try:
+        for i in range(DP_DIFF_STEPS):
+            batch = mp.data.collate_pointclouds(
+                [ds[(i * world + rank) * DP_BATCH + j]["coords"]
+                 for j in range(DP_BATCH)], cfg.input_capacity,
+                cfg.max_batch_len)[:2]
+            cap.at("dp_diffusion", KERNELS if i == 0 else ())
+            rec = dp_step(mp, dev, out, "dp_diffusion", i, lambda: step(
+                run.state, batch, generator=gen))
+            cap.at(None)
+            rec["comm"] = dict(step.comm)
+            rec["replicas_equal"] = dp_replicas_equal(run.model)
+            dp_emit(rank, rec)
+            steps.append(rec)
+    finally:
+        mp.ops.enable_brick_conv(False)
+    out["diffusion_steps"] = steps
+    out["diffusion_params"] = sum(p.numel() for p in run.model.parameters())
+    out["diffusion_peak_bytes"] = dp_peak(dev)
+
+
+def dp_sampling(mp, dev, cap, rank, world, out) -> None:
+    """(c) DP sampling at the generation configuration: each rank serves
+    one request (``DP_BATCH`` shapes, DDIM cut to ``STEPS``, the
+    ``MAX_KEEP`` clamp) from its own generator; its decoded features must
+    be finite with > 0 voxels an instance, and every fused-route conv must
+    launch B1; rank 0 gathers the shards (coordinates, valid mask and the
+    decoded features) through the host, and ``dp_phase`` holds each
+    against one process's request with that rank's generator."""
+    import torch
+    fn, decoded, hook = dp_generate_fn(mp, dev)
+    cpad, valid = dp_request_input(mp, rank)
+    gen = mp.train.split_device_rngs(2, world, dev)[rank]
+    b1 = counters(mp)["B1"]
+    before = b1.launches
+    cap.at("dp_sampling", ("B1",))
+    dp_sync(dev)
+    t0 = time.perf_counter()
+    with mp.nn.record_routes() as routes:
+        coords, v = fn(cpad, valid, generator=gen)
+    dp_sync(dev)
+    wall = time.perf_counter() - t0
+    cap.at(None)
+    hook.remove()
+    dp_account(out, routes, {"B1": b1.launches - before})
+    feats = decoded.pop()
+    per_inst = torch.bincount(coords[v][:, 0].long(),
+                              minlength=DP_BATCH).tolist()
+    fused = sum(r.branch == "fused" for r in routes)
+    rec = {"dp_path": "dp_sampling", "wall_s": wall,
+           "voxels_per_instance": per_inst,
+           "finite": bool(torch.isfinite(feats).all().item()),
+           "b1_launches": b1.launches - before, "fused_route_convs": fused,
+           "launches_ok": b1.launches - before == fused}
+    dp_emit(rank, rec)
+    gathered = [mp.parallel.gather_to_host(t) for t in (
+        coords, v.to(torch.uint8), feats.float())]
+    if rank == 0:
+        out["sampling_shards"] = [tuple(g[r] for g in gathered)
+                                  for r in range(world)]
+    out["sampling"] = rec
+    out["sampling_peak_bytes"] = dp_peak(dev)
+
+
+def dp_resnet(mp, dev, cap, rank, world, out) -> None:
+    """(d) ``multigpu_dp``'s entry (``multigpu_dp.train``, the rank's body)
+    at the example's widths (ResNet14, stem 64, planes 64–512, SyncBN) for
+    ``DP_RESNET_STEPS`` steps, 2 `SyntheticShapes` a rank at ``RES`` with
+    ``CAP`` input rows: finite, and the replicas bit for bit equal (the
+    entry checks it and raises otherwise)."""
+    from mink_octtree_stablediffusion_tpu_torch import multigpu_dp
+    args = multigpu_dp.parse_args([
+        "--backend", "gloo", "--steps", str(DP_RESNET_STEPS),
+        "--batch_per_device", str(DP_BATCH), "--resolution", str(RES),
+        "--capacity", str(CAP), "--ckpt_dir", ""])
+    count = counters(mp)
+    before = {n: c.launches for n, c in count.items()}
+    cap.at("dp_resnet", FUSED)
+    with mp.nn.record_routes() as routes:
+        got = multigpu_dp.train(args, device=dev)
+    cap.at(None)
+    launched = {n: c.launches - before[n] for n, c in count.items()}
+    dp_account(out, routes, launched)
+    rec = {"dp_path": "dp_resnet", "wall_s": got["wall_s"],
+           "loss": got["loss"], "comm": got["comm"],
+           "finite": bool(all(math.isfinite(x) for x in got["loss"])),
+           "replica_digest": got["digest"], "launches": launched,
+           "launches_ok": launched == expected_launches(routes)}
+    dp_emit(rank, rec)
+    out["resnet"] = rec
+    out["resnet_peak_bytes"] = dp_peak(dev)
+
+
+def dp_rank(rank: int, world: int, port: int, tmp: str, cfg: dict) -> None:
+    """One rank of the data-parallel phase (a spawned process): joins the
+    gloo group with the other rank on the same card, runs (a)-(d) under
+    its own ``LaunchCapture``, and saves its records (rank 0 also the
+    operands of every launch shape not in ``cfg["known"]``)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    globals().update({k: v for k, v in cfg.items() if k != "known"})
+    sys.path.insert(0, str(HERE))
+    import mink_octtree_stablediffusion_tpu_torch as mp
+    dev = mp.parallel.rank_device(DEVICE, rank, world)
+    mp.parallel.initialize_distributed(
+        f"127.0.0.1:{port}", world, rank, backend="gloo",
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        cap = LaunchCapture(mp)
+        if rank:  # only rank 0's operands are checked: keep none here
+            cap.at = lambda path, on=(): LaunchCapture.at(cap, path)
+        with cap:
+            for path in (dp_vae, dp_diffusion, dp_sampling, dp_resnet):
+                path(mp, dev, cap, rank, world, out)
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+        out["counts"] = cap.counts
+        if rank == 0:
+            known = cfg["known"]
+            out["cases"] = {
+                path: {k: {key: tuple(o.cpu() if torch.is_tensor(o) else o
+                                      for o in ops)
+                           for key, ops in got.items()
+                           if key not in known.get(k, ())}
+                       for k, got in kernels.items()}
+                for path, kernels in cap.cases.items()}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_phase(mp, dev, cap, power) -> dict:
+    """The data-parallel paths on one card: ``DP_RANKS`` spawned ranks
+    (``dp_rank``) in a gloo group, each on the card, run (a) the SyncBN
+    VAE (``dp_vae``), (b) diffusion training (``dp_diffusion``), (c)
+    sampling (``dp_sampling``) and (d) ``multigpu_dp`` (``dp_resnet``).
+    No fallback: a rank that fails, a group that does not form, or a gloo
+    without CUDA collectives raises here.  Then, in this one process, each
+    rank's sampling shard must equal the request made with that rank's
+    generator, and the shards must differ.  Returns the verdict, rank 0's
+    launch counts and the operands of its launch shapes not seen on
+    earlier paths (``cap``), for the kernel checks."""
+    import tempfile
+    import torch
+    failures = []
+
+    def need(cond, what):
+        if not cond:
+            failures.append(what)
+    cfg = dp_config()
+    cfg["known"] = {k: {key for path, kernels in CHECKED_PATHS
+                        if k in kernels for key in cap.case(path, k)}
+                    for k in KERNELS}
+
+    def move_cases(to):  # the earlier paths' kept operands
+        for per in cap.cases.values():
+            for got in per.values():
+                for key, ops in got.items():
+                    got[key] = tuple(o.to(to) if torch.is_tensor(o) else o
+                                     for o in ops)
+    # the card's memory goes to the two ranks: this process keeps none
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    move_cases("cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.multiprocessing.start_processes(
+                dp_rank, args=(DP_RANKS, mp.parallel.free_port(), tmp, cfg),
+                nprocs=DP_RANKS, join=True, start_method="spawn")
+            ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                     for r in range(DP_RANKS)]
+    finally:
+        move_cases(dev)
+    ranks_wall = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        same = rec["vae_same_batch"]
+        need(same["finite"] and same["launches_ok"] and
+             same["replicas_equal"], f"rank {r}: the same-batch VAE step")
+        if r == 0:
+            need(same["within_control"] or same["bit_equal"],
+                 "the same-batch DP VAE step vs one process's")
+        for key in ("vae_steps", "diffusion_steps"):
+            for s in rec[key]:
+                need(s["finite"] and s["launches_ok"] and
+                     s["replicas_equal"],
+                     f"rank {r}: {s['dp_path']} step {s['step']}")
+        smp = rec["sampling"]
+        need(smp["finite"] and min(smp["voxels_per_instance"]) > 0 and
+             smp["launches_ok"], f"rank {r}: the DP sampling request")
+        need(rec["resnet"]["finite"] and rec["resnet"]["launches_ok"],
+             f"rank {r}: multigpu_dp")
+    need(len({rec["resnet"]["replica_digest"] for rec in ranks}) == 1,
+         "multigpu_dp's replicas")
+    # each shard against the request of one process with the rank's draws
+    shards = ranks[0]["sampling_shards"]
+    fn, decoded, hook = dp_generate_fn(mp, dev)
+    single = []
+    for r in range(DP_RANKS):
+        cpad, valid = dp_request_input(mp, r)
+        coords, v = fn(cpad, valid, generator=mp.train.split_device_rngs(
+            2, DP_RANKS, dev)[r])
+        feats = decoded.pop().float().cpu()
+        c, vv, f = shards[r]
+        single.append({"rank": r,
+                       "coords_equal": torch.equal(coords.cpu(), c),
+                       "valid_equal": torch.equal(v.cpu().to(torch.uint8),
+                                                  vv),
+                       "features_max_abs_diff": float(
+                           (feats - f).abs().max()),
+                       "features_equal": torch.equal(feats, f)})
+    hook.remove()
+    del fn, hook
+    torch.cuda.empty_cache()
+    differ = not (torch.equal(shards[0][0], shards[1][0]) and
+                  torch.equal(shards[0][2], shards[1][2]))
+    need(differ, "the DP sampling shards differ")
+    need(all(s["coords_equal"] and s["valid_equal"] and s["features_equal"]
+             for s in single), "each DP shard equals one process's request")
+    launches = {n: ranks[0]["launches"][n] for n in KERNELS}
+    rec = {"dp_phase": "gloo, 2 ranks on one card", "card": power,
+           "ranks_wall_s": ranks_wall, "parent_bytes_moved_off": held,
+           "single_process_requests": single,
+           "shards_differ": differ, "rank0_launches": launches,
+           "per_rank": [{
+               "rank": r,
+               "vae_step_wall_s": [s["wall_s"] for s in rec["vae_steps"]],
+               "vae_allreduce_s": [s["comm"]["seconds"]
+                                   for s in rec["vae_steps"]],
+               "vae_allreduce_bytes": rec["vae_steps"][0]["comm"]["bytes"],
+               "diffusion_step_wall_s": [s["wall_s"]
+                                         for s in rec["diffusion_steps"]],
+               "diffusion_allreduce_s": [s["comm"]["seconds"]
+                                         for s in rec["diffusion_steps"]],
+               "diffusion_allreduce_bytes":
+                   rec["diffusion_steps"][0]["comm"]["bytes"],
+               "diffusion_params": rec["diffusion_params"],
+               "sampling_wall_s": rec["sampling"]["wall_s"],
+               "resnet_step_wall_s": rec["resnet"]["wall_s"],
+               "resnet_allreduce_s": [c["seconds"]
+                                      for c in rec["resnet"]["comm"]],
+               "resnet_allreduce_bytes": rec["resnet"]["comm"][0]["bytes"],
+               "peak_bytes": {p: rec[f"{p}_peak_bytes"] for p in (
+                   "vae", "diffusion", "sampling", "resnet")}}
+               for r, rec in enumerate(ranks)],
+           "same_batch_vae_step": {
+               k: v for k, v in ranks[0]["vae_same_batch"].items()
+               if k not in ("launches", "dp_path", "step")},
+           "failures": failures, "ok": not failures}
+    emit(rec)
+    return {"ok": not failures, "failures": failures,
+            "counts": ranks[0]["counts"], "cases": ranks[0]["cases"],
+            "launches": launches, "kinds": ranks[0]["kinds"]}
+
+
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -2776,6 +3268,17 @@ def main(argv) -> int:
             rs, lambda r: r.branch == "fused"))
     torch.cuda.empty_cache()
 
+    # -- path 5: data parallelism, two ranks on the card over gloo --------
+    try:
+        dp = dp_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        dp = {"ok": False, "failures": ["data-parallel phase raised"],
+              "counts": {}, "cases": {}, "kinds": {},
+              "launches": dict.fromkeys(KERNELS, 0)}
+    need(dp["ok"], "data-parallel path: " + ", ".join(dp["failures"]))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -2804,6 +3307,8 @@ def main(argv) -> int:
                         train_routes, droutes, vae_off, diff_off,
                         *ctrain["routes"].values())
              for r in rs}
+    for key, layer in dp["kinds"].items():
+        kinds.setdefault(key, layer)
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
     check_all("B1", "serve", fused_check("B1", "serve_path"), kinds)
@@ -2833,6 +3338,16 @@ def main(argv) -> int:
     for kernel in BRICK:
         check_all(kernel, "noise_points", brick_check(kernel,
                                                       "noise_points"), kinds)
+    # the DP paths' launch shapes that no earlier path launched (rank 0's
+    # operands, sent back to the card here)
+    for path, per in dp["cases"].items():
+        for kernel, got in per.items():
+            check = (brick_check if kernel in BRICK else fused_check)(
+                kernel, path)
+            for key, ops in sorted(got.items()):
+                recs.setdefault((kernel, path), {})[key] = check(
+                    key, tuple(o.to(dev) if torch.is_tensor(o) else o
+                               for o in ops), kinds.get(key[:4], "?"))
     all_recs = [r for got in recs.values() for r in got.values()] + extras
     emit({"kernel_checks": len(all_recs),
           "failed": [(r["kernel"], r["case"], r.get("forward_shape"))
@@ -2851,6 +3366,12 @@ def main(argv) -> int:
                           ("noise_points", KERNELS)):
         for kernel in kernels:
             need(shapes(path, kernel) == set(recs[(kernel, path)]),
+                 f"{kernel} checked at every launch shape of {path}")
+    checked = {k: {key for (kk, _), got in recs.items() if kk == k
+                   for key in got} for k in KERNELS}
+    for path, per in dp["counts"].items():
+        for kernel, launched in per.items():
+            need(set(launched) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
 
     # per request / step: each launch shape's time x its launches
@@ -3038,6 +3559,7 @@ def main(argv) -> int:
                       "bound_ms_per_canvas_request":
                           tot_canvas["bound_ms"]})
         e.update({"path": main_path,
+                  "launches_dp_path_rank0": dp["launches"][name],
                   "ms_per_vae_step": tot_vae[name]["ms"],
                   "bound_ms_per_vae_step": tot_vae[name]["bound_ms"],
                   "launches_library_path": lib["launches"].get(name, 0),
@@ -3056,6 +3578,7 @@ def main(argv) -> int:
                   "one diffusion train step")
         e["path"] = "diffusion"
         e["launches_canvas_train_path"] = ctrain["launches"][name]
+        e["launches_dp_path_rank0"] = dp["launches"][name]
         if name == "B6":
             e["ms_per_vae_gate_on_step"] = tot_gate_on["ms"]
             e["bound_ms_per_vae_gate_on_step"] = tot_gate_on["bound_ms"]

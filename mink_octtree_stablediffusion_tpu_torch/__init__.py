@@ -4,9 +4,13 @@ The JAX package stays the reference; this package mirrors its module names
 and runs the generation path (VAE encode → DDIM on the fixed latent grid →
 pruning decode), template-free and conditioned generation on the latent
 canvas, and their training (`train.vae`, `train.diffusion`,
-`train.generalize`, `train.cond`, `train.diffusion_cross`) with PyTorch, and
+`train.generalize`, `train.cond`, `train.diffusion_cross`) with PyTorch,
 serves generation as an exported artifact (`serve.save_artifact`,
-`serve.load_artifact`; `python -m ...generate`).  Every
+`serve.load_artifact`; `python -m ...generate`), and trains and samples
+data-parallel over ``torch.distributed`` (`parallel`: process groups,
+SyncBN's collective, per-rank batches; `train.make_dp_train_step`; the
+sparse ResNet classifiers of `models.resnet` through `python -m
+...multigpu_dp`; `parallel.dryrun`).  Every
 bounded-grid sparse conv that is not densified goes through hand-written
 CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`), each
 launch a PyTorch operator (`ops/library.py`).  Entry points run on
@@ -14,10 +18,10 @@ launch a PyTorch operator (`ops/library.py`).  Entry points run on
 JAX nor anything of the JAX package.
 """
 
-from . import data, diffusion, models, nn, ops, serve, train, utils
+from . import data, diffusion, models, nn, ops, parallel, serve, train, utils
 from .ops.coords import SparseGrid
 from .tensor import SparseTensor, cat, sparse_tensor
 
-__all__ = ["data", "diffusion", "models", "nn", "ops", "serve", "train",
-           "utils",
+__all__ = ["data", "diffusion", "models", "nn", "ops", "parallel", "serve",
+           "train", "utils",
            "SparseGrid", "SparseTensor", "cat", "sparse_tensor"]

@@ -1,9 +1,12 @@
 """Host-side batch collation into fixed-capacity buffers.
 
-Port of `collate_pointclouds` from
+Port of `collate_pointclouds` and `stack_devices` from
 `mink_octtree_stablediffusion_tpu/data/collate.py`: samples are sorted by
 size and the largest dropped while the total exceeds ``max_batch_len`` (or
-the buffer capacity); batch indices are re-assigned contiguously.
+the buffer capacity); batch indices are re-assigned contiguously.  For
+data parallelism, each device's collated tuple is stacked on a leading
+device axis, and rank r takes row r (``device_row``,
+``parallel.shard_batch``).
 """
 
 from __future__ import annotations
@@ -41,3 +44,14 @@ def collate_pointclouds(coords_list: Sequence[np.ndarray], capacity: int,
         fpad = np.zeros((capacity, feature_dim), np.float32)
         fpad[valid] = 1.0
     return cpad, valid, fpad, kept
+
+
+def stack_devices(batches: Sequence[tuple]) -> tuple:
+    """Stack per-device collated tuples along a new leading device axis."""
+    return tuple(np.stack([b[i] for b in batches])
+                 for i in range(len(batches[0])))
+
+
+def device_row(stacked: Sequence[np.ndarray], rank: int) -> tuple:
+    """Device ``rank``'s tuple of a ``stack_devices`` batch."""
+    return tuple(x[rank] for x in stacked)

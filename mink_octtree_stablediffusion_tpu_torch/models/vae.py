@@ -16,7 +16,8 @@ a trainer calls ``.train()``.
 full dense stride-8 canvas before decoding (`ops/canvas.py`), with
 N(0, ``canvas_noise_std``²) features at the empty cells in ``.train()``,
 so that diffusion can sample from pure noise on a grid that depends on
-no data.
+no data.  ``process_group`` makes every BatchNorm SyncBN (JAX's
+``axis_name``), for the data-parallel step.
 """
 
 from __future__ import annotations
@@ -45,20 +46,26 @@ class Encoder(nn.Module):
                  level_capacities: Sequence[int] = (16384, 8192, 2048, 2048,
                                                     2048),
                  in_channels: int = 1, with_window_attn: bool = False,
-                 window_size: int = 50, device=None):
+                 window_size: int = 50, process_group=None, device=None):
         super().__init__()
         ch, caps = tuple(channels), tuple(level_capacities)
+        pg = process_group
         self.block1 = ResNetStack(in_channels, ch[0], after="downsample",
-                                  out_capacity=caps[0], device=device)
+                                  out_capacity=caps[0], process_group=pg,
+                                  device=device)
         self.block2 = ResNetStack(ch[0], ch[1], after="downsample",
-                                  out_capacity=caps[1], device=device)
+                                  out_capacity=caps[1], process_group=pg,
+                                  device=device)
         self.block3 = ResNetStack(ch[1], ch[2], after="downsample",
-                                  out_capacity=caps[2], device=device)
+                                  out_capacity=caps[2], process_group=pg,
+                                  device=device)
         self.window_attn = (MortonWindowTransformer(ch[2], window_size,
                                                     device=device)
                             if with_window_attn else None)
-        self.block4 = ResNetStack(ch[2], ch[3], device=device)
-        self.block5 = ResNetStack(ch[3], ch[4], device=device)
+        self.block4 = ResNetStack(ch[2], ch[3], process_group=pg,
+                                  device=device)
+        self.block5 = ResNetStack(ch[3], ch[4], process_group=pg,
+                                  device=device)
         self.mean_conv = SparseConv(ch[4], ch[4], kernel_size=3, device=device)
         self.log_var_conv = SparseConv(ch[4], ch[4], kernel_size=3,
                                        device=device)
@@ -80,7 +87,8 @@ class Decoder(nn.Module):
 
     def __init__(self, channels: Sequence[int] = (4, 512, 512, 128, 32),
                  level_capacities: Sequence[int] = (2048, 8192, 16384, 32768),
-                 max_keep: Optional[int] = None, device=None):
+                 max_keep: Optional[int] = None, process_group=None,
+                 device=None):
         super().__init__()
         ch = tuple(channels)
         self.level_capacities = tuple(level_capacities)
@@ -88,7 +96,8 @@ class Decoder(nn.Module):
         for lvl in range(4):
             setattr(self, f"block{lvl + 1}", ResNetStack(
                 ch[lvl], ch[lvl + 1], after=None if lvl == 0 else "upsample",
-                out_capacity=self.level_capacities[lvl], device=device))
+                out_capacity=self.level_capacities[lvl],
+                process_group=process_group, device=device))
             setattr(self, f"block{lvl + 1}_cls", SparseConv(
                 ch[lvl + 1], 1, kernel_size=1, use_bias=True, device=device))
 
@@ -124,16 +133,18 @@ class VAE(nn.Module):
                  max_keep: Optional[int] = None, in_channels: int = 1,
                  with_window_attn: bool = False, window_size: int = 50,
                  latent_canvas: bool = False, canvas_noise_std: float = 1.0,
-                 device=None, seed: int = 0):
+                 process_group=None, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.decoder_capacities = tuple(decoder_capacities)
         self.latent_canvas = latent_canvas
         self.canvas_noise_std = canvas_noise_std
         self.encoder = Encoder(channels, encoder_capacities, in_channels,
-                               with_window_attn, window_size, device=dev)
+                               with_window_attn, window_size, process_group,
+                               device=dev)
         self.decoder = Decoder(tuple(reversed(tuple(channels))),
-                               decoder_capacities, max_keep, device=dev)
+                               decoder_capacities, max_keep, process_group,
+                               device=dev)
         init_parameters(self, make_generator(seed, dev))
         self.eval()
 

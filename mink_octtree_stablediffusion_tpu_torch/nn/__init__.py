@@ -3,11 +3,13 @@
 from .act import get_act
 from .attention import (AttentionRoute, MortonWindowTransformer,
                         SparseAttention, SparseTransformer, record_attention)
-from .blocks import BasicBlock, ResNetStack
+from .blocks import (BasicBlock, ResBasicBlock, ResBottleneck, ResNetStack,
+                     SEBasicBlock, SEBottleneck, SELayer)
 from .conv import (GenerativeConvTranspose, Route, SparseConv,
-                   SparseConvTranspose, record_routes)
+                   SparseConvTranspose, UpsampleInterpolate, record_routes)
 from .embed import TimestepEmbedding, timesteps_embedding
 from .init import init_parameters
 from .linear import Dense
 from .norm import BatchNorm, StableInstanceNorm
-from .pool import broadcast_op
+from .pool import (GlobalMaxAvgPool, GlobalPool, LocalPool, PoolTranspose,
+                   broadcast_concat, broadcast_op, global_pool_features)

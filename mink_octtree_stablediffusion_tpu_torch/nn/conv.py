@@ -1,7 +1,8 @@
 """Sparse convolution layers.
 
-Port of `SparseConv`, `SparseConvTranspose` and `GenerativeConvTranspose`
-from `mink_octtree_stablediffusion_tpu/nn/conv.py`, with the same branch
+Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose` and
+`UpsampleInterpolate` from `mink_octtree_stablediffusion_tpu/nn/conv.py`,
+the convs with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
 ``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
 kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → plain
@@ -27,7 +28,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..ops.conv import default_compute_dtype, linear_apply, sparse_conv_apply
+from ..ops.conv import (default_compute_dtype, gather_rows, linear_apply,
+                        sparse_conv_apply)
 from ..ops.coords import SparseGrid, expand_grid, stride_grid
 from ..ops.dense_conv import (dense_conv_apply, dense_conv_general_apply,
                               dense_no_growth_preferred,
@@ -234,3 +236,29 @@ class GenerativeConvTranspose(_ConvBase):
                                self.spec.absolute_offsets(x.tensor_stride),
                                self.spec.out_stride(x.tensor_stride), cap)
         return self._conv(x, out_grid, allow_same_grid_dense=False)
+
+
+class UpsampleInterpolate(nn.Module):
+    """Exact nearest-neighbour octree upsample, parameter-free: the
+    generative k2-s2 transpose's output grid in ``out_capacity`` rows,
+    where every child voxel copies its parent's features (each output row
+    has exactly one parent among the K offsets, so the sum of the
+    per-offset gathers is that parent's row)."""
+
+    def __init__(self, out_capacity: int, kernel_size=2, stride=2,
+                 ndim: int = 3):
+        super().__init__()
+        self.spec = KernelSpec(kernel_size, stride, ndim=ndim,
+                               transpose=True)
+        self.out_capacity = out_capacity
+
+    def forward(self, x: SparseTensor,
+                out_capacity: Optional[int] = None) -> SparseTensor:
+        spec = self.spec
+        out_grid = expand_grid(x.grid, spec.absolute_offsets(x.tensor_stride),
+                               spec.out_stride(x.tensor_stride),
+                               out_capacity or self.out_capacity)
+        out = 0.0
+        for ix in kernel_map(x.grid, out_grid, spec):
+            out = out + gather_rows(x.features, ix)
+        return SparseTensor(grid=out_grid, features=out).mask_features()

@@ -2,8 +2,9 @@
 
 Port of `BatchNorm` and `StableInstanceNorm` from
 `mink_octtree_stablediffusion_tpu/nn/norm.py`.  Statistics are masked:
-padding rows never contribute.  The cross-replica sync of `BatchNorm`
-(``axis_name``, SyncBN) is not ported yet.
+padding rows never contribute.  SyncBN is `BatchNorm` with a
+``process_group`` (JAX's ``axis_name``): the valid-row count, Σx and Σx²
+are summed across the group's ranks before the statistics are formed.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.pool import broadcast_batch, global_pool
+from ..parallel.mesh import all_reduce_sum
 from ..tensor import SparseTensor
 
 
@@ -22,13 +24,22 @@ class BatchNorm(nn.Module):
     variance ``max(E[x²] − mean², 0)`` over the valid rows and moves the
     running buffers in place, ``r = momentum·r + (1 − momentum)·stat`` with
     the same biased variance (``torch.nn.BatchNorm1d`` would store the
-    unbiased one).  In ``.eval()`` it uses the running statistics."""
+    unbiased one).  In ``.eval()`` it uses the running statistics.
+
+    With a ``process_group`` (SyncBN) the count, Σx and Σx² of train mode
+    are summed over the group's ranks, as JAX's ``psum`` over
+    ``axis_name``, so ranks with different valid-row counts weigh by rows,
+    through a differentiable all-reduce: the cotangents of the three sums
+    are summed across the ranks in backward too (``psum``'s transpose).
+    Every rank must call the layer in the same order.  ``.eval()`` never
+    syncs."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5, device=None):
+                 eps: float = 1e-5, process_group=None, device=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.process_group = process_group
         self.weight = nn.Parameter(torch.empty(num_features, device=device))
         self.bias = nn.Parameter(torch.empty(num_features, device=device))
         self.register_buffer("running_mean",
@@ -48,9 +59,16 @@ class BatchNorm(nn.Module):
         f = x.features
         if self.training:
             w = x.valid.to(f.dtype)[:, None]
-            n = w.sum().clamp(min=1.0)
-            mean = (f * w).sum(0) / n
-            var = ((f ** 2 * w).sum(0) / n - mean ** 2).clamp(min=0.0)
+            n, s1, s2 = w.sum(), (f * w).sum(0), (f ** 2 * w).sum(0)
+            if self.process_group is not None:
+                c = s1.shape[0]
+                n, s1, s2 = all_reduce_sum(
+                    torch.cat([n[None], s1, s2]), self.process_group
+                ).split([1, c, c])
+                n = n[0]
+            n = n.clamp(min=1.0)
+            mean = s1 / n
+            var = (s2 / n - mean ** 2).clamp(min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)

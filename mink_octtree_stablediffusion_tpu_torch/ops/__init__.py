@@ -15,7 +15,7 @@ from .morton import morton_decode, morton_encode, morton_encode_np
 from .neighbors import grid_lookup, kernel_map, membership
 # as in the JAX package; the name onehot_conv stays the submodule
 from .onehot_conv import onehot_sparse_conv, use_onehot_conv
-from .pool import broadcast_batch, global_pool
+from .pool import broadcast_batch, global_pool, local_pool_apply
 from .pruning import prune, top_k_mask
 from .reduce import reduce_by_inverse
 from .search import lookup_sorted

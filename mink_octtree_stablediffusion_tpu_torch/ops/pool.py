@@ -1,15 +1,43 @@
-"""Per-instance (global) reductions over the batch column.
+"""Sparse pooling: local (kernel neighbourhood) and global (per instance).
 
-Port of `global_pool` and `broadcast_batch` from
-`mink_octtree_stablediffusion_tpu/ops/pool.py`.  sum/avg are a masked
-one-hot ``[B, N] x [N, C]`` matmul with float32 accumulation, as in JAX
-(deterministic: no atomics); the broadcast back is a masked row gather,
-which equals the JAX one-hot product exactly (one non-zero per row).
+Port of `local_pool_apply`, `global_pool` and `broadcast_batch` from
+`mink_octtree_stablediffusion_tpu/ops/pool.py`.  Local pooling reduces
+over the same padded kernel maps as the convolution.  Global sum/avg are a
+masked one-hot ``[B, N] x [N, C]`` matmul with float32 accumulation, as in
+JAX (deterministic: no atomics); the broadcast back is a masked row
+gather, which equals the JAX one-hot product exactly (one non-zero per
+row).  None of these has a Pallas kernel in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .conv import gather_rows
+
+
+def local_pool_apply(features: torch.Tensor, nbr_idx: torch.Tensor,
+                     mode: str = "avg"):
+    """Sum/avg/max over the kernel neighbourhood of every output row, for
+    ``nbr_idx int32[K, N_out]`` (-1: no neighbour) → (out [N_out, C],
+    num_nonzero [N_out]).  A row without a neighbour gives 0 with a zero
+    gradient.  Max pooling takes ``amax``, which splits the gradient
+    evenly among tied elements, as JAX's ``max`` does."""
+    present = nbr_idx >= 0
+    num = present.to(features.dtype).sum(0)
+    if mode == "max":
+        g = torch.stack([gather_rows(features, ix) for ix in nbr_idx])
+        g = g.masked_fill(~present[:, :, None], float("-inf"))
+        return torch.where(num[:, None] > 0, g.amax(0), 0.0), num
+    acc = torch.zeros((nbr_idx.shape[1], features.shape[1]),
+                      dtype=features.dtype, device=features.device)
+    for ix in nbr_idx:
+        acc = acc + gather_rows(features, ix)
+    if mode == "sum":
+        return acc, num
+    if mode == "avg":
+        return acc / num.clamp(min=1.0)[:, None], num
+    raise ValueError(mode)
 
 
 def _batch_onehot(batch_ids, num_batches, valid, dtype):

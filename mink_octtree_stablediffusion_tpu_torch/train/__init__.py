@@ -8,4 +8,6 @@ from .optim import (AdafactorOptimizer, DiffusionOptimizer,
                     MixedPrecisionParams, adafactor_diffusion_optimizer,
                     canvas_vae_optimizer, cast_params, diffusion_optimizer,
                     factored_dims, vae_optimizer, warmup_cosine)
-from .trainer import CheckpointManager, TrainState, make_train_step
+from .trainer import (CheckpointManager, TrainState, all_reduce_mean,
+                      broadcast_module, make_dp_train_step, make_train_step,
+                      split_device_rngs)

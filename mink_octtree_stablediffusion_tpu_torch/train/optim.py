@@ -254,9 +254,15 @@ class MixedPrecisionParams:
         self.inner.zero_grad(set_to_none=set_to_none)
 
     @torch.no_grad()
-    def step(self, closure=None):
-        for p, m in zip(self.params, self.master):
-            m.grad = None if p.grad is None else p.grad.to(m.dtype)
+    def step(self, closure=None, grads=None):
+        """One step of the master.  ``grads`` (one float32 tensor or None
+        per parameter, in order) reach the master as they are, unrounded:
+        the data-parallel step's float32 mean of the ranks' gradients;
+        without them, each live gradient is upcast."""
+        if grads is None:
+            grads = [p.grad for p in self.params]
+        for m, g in zip(self.master, grads):
+            m.grad = None if g is None else g.to(m.dtype)
         self.inner.step()
         for p, m in zip(self.params, self.master):
             p.copy_(m)

@@ -7,7 +7,10 @@ returns a ``state_dict`` for the matching port module:
 - a flax ``Dense`` kernel ``[in, out]`` becomes a ``Linear`` weight
   ``[out, in]``;
 - ``BatchNorm_0`` → ``bn``: ``params/{scale,bias}`` → ``weight``/``bias``,
-  ``batch_stats/{mean,var}`` → ``running_mean``/``running_var``;
+  ``batch_stats/{mean,var}`` → ``running_mean``/``running_var``; a
+  BatchNorm named by its parent (the ResNet blocks' ``norm1``…
+  ``downsample_norm``, the ResNets' ``bn1``) maps the same leaves under
+  its own name;
 - ``StableInstanceNorm_0`` → ``inorm``, ``weight``/``bias`` 1:1;
 - ``SparseAttention_0`` → ``attn``; a ``MortonWindowTransformer`` keeps
   its projections ``to_q``/``to_kv``/``to_out`` directly under its own
@@ -20,7 +23,10 @@ returns a ``state_dict`` for the matching port module:
   beside ``params["unet"]``) → the ``cond_table`` parameter 1:1.
 
 A UNet with ``remat`` has the same tree as one without (the stacks keep
-their names), so it needs nothing more.
+their names), so it needs nothing more; nor do the ResNet classifiers
+(``conv1``, ``bn1``, ``layer{stage}_{i}``, ``conv5`` and the ``final``
+dense head) and the squeeze-excite layers' dense ``fc1``/``fc2``, whose
+names are the same in both trees; pooling has no parameter.
 
 Every other module name is the same in both trees.  Given the module, the
 cover is checked one to one: every flax leaf lands on a port parameter or

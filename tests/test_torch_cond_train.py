@@ -348,8 +348,11 @@ def test_canvas_entry_points_run_and_restore(tmp_path, caplog):
             "--input_capacity", "1024", "--batch_size", "2",
             "--vae_channel", *map(str, VCH), "--unet_channel",
             *map(str, UCH), "--group", "4", "--ckpt_dir", d]
+    # phase 3 at 2 samples of 2 DDPM steps: its path runs whole, at a
+    # fraction of the script's default 16 samples of 50 steps
     gen = tiny + ["--train_shapes", "4", "--val_shapes", "2", "--steps_vae",
-                  "2", "--steps_diff", "2", "--eval_every", "2"]
+                  "2", "--steps_diff", "2", "--eval_every", "2",
+                  "--sample_steps", "2", "--gen_samples", "2"]
     out = generalize.main(gen + ["--diff_opt", "adafactor", "--remat",
                                  "--attn_window", "8", "--attn_max_len",
                                  "32", "--level0_skip"])

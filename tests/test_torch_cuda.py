@@ -1,7 +1,9 @@
 """Tests of the port's CUDA kernels (B1 forward, B2 dF, B3 dW and its
 passes of the fused conv; B5 forward and dF pass, B6 dW of the brick conv;
 B4 and B7, the convs given a kernel map; B1's stages, B8/B9) and of small
-VAE and diffusion train steps through them; they need an NVIDIA GPU.
+VAE and diffusion train steps through them, and of data parallelism on
+the card (SyncBN and a DP step, two ranks sharing it over gloo, in
+processes spawned from `torch_dp_worker.py`); they need an NVIDIA GPU.
 
 Marked ``cuda``: without a card each test skips (the decision is made
 inside the test).  This file imports neither JAX nor the JAX package, so on
@@ -908,3 +910,112 @@ def test_b1_stages_match_plain(cin, cout):
     _close_to(got["gather"], fused_conv._stage_plain(*plain, torch.float32,
                                                      "gather"))
     assert torch.all(got["empty"] == 0)
+
+
+def _spawn_gloo_ranks(payload: dict, tmp_path, device="cuda") -> list:
+    """Two ranks sharing the card in a gloo group (`torch_dp_worker.py`),
+    running ``payload``'s jobs; → each rank's results."""
+    import os
+
+    import torch_dp_worker
+    if device == "cuda":
+        mp.utils.cuda_build.build()  # once, before the ranks load it
+    torch.multiprocessing.start_processes(
+        torch_dp_worker.run, args=(2, mp.parallel.free_port(), payload,
+                                   str(tmp_path), device),
+        nprocs=2, join=True, start_method="spawn")
+    return [torch.load(os.path.join(str(tmp_path), f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+@pytest.mark.cuda
+def test_sync_batchnorm_on_card_over_gloo(tmp_path):
+    """SyncBN on CUDA tensors of two ranks (valid rows differ) against the
+    batch norm of their pooled rows, in float64 on the CPU: outputs and
+    input gradients per rank, the scale/bias gradients summed over the
+    ranks (each rank's own, before a step's mean), the running
+    statistics; 1e-5."""
+    _card()
+    rng = np.random.RandomState(0)
+    c, cap, tensors = 5, 512, []
+    for n in (150, 90):
+        rows = [np.concatenate([np.full((len(v), 1), b, np.int32), v], 1)
+                for b in range(2)
+                for v in [np.unique(rng.randint(0, 10, (n, 3)), axis=0)]]
+        cpad, valid = mp.ops.pad_to_capacity(np.concatenate(rows), cap)
+        feats = ((rng.randn(cap, c) * 2.0 + 1.0) * valid[:, None])
+        tensors.append((cpad, valid, feats.astype(np.float32)))
+    job = {"scale": (rng.rand(c) + 0.5).astype(np.float32),
+           "bias": rng.randn(c).astype(np.float32), "extent": 10,
+           "tensors": tensors,
+           "gout": [rng.randn(cap, c).astype(np.float32) for _ in range(2)]}
+    ranks = _spawn_gloo_ranks({"sync_bn": job}, tmp_path)
+
+    # the reference: each rank's rows in its grid's order
+    fs, vs = [], []
+    for cpad, valid, feats in tensors:
+        st = mp.sparse_tensor(torch.as_tensor(cpad), torch.as_tensor(feats),
+                              capacity=cap, valid=torch.as_tensor(valid),
+                              batch_size=2, extent=(10,) * 3)
+        fs.append(st.features.double().requires_grad_())
+        vs.append(st.valid.double()[:, None])
+    w = torch.as_tensor(job["scale"]).double().requires_grad_()
+    b = torch.as_tensor(job["bias"]).double().requires_grad_()
+    n = sum(v.sum() for v in vs)
+    mean = sum((f * v).sum(0) for f, v in zip(fs, vs)) / n
+    var = sum((f ** 2 * v).sum(0) for f, v in zip(fs, vs)) / n - mean ** 2
+    ys = [((f - mean) * torch.rsqrt(var + 1e-5) * w + b) * v
+          for f, v in zip(fs, vs)]
+    sum((y * torch.as_tensor(g).double()).sum()
+        for y, g in zip(ys, job["gout"])).backward()
+    for r, res in enumerate(ranks):
+        got = res["sync_bn"]
+        for key, want in (("y", ys[r]), ("df", fs[r].grad)):
+            np.testing.assert_allclose(got[key], want.detach().numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(got["mean"], 0.1 * mean.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["var"], 0.9 + 0.1 * var.detach().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    for key, want in (("dscale", w.grad), ("dbias", b.grad)):
+        np.testing.assert_allclose(ranks[0]["sync_bn"][key] +
+                                   ranks[1]["sync_bn"][key], want.numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_dp_vae_step_on_card_over_gloo(tmp_path):
+    """One data-parallel step of a small SyncBN VAE with two ranks on the
+    card (gloo; a different batch per rank): finite, the fused convs
+    launched B1, and the two ranks' parameters and buffers equal bit for
+    bit after the step."""
+    _card()
+    res, cap, b = 16, 256, 2
+    ch, enc, dec = (4, 8, 8, 8, 2), (128, 64, 32, 32, 32), (16, 64, 128, 256)
+    vae = mp.models.VAE(channels=ch, encoder_capacities=enc,
+                        decoder_capacities=dec, latent_canvas=True,
+                        device="cpu", seed=0)
+    rng = np.random.RandomState(1)
+    batches = []
+    for n in (96, 60):
+        vox = [np.unique(rng.randint(0, res, (n, 3)), axis=0)
+               for _ in range(b)]
+        cpad, valid = mp.ops.pad_to_capacity(
+            mp.ops.batched_coordinates_np(vox), cap)
+        batches.append((cpad, valid,
+                        np.ones((cap, 1), np.float32) * valid[:, None]))
+    job = {"cfg": {"channels": ch, "enc": enc, "dec": dec, "cap": cap,
+                   "b": b, "res": res},
+           "state": {n: t.numpy() for n, t in vae.state_dict().items()},
+           "batches": batches,
+           "eps": [rng.randn(enc[2], ch[4]).astype(np.float32)
+                   for _ in range(2)],
+           "canvas_noise": [rng.randn(b * (res // 8) ** 3, ch[4]).astype(
+               np.float32) for _ in range(2)]}
+    a, z = (r["vae_step"] for r in _spawn_gloo_ranks({"vae_step": job},
+                                                      tmp_path))
+    assert np.isfinite(a["loss"]) and a["loss"] == z["loss"]
+    assert a["b1_launches"] > 0 and z["b1_launches"] == a["b1_launches"]
+    for name, t in a["state"].items():
+        np.testing.assert_array_equal(t, z["state"][name], err_msg=name)
+    assert a["comm"]["bytes"] > 0
