@@ -104,6 +104,16 @@ read just after:
   earlier path launched.  It prints step walls, the all-reduce's host
   seconds and bytes, and each rank's peak memory.  No fallback: a failed
   rank fails the run.
+- **unbounded grids and the tensor API** — ``unbounded_phase``: the
+  library path's room (a ``TensorField`` with no extent) and finest
+  level (``make_grid`` with no extent) as unbounded grids, each beside
+  its bounded twin: equal voxel sets; the hash-table route equal to the
+  sorted search on the card over the k3 kernel map; a k3 conv (the plain
+  route) within ``1e-3·max|ref| + 1e-5`` of B1 on the twin, then a
+  strided conv, a generative transpose, pruning, a union and the slice
+  back to the room's points with the twin's voxel counts; and the
+  ``api_demo`` entry point.  It prints the hash build, lookup, kernel-map
+  and conv times beside the twin's, and the peak memory.
 
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
@@ -2593,6 +2603,257 @@ def library_phase(mp, dev, power) -> dict:
             "launches": launches}
 
 
+# -- the unbounded-grid phase -----------------------------------------------
+# the plain route on an unbounded grid against B1 on its bounded twin: the
+# same bf16 operands and float32 sums in another order
+UNBOUNDED_RTOL, UNBOUNDED_ATOL = 1e-3, 1e-5
+# the api_demo's counts that do not depend on its random weights, as
+# `examples/api_demo.py` prints them
+API_DEMO_COUNTS = {"input": 199, "strided": 64, "grown": 512, "field": 199,
+                   "dense": 199}
+
+
+def unbounded_phase(mp, dev, cap, power, sizes=None) -> dict:
+    """Unbounded grids and the tensor API on the library path's room
+    (26,098 points, 3→32) and finest level (131,072 rows, 32→32), seed 0,
+    each beside its bounded twin (the same points with the extent set):
+
+    - (a) voxelize: the room as a ``TensorField`` with ``extent=None``
+      (its points jittered inside their voxels), the finest level by
+      ``make_grid(..., extent=None)``; the voxel sets must equal the
+      twin's.
+    - (b) the hash route (``grid_lookup`` on the card) must equal the
+      sorted search on the same card over the k3 kernel map, row for row
+      (every coordinate lies inside Morton's ±512-cell range).
+    - (c) a k3 ``SparseConv`` on the unbounded grid (the plain route) and
+      on the twin (B1) must agree per coordinate within
+      1e-3·max|ref| + 1e-5; then a k2-s2 strided conv, a
+      ``GenerativeConvTranspose``, ``prune`` (by coordinate parity), a
+      ``+`` across two grids (the union with the points moved one voxel up
+      in z) and, on the room, ``slice_to_field`` back to its points: each
+      finite, with the twin's voxel counts (and the union's sums and the
+      sliced features the twin's).
+    - (d) ``api_demo.main`` on the card: its counts must be the example's.
+
+    Prints per workload the hash build (ms, scatter rounds), the lookup of
+    the k3 map's queries (ms, probe rounds, longest and mean probe), the
+    kernel map by each route, the plain conv beside the twin's, and the
+    peak memory.  B1's launches (the twins' and the demo's convs) are
+    counted from 0 and their operands kept (``cap``, path "unbounded")."""
+    import numpy as np
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import api_demo
+    from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+    from mink_octtree_stablediffusion_tpu_torch.ops import hashtable
+    ops, KS = mp.ops, mp.ops.KernelSpec
+    k3 = bc.K3
+    failures, out, all_routes = [], {}, []
+    counter = counters(mp)["B1"]
+    t_phase = time.perf_counter()
+    ws = bc.workloads(dev, seed=0, sizes=sizes or bc.FULL)
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def need(cond, what):
+        if not cond:
+            failures.append(what)
+
+    def close(got, ref):
+        err = (got - ref).abs().max().item() if ref.numel() else 0.0
+        tol = UNBOUNDED_RTOL * ref.abs().max().item() + UNBOUNDED_ATOL
+        return {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+
+    def twin_rows(twin, grid):
+        """Each row of ``grid`` in ``twin`` (-1 where absent)."""
+        return ops.grid_lookup(twin, grid.coords, grid.valid).long()
+
+    def same_features(a, ta):
+        """Per coordinate: ``a``'s rows against the twin ``ta``'s."""
+        rows = twin_rows(ta.grid, a.grid)
+        v = a.valid
+        need(bool((rows[v] >= 0).all()), "a row missing from the twin")
+        return close(a.features[v], ta.features[rows[v].clamp(min=0)])
+
+    mp.utils.resolve_device(dev)  # float32 products without TF32
+    path_launches = 0  # B1's launches by the phase's path, timing left out
+    for name in ("room", "finest"):
+        w = ws[name]
+        coords, valid, pf, batch, extent = w.raw
+        n_cap = coords.shape[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"unbounded_workload": name, "card": power,
+               "points": int(valid.sum()), "rows": n_cap}
+        # (a) voxelize, unbounded and bounded
+        if name == "room":
+            jitter = torch.rand(coords.shape[0], 3, generator=gen,
+                                device=dev) * 0.999
+            pts = torch.cat([coords[:, :1].float(),
+                             coords[:, 1:].float() + jitter], 1)
+            field = mp.TensorField(pts, pf, valid, batch_size=batch)
+            x, inverse = field.sparse(n_cap, quantization_mode="sum")
+            tx, tinverse = field.replace(extent=extent).sparse(
+                n_cap, quantization_mode="sum")
+        else:
+            g, inv, _ = ops.make_grid(coords, valid, n_cap, batch_size=batch)
+            tg, tinv, _ = ops.make_grid(coords, valid, n_cap,
+                                        batch_size=batch, extent=extent)
+            x = mp.SparseTensor(g, ops.reduce_by_inverse(pf, inv, valid,
+                                                         n_cap, "sum"))
+            tx = mp.SparseTensor(tg, ops.reduce_by_inverse(pf, tinv, valid,
+                                                           n_cap, "sum"))
+        need(x.grid.extent is None and tx.grid.extent is not None,
+             f"{name}: grid bounds")
+        rec["voxels"] = int(x.count())
+        need(voxel_set(x.grid.coords, x.grid.valid) ==
+             voxel_set(tx.grid.coords, tx.grid.valid), f"{name}: voxel sets")
+        rec["features_vs_twin"] = same_features(x, tx)
+        # (b) the hash route against the sorted search on the card
+        grid = x.grid
+        rec["route"] = ops.lookup_route(grid, dev)
+        need(rec["route"] == "hash", f"{name}: the card takes the hash route")
+        nbr = ops.kernel_map(grid, grid, k3)
+        rec["matched_pairs"] = int((nbr >= 0).sum())
+        need(rec["matched_pairs"] == int((ops.kernel_map(
+            tx.grid, tx.grid, k3) >= 0).sum()), f"{name}: pairs vs twin")
+        # the k3 map's queries, as kernel_map builds them
+        table = grid.hash_table()
+        offs = k3.absolute_offsets(grid.stride)
+        deltas = torch.as_tensor(offs, dtype=torch.int32, device=dev)
+        queries = torch.cat([grid.coords[None, :, :1].expand(len(offs), -1, 1),
+                             grid.coords[None, :, 1:] + deltas[:, None]],
+                            -1).reshape(-1, 4)
+        qv = grid.valid.repeat(len(offs))
+
+        def sorted_rows():
+            return ops.lookup_sorted(grid.coords, grid.valid, grid.stride,
+                                     queries, qv)
+        rec["kernel_map_hash_equals_sorted"] = bool(torch.equal(
+            nbr.reshape(-1), sorted_rows()))
+        need(rec["kernel_map_hash_equals_sorted"], f"{name}: hash vs sorted")
+        rows, probe_rounds, probes = hashtable.probe(table, queries, qv)
+        need(bool(torch.equal(rows.reshape(nbr.shape), nbr)),
+             f"{name}: probe vs kernel map")
+        rec.update({
+            "table_size": table.table_size,
+            "load": int(grid.valid.sum()) / table.table_size,
+            "hash_build_ms": bc.cuda_time_ms(lambda: hashtable.build_table(
+                grid.coords, grid.valid)),
+            "hash_build_rounds": table.rounds,
+            "lookup_queries": int(qv.sum()),
+            "lookup_ms": bc.cuda_time_ms(lambda: hashtable.lookup(
+                table, queries, qv)),
+            "lookup_probe_rounds": probe_rounds,
+            "lookup_longest_probe": int(probes.max()),
+            "lookup_mean_probe": float(probes[qv].float().mean()),
+            # a fresh grid object: the table is built inside each call
+            "kernel_map_ms_hash_with_build": bc.cuda_time_ms(
+                lambda: ops.kernel_map(ops.SparseGrid(
+                    grid.coords, grid.valid, grid.stride, grid.batch_size),
+                    grid, k3)),
+            "lookup_ms_sorted": bc.cuda_time_ms(sorted_rows),
+            "kernel_map_ms_twin_lut": bc.cuda_time_ms(
+                lambda: ops.kernel_map(tx.grid, tx.grid, k3))})
+        del queries, qv, rows, probes
+        # (c) the conv family, unbounded (plain) against the twin (B1)
+        cin, cout = w.kernel.shape[1], w.kernel.shape[2]
+        conv = mp.nn.SparseConv(cin, cout, 3, device=dev)
+        down = mp.nn.SparseConv(cout, cout, 2, 2, device=dev)
+        # room enough that no buffer overflows: an overflowing buffer keeps
+        # the first rows of its canonical order, which differs between the
+        # two grids
+        up = mp.nn.GenerativeConvTranspose(cout, cout,
+                                           out_capacity=8 * n_cap,
+                                           device=dev)
+        for m in (conv, down, up):
+            m.reset_parameters(generator=gen)
+        cap.at("unbounded", ("B1",))
+        counter.launches = 0
+        with torch.no_grad(), mp.nn.record_routes() as routes:
+            y, ty = conv(x), conv(tx)
+            rec["conv_vs_twin"] = same_features(y, ty)
+            z, tz = down(y), down(ty)
+            g_up, tg_up = up(z), up(tz)
+            keep = (torch.div(g_up.C[:, 1], g_up.tensor_stride[0],
+                              rounding_mode="floor") % 2 == 0)
+            tkeep = (torch.div(tg_up.C[:, 1], tg_up.tensor_stride[0],
+                               rounding_mode="floor") % 2 == 0)
+            pruned = mp.SparseTensor(*ops.prune(g_up.grid, g_up.features,
+                                                keep))
+            tpruned = mp.SparseTensor(*ops.prune(tg_up.grid, tg_up.features,
+                                                 tkeep))
+            up_z = coords.clone()
+            up_z[:, 3] += 1
+            up_valid = valid & (up_z[:, 3] < extent[2])
+            g2, _, _ = ops.make_grid(up_z, up_valid, 2 * n_cap,
+                                     batch_size=batch)
+            tg2, _, _ = ops.make_grid(up_z, up_valid, 2 * n_cap,
+                                      batch_size=batch, extent=extent)
+            ones = torch.ones(2 * n_cap, cout, device=dev)
+            u = y + mp.SparseTensor(g2, ones * g2.valid[:, None])
+            tu = ty + mp.SparseTensor(tg2, ones * tg2.valid[:, None])
+            rec["union_vs_twin"] = same_features(u, tu)
+            steps = {"conv": (y, ty), "strided": (z, tz),
+                     "generative": (g_up, tg_up), "pruned": (pruned, tpruned),
+                     "union": (u, tu)}
+            if name == "room":
+                s, ts = (mp.slice_to_field(y, field, inverse),
+                         mp.slice_to_field(ty, field, tinverse))
+                rec["sliced_points"] = int(s.valid.sum())
+                need(rec["sliced_points"] == w.points, "room: sliced points")
+                rec["slice_vs_twin"] = close(s.features, ts.features)
+                need(bool(torch.isfinite(s.features).all()), "room: slice")
+                need(rec["slice_vs_twin"]["ok"], "room: slice vs twin")
+        cap.at(None)
+        torch.cuda.synchronize()
+        path_launches += counter.launches
+        all_routes += routes
+        rec["voxel_counts"] = {k: [int(a.count()), int(b.count())]
+                               for k, (a, b) in steps.items()}
+        for k, (a, b) in steps.items():
+            need(int(a.count()) == int(b.count()) > 0 and
+                 int(a.count()) < a.capacity,
+                 f"{name}: {k} voxel count vs twin, no overflow")
+            need(bool(torch.isfinite(a.features).all()), f"{name}: {k} finite")
+        need(rec["features_vs_twin"]["ok"] and rec["conv_vs_twin"]["ok"] and
+             rec["union_vs_twin"]["ok"], f"{name}: features vs twin")
+        rec["branches"] = {"unbounded": sorted({
+            r.branch for r in routes[0::2]}), "twin": sorted({
+                r.branch for r in routes[1::2]})}
+        need(rec["branches"]["unbounded"] == ["plain"] and
+             "fused" in rec["branches"]["twin"], f"{name}: conv routes")
+        with torch.no_grad():
+            rec["plain_conv_ms"] = bc.cuda_time_ms(lambda: conv(x))
+            rec["twin_b1_conv_ms"] = bc.cuda_time_ms(lambda: conv(tx))
+        torch.cuda.synchronize()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        emit(rec)
+        out[name] = rec
+        del x, tx, y, ty, z, tz, g_up, tg_up, pruned, tpruned, u, tu, steps
+        torch.cuda.empty_cache()
+    # (d) the api_demo entry point on the card
+    cap.at("unbounded", ("B1",))
+    counter.launches = 0
+    with mp.nn.record_routes() as routes:
+        counts = api_demo.main(["--device", str(dev)])
+    cap.at(None)
+    torch.cuda.synchronize()
+    path_launches += counter.launches
+    all_routes += routes
+    emit({"api_demo_counts": counts, "card": power})
+    need(all(counts[k] == v for k, v in API_DEMO_COUNTS.items()) and
+         counts["pruned"] > 0, "api_demo counts")
+    launches = path_launches
+    fused = sum(r.branch == "fused" for r in all_routes)
+    emit({"unbounded_path_launches": {"B1": launches},
+          "fused_route_convs": fused,
+          "phase_s": time.perf_counter() - t_phase})
+    need(launches == fused > 0, "B1 launches on the unbounded path")
+    del ws
+    torch.cuda.empty_cache()
+    return {"ok": not failures, "failures": failures, "records": out,
+            "routes": all_routes, "launches": {"B1": launches}}
+
+
 # -- the data-parallel phase ------------------------------------------------
 # Two ranks share the one card over gloo (NCCL refuses two ranks on one
 # device; gloo's all_reduce and broadcast take CUDA tensors through the
@@ -3279,6 +3540,17 @@ def main(argv) -> int:
     need(dp["ok"], "data-parallel path: " + ", ".join(dp["failures"]))
     torch.cuda.empty_cache()
 
+    # -- path 6: unbounded grids and the tensor API ------------------------
+    try:
+        with cap:
+            unb = unbounded_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        unb = {"ok": False, "failures": ["unbounded phase raised"],
+               "routes": [], "launches": {"B1": 0}}
+    need(unb["ok"], "unbounded path: " + ", ".join(unb["failures"]))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -3305,13 +3577,14 @@ def main(argv) -> int:
     kinds = {(r.n_out, r.cin, r.cout, r.k): r.layer
              for rs in (per_request_routes[0], canv["all_routes"],
                         train_routes, droutes, vae_off, diff_off,
-                        *ctrain["routes"].values())
+                        unb["routes"], *ctrain["routes"].values())
              for r in rs}
     for key, layer in dp["kinds"].items():
         kinds.setdefault(key, layer)
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
     check_all("B1", "serve", fused_check("B1", "serve_path"), kinds)
+    check_all("B1", "unbounded", fused_check("B1", "unbounded_path"), kinds)
     st = mp.sparse_tensor(torch.as_tensor(cpad, device=dev),
                           torch.as_tensor(valid, device=dev)[:, None].float(),
                           capacity=CAP, batch_size=BATCH,
@@ -3358,7 +3631,7 @@ def main(argv) -> int:
     def shapes(path, kernel):
         return set(cap.counts.get(path, {}).get(kernel, {}))
     for path, kernels in (("generation", ("B1",)), ("canvas", ("B1",)),
-                          ("serve", ("B1",)),
+                          ("serve", ("B1",)), ("unbounded", ("B1",)),
                           ("vae_train", FUSED),
                           ("diffusion", KERNELS),
                           ("vae_gate_on", BRICK),
@@ -3554,6 +3827,7 @@ def main(argv) -> int:
         if name == "B1":
             e.update({"launches_canvas_path": canv["launches"]["B1"],
                       "launches_serve_path": serve["launches"]["B1"],
+                      "launches_unbounded_path": unb["launches"]["B1"],
                       "ms_per_canvas_request": tot_canvas["ms"],
                       "plain_ms_per_canvas_request": tot_canvas["plain_ms"],
                       "bound_ms_per_canvas_request":

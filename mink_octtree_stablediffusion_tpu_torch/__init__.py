@@ -10,7 +10,10 @@ serves generation as an exported artifact (`serve.save_artifact`,
 data-parallel over ``torch.distributed`` (`parallel`: process groups,
 SyncBN's collective, per-rank batches; `train.make_dp_train_step`; the
 sparse ResNet classifiers of `models.resnet` through `python -m
-...multigpu_dp`; `parallel.dryrun`).  Every
+...multigpu_dp`; `parallel.dryrun`), and offers the MinkowskiEngine-style
+tensor API on bounded and unbounded grids (``TensorField``, slicing,
+interpolation, the dense round trip, union arithmetic, ``python -m
+...api_demo``).  Every
 bounded-grid sparse conv that is not densified goes through hand-written
 CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`), each
 launch a PyTorch operator (`ops/library.py`).  Entry points run on
@@ -18,10 +21,18 @@ launch a PyTorch operator (`ops/library.py`).  Entry points run on
 JAX nor anything of the JAX package.
 """
 
-from . import data, diffusion, models, nn, ops, parallel, serve, train, utils
+from . import (config, data, diffusion, models, nn, ops, parallel, serve,
+               train, utils)
+from .config import Algorithm, get_algorithm, set_algorithm
 from .ops.coords import SparseGrid
-from .tensor import SparseTensor, cat, sparse_tensor
+from .tensor import (SparseTensor, TensorField, cat, cat_slice,
+                     dense_coordinates, interpolate_at, slice_to_field,
+                     sparse_tensor, stack_mean, stack_sum, stack_var,
+                     to_sparse_dense)
 
-__all__ = ["data", "diffusion", "models", "nn", "ops", "parallel", "serve",
-           "train", "utils",
-           "SparseGrid", "SparseTensor", "cat", "sparse_tensor"]
+__all__ = ["Algorithm", "get_algorithm", "set_algorithm", "config", "data", "diffusion", "models", "nn", "ops", "parallel",
+           "serve", "train", "utils",
+           "SparseGrid", "SparseTensor", "TensorField", "cat", "cat_slice",
+           "dense_coordinates", "interpolate_at", "slice_to_field",
+           "sparse_tensor", "stack_mean", "stack_sum", "stack_var",
+           "to_sparse_dense"]

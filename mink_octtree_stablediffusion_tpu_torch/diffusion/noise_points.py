@@ -12,10 +12,12 @@ occupancy as well as features.  Modes:
   every occupied latent cell, with zero features or, given
   ``near_sigma``, N(0, near_sigma²) features.
 
-The union lives in a fixed ``capacity`` buffer.  The port's grids are
-bounded, so the neighbours that fall outside the latent's extent are
-dropped; the JAX package keeps them (its near grid and union are then
-unbounded, in (batch, Morton) order).  Inside the extent the two agree
+The union lives in a fixed ``capacity`` buffer.  On an unbounded latent
+the near grid and the union are unbounded, in (batch, Morton) order, row
+for row the JAX package's.  On a bounded latent the port keeps the
+extent, so that the union stays bounded and its convs on the fused
+route: the neighbours outside the extent are dropped, where the JAX
+package keeps them on an unbounded grid; inside the extent the two agree
 cell for cell while the buffers do not overflow.
 """
 
@@ -26,8 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.coords import INVALID_COORD, SparseGrid, make_grid, unique_coords
-from ..ops.coords import device_const
+from ..ops.coords import (INVALID_COORD, SparseGrid, device_const,
+                          expand_grid, make_grid, unique_coords)
 from ..ops.kernels import KernelSpec
 from ..ops.union import union
 from ..tensor import SparseTensor
@@ -78,9 +80,13 @@ def _all_grid(latent: SparseTensor, latent_resolution: int) -> SparseGrid:
 
 
 def _near_grid(latent: SparseTensor, capacity: int) -> SparseGrid:
-    """Every occupied cell and its k3-s1 neighbours inside the extent."""
+    """Every occupied cell and its k3-s1 neighbours: all of them on an
+    unbounded latent (JAX's ``expand_grid``), those inside the extent on a
+    bounded one."""
     g = latent.grid
     offs = KernelSpec(3, 1, ndim=g.ndim).absolute_offsets(g.stride)
+    if g.extent is None:
+        return expand_grid(g, offs, g.stride, capacity)
     k = offs.shape[0]
     off = device_const(offs, torch.int32, g.device)
     cand = torch.cat([g.coords[:, None, :1].expand(g.capacity, k, 1),

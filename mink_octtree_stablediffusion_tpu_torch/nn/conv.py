@@ -1,12 +1,13 @@
 """Sparse convolution layers.
 
-Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose` and
-`UpsampleInterpolate` from `mink_octtree_stablediffusion_tpu/nn/conv.py`,
-the convs with the same branch
+Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose`,
+`UpsampleInterpolate` and `ChannelwiseConv` from
+`mink_octtree_stablediffusion_tpu/nn/conv.py`, the convs with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
 ``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
 kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → plain
-gather-GEMM over a kernel map.  Kernel
+gather-GEMM over a kernel map (unbounded grids always: the JAX package
+has no kernel for them either).  Kernel
 layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
 
 ``record_routes()`` collects, for every conv call, the branch it took, its
@@ -261,4 +262,48 @@ class UpsampleInterpolate(nn.Module):
         out = 0.0
         for ix in kernel_map(x.grid, out_grid, spec):
             out = out + gather_rows(x.features, ix)
+        return SparseTensor(grid=out_grid, features=out).mask_features()
+
+
+class ChannelwiseConv(nn.Module):
+    """Depthwise sparse conv (the reference's
+    ``MinkowskiChannelwiseConvolution``): ``out[j] = Σ_k in[nbr_k(j)] ·
+    w_k`` with a per-channel kernel ``[K, C]`` (kaiming normal over K),
+    over a kernel map on any grid.  The kernel keeps the flax layout, so
+    ``utils.convert`` copies it as it is."""
+
+    def __init__(self, channels: int, kernel_size=3, stride=1, dilation=1,
+                 use_bias: bool = False,
+                 region_type: RegionType = RegionType.HYPER_CUBE,
+                 out_capacity: Optional[int] = None, ndim: int = 3,
+                 device=None):
+        super().__init__()
+        self.spec = KernelSpec(kernel_size, stride, dilation, ndim=ndim,
+                               region_type=region_type)
+        self.out_capacity = out_capacity
+        self.kernel = nn.Parameter(torch.empty(self.spec.volume, channels,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.empty(channels, device=device))
+                     if use_bias else None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.kernel.normal_(0.0, math.sqrt(2.0 / self.spec.volume),
+                                generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: SparseTensor,
+                out_grid: Optional[SparseGrid] = None) -> SparseTensor:
+        spec = self.spec
+        if out_grid is None:
+            out_grid = x.grid if all(s == 1 for s in spec.stride) else \
+                stride_grid(x.grid, spec.stride,
+                            self.out_capacity or x.capacity)
+        out = 0.0
+        for k, ix in enumerate(kernel_map(x.grid, out_grid, spec)):
+            out = out + gather_rows(x.features, ix) * self.kernel[k]
+        if self.bias is not None:
+            out = out + self.bias
         return SparseTensor(grid=out_grid, features=out).mask_features()

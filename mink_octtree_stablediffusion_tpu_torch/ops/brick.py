@@ -1,7 +1,9 @@
 """8³-brick addressing between grid rows and dense bricks.
 
-Port of `mink_octtree_stablediffusion_tpu/ops/brick.py` (the layout, the
-row ↔ brick scatter and gather, and the 27-slab ``brick_conv_xla``).
+Port of `mink_octtree_stablediffusion_tpu/ops/brick.py`: the layout, the
+row ↔ brick scatter and gather, the 27-slab ``brick_conv_xla``, its
+row-world wrapper ``brick_sparse_conv`` and the test of where it applies
+(``brick_applicable``).
 Bounded 3-D grids only:
 
   slot(b, x, y, z) = ((b·Bx + x/8)·By + y/8)·Bz + z/8     (dense brick space)
@@ -22,6 +24,7 @@ import torch
 
 from .conv import mm_f32
 from .coords import SparseGrid
+from .kernels import KernelSpec, RegionType
 
 BRICK = 8  # voxels per side; 8³ = 512 rows per brick
 
@@ -39,6 +42,21 @@ class BrickLayout(NamedTuple):
 def brick_dims(grid: SparseGrid) -> Tuple[int, int, int]:
     cells = [-(-int(e) // int(s)) for e, s in zip(grid.extent, grid.stride)]
     return tuple(-(-c // BRICK) for c in cells)
+
+
+def brick_applicable(spec: KernelSpec, grid: SparseGrid,
+                     max_slots: int = 1 << 16) -> bool:
+    """A k=3 s=1 d=1 HYPER_CUBE self-conv on a bounded 3-D grid whose
+    brick space is small enough to hold densely."""
+    if grid.extent is None or grid.ndim != 3 or spec.transpose:
+        return False
+    if spec.region_type != RegionType.HYPER_CUBE:
+        return False
+    if any(k != 3 for k in spec.kernel_size) or any(
+            s != 1 for s in spec.stride) or any(
+            d != 1 for d in spec.dilation):
+        return False
+    return grid.batch_size * int(np.prod(brick_dims(grid))) <= max_slots
 
 
 def brick_layout(grid: SparseGrid) -> BrickLayout:
@@ -147,3 +165,12 @@ def brick_conv_xla(bricks: torch.Tensor, kernel: torch.Tensor,
                 out = out + mm_f32(slab.reshape(-1, c), kernel[k])
                 k += 1
     return out.reshape(nb, BRICK ** 3, co)
+
+
+def brick_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
+                      grid: SparseGrid) -> torch.Tensor:
+    """Rows → bricks → ``brick_conv_xla`` → rows: a k=3 s=1 conv of the
+    grid onto itself, float32 [N, Co]."""
+    layout = brick_layout(grid)
+    out = brick_conv_xla(to_bricks(features, layout), kernel, layout)
+    return from_bricks(out, layout, grid.valid)

@@ -1,14 +1,18 @@
-"""Coordinate engine on bounded grids: fixed-capacity batched voxel sets.
+"""Coordinate engine: fixed-capacity batched voxel sets.
 
-Port of `mink_octtree_stablediffusion_tpu/ops/coords.py`, bounded-grid path
-only.  A coordinate set is a :class:`SparseGrid` — ``coords int32[N_cap,
-1+D]`` (column 0 = batch index) plus ``valid bool[N_cap]`` with a static
-tensor stride and a static spatial ``extent``.  Valid rows come first, in
-the canonical order of the row-major flat cell key (``flat_cell_key``);
-padding rows hold ``INVALID_COORD`` in every column.
+Port of `mink_octtree_stablediffusion_tpu/ops/coords.py`.  A coordinate
+set is a :class:`SparseGrid` — ``coords int32[N_cap, 1+D]`` (column 0 =
+batch index) plus ``valid bool[N_cap]`` with a static tensor stride and an
+optional static spatial ``extent``.  Valid rows come first, in canonical
+order; padding rows hold ``INVALID_COORD`` in every column.
 
-Unbounded grids (``extent=None``: Morton order, hash-table lookups) are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md queue A, item 4).
+- Bounded grids (an extent of fewer than 2³⁰ cells an instance) sort by
+  the row-major flat cell key (``flat_cell_key``), one int32.
+- Unbounded grids (``extent=None``), and bounded ones too large for that
+  key, sort by (batch, Morton code) with the coordinates, last to first,
+  as tie-breakers (``canonical_sort_keys``); lookups on them take the
+  hash table (`ops.hashtable`) on the card and the sorted search
+  (`ops.search`) on the CPU.
 """
 
 from __future__ import annotations
@@ -19,15 +23,14 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import hashtable
 from .kernels import _tuplize
+from .morton import morton_encode
 
 # Stored in every column of padding rows; valid coordinates are bounded by
 # the voxelization resolution, far below it.
 INVALID_COORD = 1 << 14
 INT32_MAX = int(np.iinfo(np.int32).max)
-
-UNBOUNDED_MSG = ("unbounded grids (extent=None: Morton order, hash-table "
-                 "lookups) are not ported yet — ROADMAP.md queue A, item 4")
 
 _CONSTS: dict = {}
 
@@ -61,6 +64,8 @@ class SparseGrid:
     # static spatial bound: all valid coords lie in [0, extent) per dim
     extent: Optional[Tuple[int, ...]] = None
     _flat_keys: Optional[torch.Tensor] = field(default=None, repr=False)
+    _hash_table: Optional[hashtable.HashTable] = field(default=None,
+                                                      repr=False)
 
     @property
     def capacity(self) -> int:
@@ -84,13 +89,21 @@ class SparseGrid:
     def flat_keys(self) -> torch.Tensor:
         """``flat_cell_key`` of this grid at its own stride, computed once
         per grid object (the JAX package gets the same sharing from XLA's
-        common-subexpression elimination)."""
+        common-subexpression elimination).  Only grids sorted by that key
+        have one."""
         if self._flat_keys is None:
-            if self.extent is None:
-                raise NotImplementedError(UNBOUNDED_MSG)
+            if _flat_bound(self.extent, self.stride, self.ndim) is None:
+                raise ValueError("flat cell keys need a bounded grid of "
+                                 "fewer than 2**30 cells an instance")
             self._flat_keys = flat_cell_key(self.coords, self.valid,
                                             self.stride, self.extent)
         return self._flat_keys
+
+    def hash_table(self) -> hashtable.HashTable:
+        """The membership table of this grid, built once per grid object."""
+        if self._hash_table is None:
+            self._hash_table = hashtable.build_table(self.coords, self.valid)
+        return self._hash_table
 
 
 def _cells(extent, stride) -> list:
@@ -124,6 +137,33 @@ def flat_cell_key(coords: torch.Tensor, valid: torch.Tensor, stride,
     return key.masked_fill(~ok, INT32_MAX).to(torch.int32)
 
 
+def canonical_sort_keys(coords: torch.Tensor, valid: torch.Tensor, stride,
+                        extent=None) -> tuple:
+    """The canonical order's sort keys, least to most significant: the
+    flat cell key alone on a bounded grid; else the coordinates from the
+    last column to the first, then the Morton code, then the batch
+    index, the last two ``INT32_MAX`` on padding rows (which sort last)."""
+    d = coords.shape[1] - 1
+    st = _tuplize(stride, d)
+    if _flat_bound(extent, st, d) is not None:
+        return (flat_cell_key(coords, valid, st, extent),)
+    m = morton_encode(coords[:, 1:], st).masked_fill(~valid, INT32_MAX)
+    b = coords[:, 0].masked_fill(~valid, INT32_MAX)
+    return tuple(coords[:, i] for i in range(d, 0, -1)) + (m, b)
+
+
+def canonical_order(coords: torch.Tensor, valid: torch.Tensor, stride,
+                    extent=None) -> torch.Tensor:
+    """Permutation sorting rows into canonical order, padding last: JAX's
+    ``lexsort`` as stable sorts chained from the least significant key to
+    the most."""
+    keys = canonical_sort_keys(coords, valid, stride, extent)
+    perm = torch.argsort(keys[0], stable=True)
+    for k in keys[1:]:
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    return perm
+
+
 def _decode_flat_key(keys: torch.Tensor, valid: torch.Tensor, stride,
                      extent) -> torch.Tensor:
     """Inverse of ``flat_cell_key`` for lattice-aligned coordinates."""
@@ -150,15 +190,19 @@ def unique_coords(coords: torch.Tensor, valid: torch.Tensor, capacity: int,
 
     Returns ``(coords, valid, inverse, count)``: inverse maps each input row
     to its unique row (``capacity`` = dropped/invalid); ``count`` is the
-    true unique count (``count > capacity`` means overflow).  Out-of-extent
-    valid rows are dropped.  The inverse is a dense-LUT gather when
-    ``batch_size`` is given and the key space fits ``LUT_MAX_ENTRIES``,
-    else one ``searchsorted``."""
+    true unique count (``count > capacity`` means overflow).
+
+    Bounded grids sort the flat cell key alone and decode the output
+    coordinates from it; out-of-extent valid rows are dropped.  Their
+    inverse is a dense-LUT gather when ``batch_size`` is given and the key
+    space fits ``LUT_MAX_ENTRIES``, else one ``searchsorted``.  Other
+    grids sort the rows into (batch, Morton) order (``canonical_order``)
+    and keep the first of each run of equal rows."""
     d = coords.shape[1] - 1
     st = _tuplize(stride, d)
     total_cells = _flat_bound(extent, st, d)
     if total_cells is None:
-        raise NotImplementedError(UNBOUNDED_MSG)
+        return _unique_sorted_rows(coords, valid, capacity, st)
     dev = coords.device
     key = flat_cell_key(coords, valid, st, extent)
     sk = torch.sort(key).values
@@ -193,6 +237,28 @@ def unique_coords(coords: torch.Tensor, valid: torch.Tensor, capacity: int,
         inv = torch.where(hit & (key != INT32_MAX) & (inv < capacity), inv,
                           capacity)
     return out_coords, out_valid, inv.to(torch.int32), count
+
+
+def _unique_sorted_rows(coords: torch.Tensor, valid: torch.Tensor,
+                        capacity: int, stride):
+    """``unique_coords``' generic path: the rows in canonical (batch,
+    Morton) order, the first row of each run of equal valid rows kept."""
+    n, nf = coords.shape
+    dev = coords.device
+    order = canonical_order(coords, valid, stride)
+    sc, sv = coords[order], valid[order]
+    first = sv.clone()
+    first[1:] &= ~((sc[1:] == sc[:-1]).all(dim=-1) & sv[:-1])
+    uid = torch.cumsum(first, 0) - 1
+    uid = torch.where(sv, uid.clamp(max=capacity), capacity)
+    count = first.sum()
+    out = torch.full((capacity + 1, nf), INVALID_COORD, dtype=torch.int32,
+                     device=dev)
+    out[torch.where(first, uid, capacity)] = sc.to(torch.int32)
+    out_valid = torch.arange(capacity, device=dev) < count.clamp(max=capacity)
+    inverse = torch.empty(n, dtype=torch.int32, device=dev)
+    inverse[order] = uid.to(torch.int32)
+    return out[:capacity], out_valid, inverse, count
 
 
 def make_grid(coords: torch.Tensor, valid: torch.Tensor,
@@ -234,13 +300,12 @@ def expand_grid(grid: SparseGrid, offsets: np.ndarray,
     """Generative expansion: unique union of ``coords + offset`` for every
     (absolute, lattice-unit) kernel offset [K, D].  The extent is kept when
     every child stays inside its parent cell (the k2-s2 octree growth);
-    otherwise the result would be unbounded, which is not ported yet."""
+    otherwise the result is unbounded."""
     k, d = offsets.shape
     keep_extent = grid.extent is not None and offsets.min() >= 0 and all(
         offsets[:, i].max() <= gs - os
         for i, (gs, os) in enumerate(zip(grid.stride, out_stride)))
-    if not keep_extent:
-        raise NotImplementedError(UNBOUNDED_MSG)
+    extent = grid.extent if keep_extent else None
     off = device_const(offsets, torch.int32, grid.device)
     spatial = grid.coords[:, None, 1:] + off[None, :, :]  # [N, K, D]
     batch = grid.coords[:, None, :1].expand(grid.capacity, k, 1)
@@ -248,11 +313,11 @@ def expand_grid(grid: SparseGrid, offsets: np.ndarray,
     cand_valid = grid.valid.repeat_interleave(k)
     cand = cand.masked_fill(~cand_valid[:, None], INVALID_COORD)
     uc, uv, _, _ = unique_coords(cand, cand_valid, capacity,
-                                 tuple(out_stride), extent=grid.extent,
+                                 tuple(out_stride), extent=extent,
                                  with_inverse=False)
     return SparseGrid(coords=uc, valid=uv,
                       stride=tuple(int(s) for s in out_stride),
-                      batch_size=grid.batch_size, extent=grid.extent)
+                      batch_size=grid.batch_size, extent=extent)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,10 @@
 """Row reductions along inverse maps.
 
-Port of `reduce_by_inverse` from
+Port of `reduce_by_inverse` and `slice_by_inverse` from
 `mink_octtree_stablediffusion_tpu/ops/reduce.py`: duplicate input rows are
-reduced onto their unique row (the quantization modes of `sparse_tensor`).
+reduced onto their unique row (the quantization modes of `sparse_tensor`
+and `TensorField.sparse`), and unique rows are gathered back to every
+source row (`slice_to_field`).
 """
 
 from __future__ import annotations
@@ -44,3 +46,13 @@ def reduce_by_inverse(features: torch.Tensor, inverse: torch.Tensor,
         return (features[winner[:capacity].clamp(max=n - 1)] *
                 took[:, None].to(dt))
     raise ValueError(mode)
+
+
+def slice_by_inverse(unique_features: torch.Tensor, inverse: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """Gather unique-row features back to every source row [N, C]; rows
+    that are invalid or were dropped (``inverse`` ≥ capacity) get zeros."""
+    cap = unique_features.shape[0]
+    ok = valid & (inverse < cap)
+    rows = unique_features[inverse.clamp(0, cap - 1).long()]
+    return rows * ok[:, None].to(unique_features.dtype)

@@ -20,7 +20,12 @@ returns a ``state_dict`` for the matching port module:
 - the diffusion trainer's ``CoordNLLParams`` (a NamedTuple leaf of the
   params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1;
 - the learned class table of conditioned training (``params["cond_table"]``
-  beside ``params["unet"]``) → the ``cond_table`` parameter 1:1.
+  beside ``params["unet"]``) → the ``cond_table`` parameter 1:1;
+- ``PReLU``'s ``alpha`` and ``Sinusoidal``'s ``coef`` 1:1; a 2-D
+  ``kernel`` that the port keeps in the flax layout (``ChannelwiseConv``'s
+  ``[K, C]``, ``Sinusoidal``'s ``[in, out]``: the module given holds a
+  ``kernel`` there) 1:1 too; ``AdaptiveLogSoftmaxWithLoss``'s ``head`` and
+  ``tail{i}_proj``/``tail{i}_out`` are dense layers of the same names.
 
 A UNet with ``remat`` has the same tree as one without (the stacks keep
 their names), so it needs nothing more; nor do the ResNet classifiers
@@ -58,7 +63,8 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (str(k),), v
 
 
-def _translate(collection: str, path: Tuple[str, ...], value):
+def _translate(collection: str, path: Tuple[str, ...], value,
+               flax_kernels=frozenset()):
     *mods, leaf = path
     if mods and mods[-1] in _PROJECTIONS and (
             len(mods) < 2 or mods[-2] != "SparseAttention_0"):
@@ -68,11 +74,13 @@ def _translate(collection: str, path: Tuple[str, ...], value):
     if collection == "batch_stats" and leaf in _STATS:
         return ".".join(name + [_STATS[leaf]]), arr
     if collection == "params":
-        if leaf == "kernel" and arr.ndim == 3:
+        if leaf == "kernel" and (arr.ndim == 3 or ".".join(
+                name + ["kernel"]) in flax_kernels):
             return ".".join(name + ["kernel"]), arr
         if leaf == "kernel" and arr.ndim == 2:
             return ".".join(name + ["weight"]), arr.T
-        if leaf in ("bias", "weight", "mu", "sigma", "cond_table"):
+        if leaf in ("bias", "weight", "mu", "sigma", "cond_table", "alpha",
+                    "coef"):
             return ".".join(name + [leaf]), arr
         if leaf == "scale":
             return ".".join(name + ["weight"]), arr
@@ -83,14 +91,17 @@ def from_flax(variables, module: Optional[torch.nn.Module] = None
               ) -> Dict[str, torch.Tensor]:
     """flax variables (``{"params": …, "batch_stats": …}``) → state_dict."""
     sd: Dict[str, torch.Tensor] = {}
+    ref = module.state_dict() if module is not None else {}
+    flax_kernels = frozenset(n for n, t in ref.items()
+                             if n.rsplit(".", 1)[-1] == "kernel" and
+                             t.dim() == 2)
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
-            name, arr = _translate(collection, path, value)
+            name, arr = _translate(collection, path, value, flax_kernels)
             if name in sd:
                 raise KeyError(f"two flax leaves map onto {name}")
             sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
     if module is not None:
-        ref = module.state_dict()
         missing = sorted(set(ref) - set(sd))
         unused = sorted(set(sd) - set(ref))
         if missing or unused:

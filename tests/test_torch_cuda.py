@@ -1,9 +1,10 @@
 """Tests of the port's CUDA kernels (B1 forward, B2 dF, B3 dW and its
 passes of the fused conv; B5 forward and dF pass, B6 dW of the brick conv;
 B4 and B7, the convs given a kernel map; B1's stages, B8/B9) and of small
-VAE and diffusion train steps through them, and of data parallelism on
-the card (SyncBN and a DP step, two ranks sharing it over gloo, in
-processes spawned from `torch_dp_worker.py`); they need an NVIDIA GPU.
+VAE and diffusion train steps through them, of data parallelism on the
+card (SyncBN and a DP step, two ranks sharing it over gloo, in processes
+spawned from `torch_dp_worker.py`), and of the hash-table route of
+unbounded grids on the card; they need an NVIDIA GPU.
 
 Marked ``cuda``: without a card each test skips (the decision is made
 inside the test).  This file imports neither JAX nor the JAX package, so on
@@ -1019,3 +1020,34 @@ def test_dp_vae_step_on_card_over_gloo(tmp_path):
     for name, t in a["state"].items():
         np.testing.assert_array_equal(t, z["state"][name], err_msg=name)
     assert a["comm"]["bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_hash_route_equals_sorted_route_on_card():
+    """An unbounded grid's lookups on the card take the hash table; its
+    rows equal the sorted search's on the same card (coordinates inside
+    Morton's ±512-cell range) and the CPU's (the sorted route there), and
+    its k3 kernel map the CPU's."""
+    dev = _card()
+    rng = np.random.RandomState(1)
+    c = np.concatenate([rng.randint(0, 3, (3000, 1)),
+                        rng.randint(-60, 60, (3000, 3))], 1).astype(np.int32)
+    cpad, valid = mp.ops.pad_to_capacity(c, 4096)
+    grid, _, _ = mp.ops.make_grid(torch.as_tensor(cpad, device=dev),
+                                  torch.as_tensor(valid, device=dev), 4096,
+                                  1, 3)
+    assert mp.ops.lookup_route(grid, dev) == "hash"
+    q = torch.as_tensor(np.concatenate([cpad, cpad + 1]), device=dev)
+    qv = torch.as_tensor(np.concatenate([valid, valid]), device=dev)
+    got = mp.ops.grid_lookup(grid, q, qv)
+    ref = mp.ops.lookup_sorted(grid.coords, grid.valid, grid.stride, q, qv)
+    assert torch.equal(got, ref) and int((got >= 0).sum()) > 0
+    cpu = mp.ops.grid_lookup(mp.SparseGrid(grid.coords.cpu(),
+                                           grid.valid.cpu(), (1, 1, 1), 3),
+                             q.cpu(), qv.cpu())
+    assert torch.equal(got.cpu(), cpu)
+    spec = mp.ops.KernelSpec(3, 1, ndim=3)
+    cpu_grid = mp.SparseGrid(grid.coords.cpu(), grid.valid.cpu(), (1, 1, 1),
+                             3)
+    assert torch.equal(mp.ops.kernel_map(grid, grid, spec).cpu(),
+                       mp.ops.kernel_map(cpu_grid, cpu_grid, spec))

@@ -230,9 +230,17 @@ def test_dense_conv_matches_jax(rng, case):
 
 
 def test_unbounded_grid_raises():
+    """The ``make_grid`` call that raised before unbounded grids were
+    ported now gives JAX's unbounded grid, row for row in (batch, Morton)
+    order, with the same inverse and count."""
     coords = random_coords(np.random.RandomState(0), 10, res=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mp.ops.make_grid(_t(coords), torch.ones(10, dtype=torch.bool), 16)
+    ref = jax.jit(lambda c, v: mt.ops.make_grid(c, v, 16))(
+        jnp.asarray(coords), jnp.ones(10, bool))
+    got = mp.ops.make_grid(_t(coords), torch.ones(10, dtype=torch.bool), 16)
+    _same_grid(ref[0], got[0])
+    assert got[0].extent is None
+    for g, r in zip(got[1:], ref[1:]):
+        np.testing.assert_array_equal(_np(g), np.asarray(r))
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

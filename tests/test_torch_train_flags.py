@@ -5,7 +5,8 @@ CPU.
   with and without composites, equal JAX's exactly (numpy on both sides).
 - ``ops.union`` on bounded grids: the same set of rows as JAX's union and,
   row by row, the same summed features (1e-6·max|ref|); the port's rows
-  in its canonical row-major order.
+  in its canonical row-major order.  With an unbounded input: JAX's rows
+  in (batch, Morton) order, row for row.
 - ``inject_noise_points``: mode ``all``, ``noise_near`` without and with
   ``near_sigma`` (JAX's feature noise handed over cell by cell), and mode
   ``uniform`` with JAX's drawn points handed to the port: the port's rows
@@ -123,10 +124,21 @@ def test_union_matches_jax(rng):
     # the capacity defaults to the largest input's
     assert mp.ops.union([pa.grid, pb.grid],
                         [pa.features, pb.features])[0].capacity == 128
+    # a mixed union (one input unbounded) is unbounded, in (batch, Morton)
+    # order: row for row JAX's
     unbounded = mp.ops.SparseGrid(coords=pa.grid.coords, valid=pa.grid.valid,
                                   stride=pa.grid.stride, batch_size=2)
-    with pytest.raises(NotImplementedError):
-        mp.ops.union([pa.grid, unbounded], [pa.features, pa.features])
+    jun = ja.grid.replace(extent=None)
+    jg, jf = jax.jit(lambda a, u, b: mt.ops.union(
+        [a.grid, u, b.grid], [a.features, a.features, b.features], 160))(
+        ja, jun, jb)
+    pg, pf = mp.ops.union([pa.grid, unbounded, pb.grid],
+                          [pa.features, pa.features, pb.features], 160)
+    assert pg.extent is None and jg.extent is None
+    np.testing.assert_array_equal(_np(pg.coords), np.asarray(jg.coords))
+    np.testing.assert_array_equal(_np(pg.valid), np.asarray(jg.valid))
+    np.testing.assert_allclose(_np(pf), np.asarray(jf), rtol=0,
+                               atol=1e-6 * max(np.abs(jf).max(), 1.0))
 
 
 @pytest.mark.parametrize("mode,near,sigma", [
