@@ -197,6 +197,10 @@ COND_TOKENS, COND_DIM, GUIDANCE = 77, 768, 3.0  # CLIP text; cond_control's top
 # tiny_train_reference's bounds on the relative RMS, card vs CPU, of each
 # gradient and of each running-statistic update (see there)
 TINY_GRAD_RTOL, TINY_STAT_RTOL = 0.075, 0.02
+# tiny_zoo_reference's bound on the share of valid rows where the card's VQ
+# argmin picks another code than the CPU's (bf16 near-ties): the H100 read 2
+# and 3 of 256; a wrong argmin moves most rows (64 codes)
+TINY_CODES_RTOL = 0.03
 TRAIN_STEPS, TRAIN_LR, TRAIN_KLD = 10, 1e-3, 1e-6  # train_vae.py's defaults
 # diffusion phase: 10 steps; the warmup cut from 1000 to 1 (see the module
 # docstring); seed 0 for the weights, as the other paths
@@ -2854,6 +2858,440 @@ def unbounded_phase(mp, dev, cap, power, sizes=None) -> dict:
             "routes": all_routes, "launches": {"B1": launches}}
 
 
+# -- the model zoo ------------------------------------------------------------
+# The five training entry points at their examples' full-width defaults,
+# ZOO_STEPS steps each on one fixed batch from seed 0 (one step each of the
+# splat classifier and the TensorField PointNet), then train.cond's oracle
+# and scoring cut to ZOO_COND_FLAGS.
+ZOO_STEPS = 3
+ZOO_SIZES = {"cls": dict(resolution=64, batch=8, points=2048),
+             "seg": dict(resolution=32, batch=2, voxels=2048),
+             "recon": dict(resolution=64, batch=4, capacity=65536,
+                           points=32768),
+             "dense": dict(resolution=32, batch=2, channels=(32, 64, 128))}
+ZOO_COND_FLAGS = ["--train_shapes", "8", "--val_shapes", "4",
+                  "--oracle_shapes", "16", "--steps_cls", "3",
+                  "--steps_diff", "2", "--cfg_scales", "3", "--rounds", "1"]
+# tiny_zoo_reference's narrow MinkUNet14
+ZOO_TINY_PLANES, ZOO_TINY_INIT = (8, 16, 16, 16, 16, 16, 8, 8), 8
+
+
+def zoo_phase(mp, dev, cap, power) -> dict:
+    """The model zoo's training paths, each through its entry point's own
+    model, loss and optimizer builders, with the kernels' counts at 0:
+
+    a. classification (`train.classification`): resolution 64, batch 8 of
+       `SyntheticShapes` (samples 0-7), 2,048 points a shape, voxel size
+       0.05, Adam at 1e-3: ``MinkowskiFCNN`` (a 16,384-row voxel buffer)
+       ZOO_STEPS steps, then its held-out accuracy on 8 shapes in
+       ``.eval()``; one step each of ``MinkowskiSplatFCNN`` (its convs on
+       an unbounded grid take the plain route) and ``MinkowskiPointNet``
+       (no conv).
+    b. segmentation (`train.segmentation`): MinkUNet34C, resolution 32,
+       batch 2 rooms of 2,048 voxels (``make_room`` from RandomState(42)),
+       Adam at 1e-3, ZOO_STEPS steps; its k5 stem is the K = 125 launch.
+       The stride-2 and stride-4 levels overflow their 512 and 64 rows
+       (the reference behaviour, ROADMAP.md §C): printed.
+    c. reconstruction (`train.reconstruction`): ``GenerativeNet`` at
+       (1024, 512, 256, 128, 64, 32), resolution 64, batch 4 (32,768
+       points a shape, 65,536 rows), SGD with momentum 0.9 at 1e-2,
+       ZOO_STEPS steps, then the eval-mode generation IoU on the 4
+       held-out shapes.
+    d. the VQ-VAE (`train.vqvae`): the VAE's widths (32, 128, 512, 512,
+       4), 512 codes, resolution 128, batch 4, 65,536 rows, Adam at 1e-3,
+       ZOO_STEPS steps.  The encoder's log-variance head has no gradient
+       (the VQ-VAE does not use it).
+    e. dense diffusion (`train.diffusion_dense`): resolution 32, batch 2,
+       (32, 64, 128), ZOO_STEPS steps without and with ``--with_cond``
+       (cuDNN convolutions: no kernel of the port).
+    f. ``train.cond``'s oracle, conditional diffusion and per-class
+       scoring at its defaults (resolution 64, batch 4, VAE (32, 128, 512,
+       512, 4) of random weights, UNet (4, 128, 256, 384)), cut to
+       ZOO_COND_FLAGS and ``STEPS`` sampling steps.
+
+    Every loss and gradient must be finite, every parameter must get a
+    gradient, and each step's (and f's whole run's) B1/B2/B3 launches
+    must equal its routes' (``expected_launches``).  ``cap`` keeps step
+    1's operands of each path (paths ``zoo_*``) for the kernel checks.
+    Prints each path's step walls and peak memory."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import (
+        classification as tcls, cond as tcond, diffusion_dense as tdd,
+        reconstruction as trec, segmentation as tseg, vqvae as tvq)
+    failures = []
+
+    def need(ok, what):
+        if not ok:
+            failures.append(what)
+    count = counters(mp)
+    for c in count.values():
+        c.launches = 0  # counts from here on are the zoo's
+    out = {"routes": {}, "steps": {}}
+    t_phase = time.perf_counter()
+
+    def run_path(label, model, step, n, no_grad=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        recs = []
+        for i in range(n):
+            cap.at(label, FUSED if i == 0 else ())
+            before = {k: c.launches for k, c in count.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mp.nn.record_routes() as routes:
+                loss, aux = step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cap.at(None)
+            launched = {k: c.launches - before[k] for k, c in count.items()}
+            missing = [k for k, p in model.named_parameters()
+                       if p.grad is None and not k.startswith(no_grad)]
+            finite = bool(torch.stack(
+                [torch.isfinite(loss)] +
+                [torch.isfinite(p.grad).all() for p in model.parameters()
+                 if p.grad is not None]).all().item())
+            rec = {"zoo_path": label, "step": i + 1, "wall_s": wall,
+                   "loss": float(loss),
+                   **{k: float(v) for k, v in aux.items()},
+                   "launches": launched,
+                   "expected_launches": expected_launches(routes),
+                   "convs": len(routes),
+                   "branches": dict(Counter(r.branch for r in routes)),
+                   "ks": sorted({r.k for r in routes
+                                 if r.branch == "fused"}),
+                   "params_without_grad": missing[:5],
+                   "all_finite": finite}
+            emit(rec)
+            recs.append(rec)
+            need(finite and not missing, f"{label} step {i + 1}: finite "
+                 "loss and a gradient for every parameter")
+            need(launched == rec["expected_launches"],
+                 f"{label} step {i + 1}: launches")
+            if i == 0:
+                out["routes"][label] = routes
+        peak = torch.cuda.max_memory_allocated(dev)
+        emit({"zoo_path_summary": label, "steps": n,
+              "step_walls_s": [r["wall_s"] for r in recs],
+              "peak_memory_bytes": peak, "card": power,
+              "launches_per_step": recs[-1]["launches"]})
+        out["steps"][label] = n
+        return recs
+
+    # (a) classification
+    b, pts, res = (ZOO_SIZES["cls"][k] for k in ("batch", "points",
+                                                  "resolution"))
+    ccap, extent = b * pts, tcls.field_extent(0.05)
+    ds = mp.data.SyntheticShapes(resolution=res, num_samples=256,
+                                 points_per_shape=pts)
+    collate = lambda samples: tcls.collate(  # noqa: E731
+        samples, resolution=res, num_points=pts, voxel_size=0.05,
+        capacity=ccap)
+    batch = collate([ds[i] for i in range(b)])
+    loss_fn = tcls.build_loss_fn(batch_size=b, extent=extent, device=dev)
+    for network, n in (("minkfcnn", ZOO_STEPS), ("minksplatfcnn", 1),
+                       ("pointnet", 1)):
+        net = tcls.build_model(network, 4, ccap, dev, seed=0)
+        state = mp.train.TrainState(net, mp.train.vae_optimizer(
+            net.parameters(), 1e-3))
+        step = mp.train.make_train_step(loss_fn)
+        run_path(f"zoo_cls_{network}", net, lambda: step(state, batch), n)
+        if network == "minkfcnn":
+            ds_val = mp.data.SyntheticShapes(
+                resolution=res, num_samples=b, points_per_shape=pts,
+                seed=777)
+            t0 = time.perf_counter()
+            acc = tcls.evaluate(net, ds_val, collate, batch_size=b,
+                                extent=extent, device=dev)
+            emit({"zoo_cls_minkfcnn_val_acc": acc,
+                  "eval_wall_s": time.perf_counter() - t0})
+            need(0.0 <= acc <= 1.0, "classification evaluate")
+        del net, state, step
+        torch.cuda.empty_cache()
+
+    # (b) segmentation
+    b, res, vox = (ZOO_SIZES["seg"][k] for k in ("batch", "resolution",
+                                                  "voxels"))
+    scap = b * vox
+    sbatch = tseg.collate(np.random.RandomState(42), batch_size=b,
+                          resolution=res, voxels_per_room=vox)
+    net = mp.models.MinkUNet34C(out_channels=3, input_capacity=scap,
+                                device=dev, seed=0)
+    st, _ = tseg.build(*sbatch, batch_size=b, resolution=res, device=dev)
+    emit({"zoo_seg_levels": [
+        {"stride": 2 ** i, "cells": int(mp.ops.stride_grid(
+            st.grid, 2 ** i, scap).valid.sum()),
+         "capacity": max(scap // 8 ** i, 64)} for i in (1, 2, 3, 4)],
+        "input_voxels": int(st.valid.sum())})
+    state = mp.train.TrainState(net, mp.train.vae_optimizer(
+        net.parameters(), 1e-3))
+    step = mp.train.make_train_step(tseg.build_loss_fn(
+        batch_size=b, resolution=res, device=dev))
+    recs = run_path("zoo_seg_minkunet34c", net,
+                    lambda: step(state, sbatch), ZOO_STEPS)
+    need(125 in recs[0]["ks"] and 8 in recs[0]["ks"],
+         "segmentation launches K = 125 and K = 8")
+    # the stem's input is data, so the step launches no dF at K = 125:
+    # one pass of the stem with an input gradient launches it (B2 at the
+    # stem's own geometry; B1 and B3 again)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cot = torch.randn((st.capacity, net.conv0.out_channels), generator=g,
+                      device=dev)
+
+    def stem_df():
+        net.zero_grad(set_to_none=True)
+        x = st.with_features(st.features.clone().requires_grad_())
+        loss = (net.conv0(x).features * cot).sum()
+        loss.backward()
+        return loss.detach(), {}
+    run_path("zoo_seg_stem_df", net.conv0, stem_df, 1)
+    del net, state, step, st
+    torch.cuda.empty_cache()
+
+    # (c) reconstruction
+    b, rcap, res, pts = (ZOO_SIZES["recon"][k] for k in (
+        "batch", "capacity", "resolution", "points"))
+    ds = mp.data.SyntheticShapes(resolution=res, num_samples=256,
+                                 points_per_shape=pts)
+    samples = [ds[i] for i in range(b)]
+    cpad, valid, _, _ = mp.data.collate_pointclouds(
+        [s["coords"] for s in samples], rcap)
+    rbatch = (cpad, valid, [s["label"] for s in samples])
+    net = mp.models.GenerativeNet(
+        4, level_capacities=trec.level_capacities(b, rcap), device=dev,
+        seed=0)
+    state = mp.train.TrainState(net, trec.make_optimizer(
+        net.parameters(), "sgd", 1e-2))
+    sizes = dict(n_classes=4, batch_size=b, resolution=res, device=dev)
+    step = mp.train.make_train_step(trec.build_loss_fn(**sizes))
+    run_path("zoo_recon", net, lambda: step(state, rbatch), ZOO_STEPS)
+    ds_val = mp.data.SyntheticShapes(resolution=res, num_samples=b,
+                                     points_per_shape=pts, seed=777)
+    ev = [ds_val[i] for i in range(b)]
+    ecpad, evalid, _, _ = mp.data.collate_pointclouds(
+        [s["coords"] for s in ev], rcap)
+    t0 = time.perf_counter()
+    iou, sout = trec.generation_iou(net, (ecpad, evalid,
+                                          [s["label"] for s in ev]), **sizes)
+    torch.cuda.synchronize()
+    emit({"zoo_recon_generation_iou": iou,
+          "generated_voxels": int(sout.valid.sum()),
+          "eval_wall_s": time.perf_counter() - t0})
+    need(0.0 <= iou <= 1.0 and bool(torch.isfinite(sout.features).all()),
+         "reconstruction eval generation")
+    del net, state, step, sout
+    torch.cuda.empty_cache()
+
+    # (d) the VQ-VAE
+    ds = mp.data.SyntheticShapes(resolution=RES, num_samples=256)
+    vbatch = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(BATCH)], CAP, 200_000)[:2]
+    net = tvq.build_model(vae_channel=VAE_CH, num_embeddings=512,
+                          input_capacity=CAP, device=dev, seed=0)
+    state = mp.train.TrainState(net, mp.train.vae_optimizer(
+        net.parameters(), 1e-3))
+    step = mp.train.make_train_step(tvq.build_loss_fn(
+        input_capacity=CAP, batch_size=BATCH, resolution=RES, device=dev))
+    run_path("zoo_vqvae", net, lambda: step(state, vbatch), ZOO_STEPS,
+             no_grad=("encoder.log_var_conv.",))
+    del net, state, step
+    torch.cuda.empty_cache()
+
+    # (e) dense diffusion, without and with the condition
+    b, res, channels = (ZOO_SIZES["dense"][k] for k in (
+        "batch", "resolution", "channels"))
+    for with_cond in (False, True):
+        ds = mp.data.SyntheticShapes(resolution=res, num_samples=128,
+                                     with_class=with_cond)
+        samples = [ds[i] for i in range(b)]
+        table = tdd.class_table(4, 64)
+        dbatch = (tdd.densify(samples, res), table[[s["label"] for s in
+                                                    samples]]
+                  if with_cond else None)
+        net = tdd.build_model(block_channels=channels,
+                              with_cond=with_cond, cross_attention_dim=64,
+                              device=dev, seed=0)
+        state = mp.train.TrainState(net, mp.train.diffusion_optimizer(
+            net.parameters(), 1e-4))
+        step = mp.train.make_train_step(tdd.build_loss_fn(
+            mp.diffusion.DDPMScheduler.create(), with_cond=with_cond,
+            device=dev))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run_path("zoo_dense_diffusion" + ("_cond" if with_cond else ""),
+                 net, lambda: step(state, dbatch, gen), ZOO_STEPS)
+        del net, state, step
+        torch.cuda.empty_cache()
+
+    # (f) train.cond's oracle, diffusion and scoring
+    before = {k: c.launches for k, c in count.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cap.at("zoo_cond", FUSED)
+        t0 = time.perf_counter()
+        with mp.nn.record_routes() as routes:
+            res_cond = tcond.main(["--device", str(dev), "--ckpt_dir", tmp,
+                                   "--sample_steps", str(STEPS)] +
+                                  ZOO_COND_FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cap.at(None)
+    launched = {k: c.launches - before[k] for k, c in count.items()}
+    sweep = res_cond["cfg_sweep"]["3.0"]
+    rec = {"zoo_cond_wall_s": wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+           "classifier_val_acc": res_cond["classifier_val_acc"],
+           "diff_loss_last": res_cond["diff_loss_last"],
+           "mean_conditional_acc": sweep["mean"],
+           "mean_oracle_corrected": sweep["mean_oracle_corrected"],
+           "launches": launched,
+           "expected_launches": expected_launches(routes),
+           "convs": len(routes), "card": power}
+    emit(rec)
+    out["routes"]["zoo_cond"] = routes
+    need(launched == rec["expected_launches"], "zoo_cond: launches")
+    need(math.isfinite(res_cond["diff_loss_last"]) and
+         0.0 <= res_cond["classifier_val_acc"] <= 1.0 and
+         sweep["samples_per_class"] > 0, "zoo_cond: its result")
+    launches = {k: c.launches for k, c in count.items()}
+    emit({"zoo_path_launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    need(all(launches[k] > 0 for k in FUSED), "zoo: B1, B2 and B3 launch")
+    torch.cuda.empty_cache()
+    return {"ok": not failures, "failures": failures, "launches": launches,
+            **out}
+
+
+def tiny_zoo_reference(mp, dev) -> dict:
+    """One train step of a narrow MinkUNet14 (planes ZOO_TINY_PLANES, the
+    segmentation batch: 2 rooms of 2,048 voxels at resolution 32, its k5
+    stem) and one of a narrow VQ-VAE (widths (8, 16, 32, 32, 4), 64 codes,
+    resolution 128, 4,096 rows) on the card and on the CPU, with the same
+    weights and batch, the CPU's plain versions under the card's compute
+    policy, held to ``tiny_train_reference``'s bounds: the loss within
+    1e-2 relative, every gradient's relative RMS ≤ TINY_GRAD_RTOL and
+    every running statistic's update's ≤ TINY_STAT_RTOL (the VQ-VAE's
+    unused log-variance head has no gradient on either side).
+
+    The VQ-VAE's CPU side quantizes with the card's code indices: the
+    argmin over the codes has near-ties that the two sides' bf16
+    rounding decides differently (on the H100, from U(−1/K, 1/K) codes and
+    from N(0, 1) codes alike, a few rows took another code), and a row on
+    another code moves the decoder's pruning, and so most gradients, far
+    beyond the bounds (median relative RMS 0.12–0.13).  The quantizer's
+    arithmetic is the same with either index set; the record counts the
+    valid rows where the CPU's own argmin differs, and at most
+    TINY_CODES_RTOL of them may.  Its codebook is drawn N(0, 1), the scale
+    of the latents."""
+    import numpy as np
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import (
+        segmentation as tseg, vqvae as tvq)
+    sbatch = tseg.collate(np.random.RandomState(42), batch_size=2,
+                          resolution=32, voxels_per_room=2048)
+
+    def pinned_codes(card_codes, seen, valid_rows):
+        """A forward hook on the quantizer: records its own indices and
+        valid rows and, given ``card_codes``, quantizes with those instead
+        (through the quantizer's own ``quantize``)."""
+        def hook(m, inputs, out):
+            seen.append(out[1].cpu())
+            valid_rows.append(inputs[0].valid.cpu())
+            if card_codes is None:
+                return None
+            return m.quantize(inputs[0], card_codes.to(out[1].device))
+        return hook
+
+    def spread_book(net):
+        with torch.no_grad():
+            net.vq.embedding.copy_(torch.randn(
+                net.vq.embedding.shape,
+                generator=torch.Generator().manual_seed(4)))
+        return net
+    ds = mp.data.SyntheticShapes(resolution=128, num_samples=2,
+                                 points_per_shape=1500)
+    vbatch = mp.data.collate_pointclouds(
+        [ds[i]["coords"] for i in range(2)], 4096)[:2]
+    cases = {
+        "minkunet14": (
+            lambda d: mp.models.MinkUNet14(
+                3, planes=ZOO_TINY_PLANES, init_dim=ZOO_TINY_INIT,
+                input_capacity=4096, device=d, seed=3),
+            lambda d: tseg.build_loss_fn(batch_size=2, resolution=32,
+                                         device=d), sbatch),
+        "vqvae": (
+            lambda d: spread_book(tvq.build_model(
+                vae_channel=(8, 16, 32, 32, 4), num_embeddings=64,
+                input_capacity=4096, device=d, seed=3)),
+            lambda d: tvq.build_loss_fn(input_capacity=4096, batch_size=2,
+                                        resolution=128, device=d), vbatch)}
+    recs, ok = {}, True
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        for name, (make, make_loss, batch) in cases.items():
+            got, codes, valid_rows = [], [], []
+            ref_state = None
+            for d in (dev, torch.device("cpu")):  # the card's codes first
+                net = make(d)
+                if ref_state is None:  # before the step moves them
+                    ref_state = {k: v.clone()
+                                 for k, v in net.state_dict().items()}
+                else:
+                    net.load_state_dict(ref_state)
+                old = {n: t.clone() for n, t in net.named_buffers()}
+                state = mp.train.TrainState(net, mp.train.vae_optimizer(
+                    net.parameters(), 1e-3))
+                hook = (net.vq.register_forward_hook(
+                    pinned_codes(codes[0] if codes else None, codes,
+                                 valid_rows))
+                    if name == "vqvae" else None)
+                loss, _ = mp.train.make_train_step(make_loss(d))(state,
+                                                                 batch)
+                if hook is not None:
+                    hook.remove()
+                got.append((float(loss),
+                            {n: p.grad.cpu() for n, p in
+                             net.named_parameters() if p.grad is not None},
+                            {n: (t - old[n]).float().cpu() for n, t in
+                             net.named_buffers()
+                             if t.is_floating_point()}))
+            (lg, gg, sg), (lc, gc, sc) = got
+            grad_rel, stat_rel = rel_rms(gg, gc), rel_rms(sg, sc)
+            worst_g = max(grad_rel, key=grad_rel.get)
+            worst_s = max(stat_rel, key=stat_rel.get)
+            loss_rel = abs(lg - lc) / abs(lc)
+            # the card's argmin against the CPU's, over the valid rows
+            differing = (int(((codes[0] != codes[1]) & valid_rows[0]).sum())
+                         if codes else None)
+            n_valid = int(valid_rows[0].sum()) if codes else None
+            rec = {"tiny_zoo_reference": name,
+                   "vs": "cpu, same bf16 policy", "loss_cpu": lc,
+                   "loss_gpu": lg, "loss_rel_err": loss_rel,
+                   "grads_compared": len(grad_rel),
+                   "same_grads": set(gg) == set(gc),
+                   "grad_rel_rms_max": grad_rel[worst_g],
+                   "grad_worst": worst_g,
+                   "grad_rel_rms_median": statistics.median(
+                       grad_rel.values()),
+                   "stat_update_rel_rms_max": stat_rel[worst_s],
+                   "stat_worst": worst_s,
+                   "tol": {"grad": TINY_GRAD_RTOL, "stat": TINY_STAT_RTOL},
+                   "codes_differing": differing,
+                   "valid_rows": n_valid,
+                   "codes_tol": TINY_CODES_RTOL,
+                   "ok": bool(loss_rel <= 1e-2 and set(gg) == set(gc) and
+                              grad_rel[worst_g] <= TINY_GRAD_RTOL and
+                              stat_rel[worst_s] <= TINY_STAT_RTOL and
+                              (differing is None or differing <=
+                               TINY_CODES_RTOL * n_valid))}
+            emit(rec)
+            recs[name] = rec
+            ok = ok and rec["ok"]
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    return {"ok": ok, "records": recs}
+
+
 # -- the data-parallel phase ------------------------------------------------
 # Two ranks share the one card over gloo (NCCL refuses two ranks on one
 # device; gloo's all_reduce and broadcast take CUDA tensors through the
@@ -3551,6 +3989,17 @@ def main(argv) -> int:
     need(unb["ok"], "unbounded path: " + ", ".join(unb["failures"]))
     torch.cuda.empty_cache()
 
+    # -- path 7: the model zoo's training entry points ----------------------
+    try:
+        with cap:
+            zoo = zoo_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        zoo = {"ok": False, "failures": ["zoo phase raised"], "routes": {},
+               "steps": {}, "launches": dict.fromkeys(KERNELS, 0)}
+    need(zoo["ok"], "zoo path: " + ", ".join(zoo["failures"]))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -3577,7 +4026,8 @@ def main(argv) -> int:
     kinds = {(r.n_out, r.cin, r.cout, r.k): r.layer
              for rs in (per_request_routes[0], canv["all_routes"],
                         train_routes, droutes, vae_off, diff_off,
-                        unb["routes"], *ctrain["routes"].values())
+                        unb["routes"], *ctrain["routes"].values(),
+                        *zoo["routes"].values())
              for r in rs}
     for key, layer in dp["kinds"].items():
         kinds.setdefault(key, layer)
@@ -3621,6 +4071,18 @@ def main(argv) -> int:
                 recs.setdefault((kernel, path), {})[key] = check(
                     key, tuple(o.to(dev) if torch.is_tensor(o) else o
                                for o in ops), kinds.get(key[:4], "?"))
+    # the zoo's launch shapes that no earlier path launched, K = 125 (the
+    # MinkUNet stem) and K = 8 (its k2s2 convs and pinned transposes)
+    # among them
+    for path in sorted(zoo["routes"]):
+        for kernel in FUSED:
+            known = {key for (k, _), got in recs.items() if k == kernel
+                     for key in got}
+            got = recs.setdefault((kernel, path), {})
+            check = fused_check(kernel, path)
+            for key, ops in sorted(cap.case(path, kernel).items()):
+                if key not in known:
+                    got[key] = check(key, ops, kinds.get(key[:4], "?"))
     all_recs = [r for got in recs.values() for r in got.values()] + extras
     emit({"kernel_checks": len(all_recs),
           "failed": [(r["kernel"], r["case"], r.get("forward_shape"))
@@ -3646,6 +4108,32 @@ def main(argv) -> int:
         for kernel, launched in per.items():
             need(set(launched) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
+    for path in zoo["routes"]:
+        for kernel in FUSED:
+            need(shapes(path, kernel) <= checked[kernel],
+                 f"{kernel} checked at every launch shape of {path}")
+    for kernel in FUSED:
+        for k in (125, 8):
+            need(any(key[3] == k for path in zoo["routes"]
+                     for key in shapes(path, kernel)),
+                 f"{kernel} launched (and so checked) at K = {k} on the "
+                 "zoo path")
+
+    # per zoo train step: each launch shape's time x its launches (each
+    # shape's record from whichever path checked it first)
+    def first_rec(kernel, key):
+        for (k, _), got in sorted(recs.items()):
+            if k == kernel and key in got:
+                return got[key]
+        raise KeyError((kernel, key))
+    zoo_account = {}
+    for path, n in zoo["steps"].items():
+        per = {k: cap.per_step(path, k, n) for k in FUSED}
+        zoo_account[path] = {
+            k: {"launches": sum(per[k].values()),
+                **totals(per[k], {key: first_rec(k, key) for key in per[k]})}
+            for k in FUSED}
+    emit({"zoo_step_kernel_account": zoo_account, "card": power})
 
     # per request / step: each launch shape's time x its launches
     per_request = {"B1": by_shape(hist)}
@@ -3787,7 +4275,7 @@ def main(argv) -> int:
 
     # -- end-to-end references on a small input --------------------------
     for ref in (tiny_reference, tiny_canvas_reference, tiny_train_reference,
-                tiny_diffusion_reference):
+                tiny_diffusion_reference, tiny_zoo_reference):
         try:
             need(ref(mp, dev)["ok"], ref.__name__)
         except Exception:
@@ -3842,6 +4330,12 @@ def main(argv) -> int:
                   "ms_per_diffusion_step": tot_diff[name]["ms"],
                   "bound_ms_per_diffusion_step": tot_diff[name]["bound_ms"],
                   "launches_canvas_train_path": ctrain["launches"][name],
+                  "launches_zoo_path": zoo["launches"][name],
+                  "ms_per_zoo_step": {p: a[name]["ms"]
+                                      for p, a in zoo_account.items()},
+                  "bound_ms_per_zoo_step": {
+                      p: a[name]["bound_ms"]
+                      for p, a in zoo_account.items()},
                   "ms_per_canvas_vae_step": tot_cvae[name]["ms"],
                   "plain_ms_per_canvas_vae_step": tot_cvae[name]["plain_ms"],
                   "bound_ms_per_canvas_vae_step":

@@ -1,9 +1,10 @@
 """Host-side batch collation into fixed-capacity buffers.
 
-Port of `collate_pointclouds` and `stack_devices` from
+Port of `collate_pointclouds`, `collate_fields` and `stack_devices` from
 `mink_octtree_stablediffusion_tpu/data/collate.py`: samples are sorted by
 size and the largest dropped while the total exceeds ``max_batch_len`` (or
-the buffer capacity); batch indices are re-assigned contiguously.  For
+the buffer capacity); batch indices are re-assigned contiguously.  A
+``TensorField`` batch keeps continuous coordinates (``collate_fields``).  For
 data parallelism, each device's collated tuple is stacked on a leading
 device axis, and rank r takes row r (``device_row``,
 ``parallel.shard_batch``).
@@ -11,7 +12,7 @@ device axis, and rank r takes row r (``device_row``,
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -44,6 +45,29 @@ def collate_pointclouds(coords_list: Sequence[np.ndarray], capacity: int,
         fpad = np.zeros((capacity, feature_dim), np.float32)
         fpad[valid] = 1.0
     return cpad, valid, fpad, kept
+
+
+def collate_fields(coords_list: Sequence[np.ndarray],
+                   features_list: Sequence[np.ndarray], capacity: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """TensorField collation: continuous batched coordinates
+    [capacity, 1+D] (float32, column 0 the sample's index), validity,
+    features; points past ``capacity`` are dropped."""
+    rows: List[np.ndarray] = []
+    for b, c in enumerate(coords_list):
+        rows.append(np.concatenate(
+            [np.full((len(c), 1), b, np.float32),
+             np.asarray(c, np.float32)], axis=1))
+    coords = np.concatenate(rows, axis=0)
+    n = min(len(coords), capacity)
+    cpad = np.zeros((capacity, coords.shape[1]), np.float32)
+    cpad[:n] = coords[:n]
+    valid = np.zeros((capacity,), bool)
+    valid[:n] = True
+    feats = np.concatenate(features_list, axis=0)
+    fpad = np.zeros((capacity, feats.shape[1]), np.float32)
+    fpad[:n] = feats[:n]
+    return cpad, valid, fpad
 
 
 def stack_devices(batches: Sequence[tuple]) -> tuple:

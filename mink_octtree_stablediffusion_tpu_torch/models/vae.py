@@ -70,13 +70,18 @@ class Encoder(nn.Module):
         self.log_var_conv = SparseConv(ch[4], ch[4], kernel_size=3,
                                        device=device)
 
-    def forward(self, x: SparseTensor):
+    def trunk(self, x: SparseTensor) -> SparseTensor:
+        """The five stages, before the two heads."""
         for blk in (self.block1, self.block2, self.block3):
             x = blk(x)
         if self.window_attn is not None:
             x = self.window_attn(x)
         for blk in (self.block4, self.block5):
             x = blk(x)
+        return x
+
+    def forward(self, x: SparseTensor):
+        x = self.trunk(x)
         return self.mean_conv(x), self.log_var_conv(x)
 
 
@@ -207,10 +212,9 @@ class VAE(nn.Module):
         return out_clss, targets, sout, mean, log_var, z
 
 
-def vae_loss(out_clss, targets, mean: SparseTensor, log_var: SparseTensor,
-             kld_weight: float = 1e-6):
-    """Per-level masked BCE-with-logits averaged over levels + KLD over the
-    valid latent rows → (loss, {"bce", "kld"})."""
+def occupancy_bce(out_clss, targets) -> torch.Tensor:
+    """The per-level masked BCE-with-logits of the occupancy heads against
+    their membership targets, averaged over the levels."""
     bce = 0.0
     for logits_t, target in zip(out_clss, targets):
         lo = logits_t.features[:, 0]
@@ -219,7 +223,14 @@ def vae_loss(out_clss, targets, mean: SparseTensor, log_var: SparseTensor,
         per = lo.clamp(min=0.0) - lo * t + torch.log1p(torch.exp(-lo.abs()))
         bce = bce + torch.where(v, per, 0.0).sum() / v.to(lo.dtype).sum(
         ).clamp(min=1.0)
-    bce = bce / float(len(out_clss))
+    return bce / float(len(out_clss))
+
+
+def vae_loss(out_clss, targets, mean: SparseTensor, log_var: SparseTensor,
+             kld_weight: float = 1e-6):
+    """Per-level masked BCE-with-logits averaged over levels + KLD over the
+    valid latent rows → (loss, {"bce", "kld"})."""
+    bce = occupancy_bce(out_clss, targets)
     vmask = mean.valid[:, None].to(mean.features.dtype)
     kld = -0.5 * ((1 + log_var.features - mean.features ** 2 -
                    torch.exp(log_var.features)) * vmask).sum() / (

@@ -13,6 +13,6 @@ from .conv import (ChannelwiseConv, GenerativeConvTranspose, Route,
 from .embed import TimestepEmbedding, timesteps_embedding
 from .init import init_parameters
 from .linear import Dense
-from .norm import BatchNorm, StableInstanceNorm
+from .norm import BatchNorm, DenseBatchNorm, StableInstanceNorm
 from .pool import (GlobalMaxAvgPool, GlobalPool, LocalPool, PoolTranspose,
                    broadcast_concat, broadcast_op, global_pool_features)

@@ -2,7 +2,9 @@
 
 Port of `BatchNorm` and `StableInstanceNorm` from
 `mink_octtree_stablediffusion_tpu/nn/norm.py`.  Statistics are masked:
-padding rows never contribute.  SyncBN is `BatchNorm` with a
+padding rows never contribute.  ``DenseBatchNorm`` is flax's own
+``nn.BatchNorm`` on a dense ``[..., C]`` array, as the model zoo's dense
+heads use it.  SyncBN is `BatchNorm` with a
 ``process_group`` (JAX's ``axis_name``): the valid-row count, Σx and Σx²
 are summed across the group's ranks before the statistics are formed.
 """
@@ -77,6 +79,51 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (f - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return x.with_features(y)
+
+
+# flax ``nn.BatchNorm``'s defaults, which every dense head keeps.
+DENSE_BN_MOMENTUM = 0.99
+DENSE_BN_EPS = 1e-5
+
+
+class DenseBatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` with its defaults over every axis but the last:
+    momentum 0.99, ε 1e-5, the batch's mean and **biased** variance
+    ``max(E[x²] − mean², 0)`` both to normalise and, in ``.train()``, in
+    the running average ``r = 0.99·r + 0.01·stat`` (``torch.nn.BatchNorm1d``
+    keeps the unbiased variance and weighs the other way round).  In
+    ``.eval()`` it uses the running statistics."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                m = DENSE_BN_MOMENTUM
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + DENSE_BN_EPS) *
+                             self.weight) + \
+            self.bias
 
 
 class StableInstanceNorm(nn.Module):

@@ -1,6 +1,8 @@
 """Training: the optimizers, the train state and step, checkpoints.  The
 entry points are the modules ``train.vae``, ``train.diffusion``,
-``train.generalize``, ``train.cond`` and ``train.diffusion_cross``
+``train.generalize``, ``train.cond``, ``train.diffusion_cross`` and the
+model zoo's ``train.classification``, ``train.segmentation``,
+``train.reconstruction``, ``train.vqvae`` and ``train.diffusion_dense``
 (imported on demand, so that ``python -m
 mink_octtree_stablediffusion_tpu_torch.train.vae`` runs them)."""
 

@@ -16,7 +16,9 @@ returns a ``state_dict`` for the matching port module:
   its projections ``to_q``/``to_kv``/``to_out`` directly under its own
   name (a `BasicBlock`'s ``attentions`` on the window path, the encoder's
   ``window_attn``), and the port holds them under ``attn`` there too, so
-  both flax layouts land on one set of projections;
+  both flax layouts land on one set of projections (a ``DenseAttention``
+  is named ``attn`` in flax, and its projections stay there, as they do
+  where the module given holds them under the flax path itself);
 - the diffusion trainer's ``CoordNLLParams`` (a NamedTuple leaf of the
   params tree ``{"unet": …, "nll": …}``) → ``nll.mu``/``nll.sigma`` 1:1;
 - the learned class table of conditioned training (``params["cond_table"]``
@@ -26,6 +28,19 @@ returns a ``state_dict`` for the matching port module:
   ``[K, C]``, ``Sinusoidal``'s ``[in, out]``: the module given holds a
   ``kernel`` there) 1:1 too; ``AdaptiveLogSoftmaxWithLoss``'s ``head`` and
   ``tail{i}_proj``/``tail{i}_out`` are dense layers of the same names.
+
+The model zoo adds:
+
+- a block's auto-named ``Dense_0`` and ``SparseConv_0`` (the ModelNet40
+  classifiers' ``_MLPBlock``/``_ConvBlock``) → ``fc`` and ``conv``;
+- parameters named ``{name}_scale``/``{name}_bias`` directly under a
+  module (``MinkowskiPointNet``'s masked norms) 1:1;
+- the VQ codebook ``params/…/embedding`` 1:1, and the EMA quantizer's
+  ``vq_stats`` collection (``embedding``, ``cluster_size``, ``ema_sum``,
+  ``steps``, the last kept int32) onto the buffers of the same names;
+- a dense 3-D conv kernel ``[kd, kh, kw, Cin, Cout]`` (flax ``nn.Conv``)
+  → a ``weight [Cout, Cin, kd, kh, kw]``; ``GroupNorm``/``LayerNorm``
+  ``scale``/``bias`` → ``weight``/``bias``, as every norm's.
 
 A UNet with ``remat`` has the same tree as one without (the stacks keep
 their names), so it needs nothing more; nor do the ResNet classifiers
@@ -48,7 +63,9 @@ import numpy as np
 import torch
 
 _MODULE_NAMES = {"BatchNorm_0": "bn", "StableInstanceNorm_0": "inorm",
-                 "SparseAttention_0": "attn"}
+                 "SparseAttention_0": "attn", "Dense_0": "fc",
+                 "SparseConv_0": "conv"}
+_VQ_STATS = ("embedding", "cluster_size", "ema_sum", "steps")
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _PROJECTIONS = ("to_q", "to_kv", "to_out")
 
@@ -64,12 +81,16 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator:
 
 
 def _translate(collection: str, path: Tuple[str, ...], value,
-               flax_kernels=frozenset()):
+               flax_kernels=frozenset(), port_modules=frozenset()):
     *mods, leaf = path
     if mods and mods[-1] in _PROJECTIONS and (
-            len(mods) < 2 or mods[-2] != "SparseAttention_0"):
+            len(mods) < 2 or mods[-2] not in ("SparseAttention_0", "attn")
+    ) and ".".join(mods) not in port_modules:
         mods = mods[:-1] + ["SparseAttention_0", mods[-1]]
     name = [_MODULE_NAMES.get(m, m) for m in mods]
+    if collection == "vq_stats" and leaf in _VQ_STATS:
+        return ".".join(name + [leaf]), np.array(
+            value, np.int32 if leaf == "steps" else np.float32)
     arr = np.array(value, np.float32)
     if collection == "batch_stats" and leaf in _STATS:
         return ".".join(name + [_STATS[leaf]]), arr
@@ -79,8 +100,11 @@ def _translate(collection: str, path: Tuple[str, ...], value,
             return ".".join(name + ["kernel"]), arr
         if leaf == "kernel" and arr.ndim == 2:
             return ".".join(name + ["weight"]), arr.T
+        if leaf == "kernel" and arr.ndim == 5:
+            return ".".join(name + ["weight"]), arr.transpose(4, 3, 0, 1, 2)
         if leaf in ("bias", "weight", "mu", "sigma", "cond_table", "alpha",
-                    "coef"):
+                    "coef", "embedding") or leaf.endswith(("_scale",
+                                                           "_bias")):
             return ".".join(name + [leaf]), arr
         if leaf == "scale":
             return ".".join(name + ["weight"]), arr
@@ -92,15 +116,17 @@ def from_flax(variables, module: Optional[torch.nn.Module] = None
     """flax variables (``{"params": …, "batch_stats": …}``) → state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     ref = module.state_dict() if module is not None else {}
+    port_modules = frozenset(n.rsplit(".", 1)[0] for n in ref)
     flax_kernels = frozenset(n for n, t in ref.items()
                              if n.rsplit(".", 1)[-1] == "kernel" and
                              t.dim() == 2)
     for collection, tree in variables.items():
         for path, value in _leaves(tree):
-            name, arr = _translate(collection, path, value, flax_kernels)
+            name, arr = _translate(collection, path, value, flax_kernels,
+                                   port_modules)
             if name in sd:
                 raise KeyError(f"two flax leaves map onto {name}")
-            sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+            sd[name] = torch.from_numpy(np.array(arr, order="C"))  # 0-d stays 0-d
     if module is not None:
         missing = sorted(set(ref) - set(sd))
         unused = sorted(set(sd) - set(ref))

@@ -371,16 +371,21 @@ def test_canvas_entry_points_run_and_restore(tmp_path, caplog):
     with pytest.raises(NotImplementedError):
         generalize.main(gen + ["--stream_device"])
 
-    out = cond.main(tiny + ["--train_shapes", "4", "--steps_diff", "2",
-                            "--cross_attention_dim", str(D),
-                            "--cond_into_time"])
+    # the oracle and the per-class scoring at their smallest: 2 classifier
+    # steps, 4 held-out shapes, one CFG scale, one round of 2 DDPM steps
+    oracle = ["--val_shapes", "2", "--steps_cls", "2", "--cls_points", "64",
+              "--oracle_shapes", "4", "--cfg_scales", "3", "--rounds", "1",
+              "--sample_steps", "2"]
+    out = cond.main(tiny + oracle + ["--train_shapes", "4", "--steps_diff",
+                                     "2", "--cross_attention_dim", str(D),
+                                     "--cond_into_time"])
     assert out["steps_diff"] == 2 and np.isfinite(out["diff_loss_last"])
     payload = torch.load(f"{d}/diff_cond/step_00000002.pt",
                          weights_only=True)
     assert payload["model"]["cond_table"].shape == (4, S, D)
-    out = cond.main(tiny + ["--train_shapes", "4", "--steps_diff", "2",
-                            "--cross_attention_dim", str(D),
-                            "--cond_into_time", "--skip_diff"])
+    out = cond.main(tiny + oracle + ["--train_shapes", "4", "--steps_diff",
+                                     "2", "--cross_attention_dim", str(D),
+                                     "--cond_into_time", "--skip_diff"])
     assert out["steps_diff"] == 2
 
     dc = ["--device", "cpu", "--ckpt_dir", str(tmp_path / "dc"),

@@ -28,6 +28,8 @@ gets a different batch and JAX's draws for its device (JAX's
 - ``parallel.param_spec`` on the cases of `test_parallel_tp.py`, and a
   two-process ``all_reduce`` / ``broadcast`` / differentiable sum.
 - DP sampling and JAX's other dry-run phases (``parallel.dryrun``).
+- The EMA ``VectorQuantizer`` with a ``process_group`` (two steps, the
+  ranks' valid rows differing) against ``axis_name="data"``.
 """
 
 import os
@@ -251,6 +253,42 @@ def _sync_bn_case(rng):
     return job, ref
 
 
+def _vq_case(rng):
+    """The EMA quantizer over two ranks whose valid rows differ, against
+    ``VectorQuantizer(axis_name="data")`` under ``shard_map``: two steps."""
+    k, d, n = 8, 3, 40
+    book = rng.uniform(-0.3, 0.3, (k, d)).astype(np.float32)
+    stats = {"embedding": book, "cluster_size": (rng.rand(k) + 0.5).astype(
+        np.float32), "ema_sum": book * 1.2, "steps": np.zeros((), np.int32)}
+    latents = []
+    for _ in range(2):
+        valid = [np.arange(n) < m for m in (31, 17)]
+        latents.append(([(rng.randn(n, d) * 0.3 * v[:, None]).astype(
+            np.float32) for v in valid], valid))
+    vq = mm.VectorQuantizer(k, d, ema=True, axis_name="data")
+
+    def dev(stats, feats, valid):
+        grid = mt.SparseGrid(coords=jnp.zeros((n, 4), jnp.int32),
+                             valid=valid[0], stride=(8, 8, 8), batch_size=1)
+        (_, idx, _), upd = vq.apply(
+            {"vq_stats": stats}, mt.SparseTensor(grid=grid,
+                                                 features=feats[0]),
+            train=True, mutable=["vq_stats"])
+        return idx[None], upd["vq_stats"]
+
+    fn = jax.jit(shard_map(dev, mesh=mt.parallel.data_parallel_mesh(2),
+                           in_specs=(P(), P("data"), P("data")),
+                           out_specs=(P("data"), P())))
+    js = {key: jnp.asarray(v) for key, v in stats.items()}
+    idx = []
+    for feats, valid in latents:
+        i, js = fn(js, jnp.asarray(np.stack(feats)),
+                   jnp.asarray(np.stack(valid)))
+        idx.append(np.asarray(i))
+    job = {"k": k, "d": d, "stats": stats, "latents": latents}
+    return job, {"idx": idx, "state": from_flax({"vq_stats": js})}
+
+
 @pytest.fixture(scope="module")
 def dp_run(tmp_path_factory):
     """JAX's references, then one spawn of two port ranks running every
@@ -260,7 +298,8 @@ def dp_run(tmp_path_factory):
     for name, case in (("sync_bn", lambda: _sync_bn_case(rng)),
                        ("vae_step", _vae_case),
                        ("resnet_bf16_step", _resnet_case),
-                       ("dp_sampling", lambda: ({}, None))):
+                       ("dp_sampling", lambda: ({}, None)),
+                       ("vq_ema", lambda: _vq_case(rng))):
         jobs[name], refs[name] = case()
     out = str(tmp_path_factory.mktemp("dp"))
     torch.multiprocessing.start_processes(
@@ -394,3 +433,22 @@ def test_dp_sampling_shards(dp_run):
     assert len(rec["kept_per_rank"]) == 2
     assert rec["equal_single_process"] == [True, True]
     assert rec["shards_differ"] and rec["finite"]
+
+
+def test_vq_process_group_matches_jax(dp_run):
+    """The EMA quantizer's counts and sums summed over the ranks (JAX's
+    ``psum`` over ``axis_name``): each rank's code indices exactly, and
+    every buffer after two steps within 1e-5, the same on both ranks."""
+    refs, ranks = dp_run
+    ref = refs["vq_ema"]
+    for r, res in enumerate(ranks):
+        got = res["vq_ema"]
+        for step, (i, want) in enumerate(zip(got["idx"], ref["idx"])):
+            np.testing.assert_array_equal(i, want[r],
+                                          err_msg=f"rank {r} step {step}")
+        for name, want in ref["state"].items():
+            np.testing.assert_allclose(got["state"][name], want.numpy(),
+                                       rtol=1e-5, atol=1e-6, err_msg=name)
+    assert ranks[0]["vq_ema"]["state"]["steps"] == 2
+    for name, t in ranks[0]["vq_ema"]["state"].items():
+        np.testing.assert_array_equal(t, ranks[1]["vq_ema"]["state"][name])

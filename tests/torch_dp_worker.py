@@ -131,8 +131,28 @@ def dp_sampling(rank: int, job: dict) -> dict:
     return dryrun.run_rank(2, _DEV)
 
 
+def vq_ema(rank: int, job: dict) -> dict:
+    """Two EMA train steps of ``VectorQuantizer(process_group=…)`` on this
+    rank's latents (the counts and sums summed over the ranks)."""
+    vq = mp.models.VectorQuantizer(job["k"], job["d"], ema=True,
+                                   process_group=dist.group.WORLD,
+                                   device=_DEV)
+    vq.load_state_dict({n: _t(a) for n, a in job["stats"].items()})
+    vq.train()
+    idx = []
+    for feats, valid in job["latents"]:
+        n = feats[rank].shape[0]
+        grid = mp.SparseGrid(coords=_t(np.zeros((n, 4), np.int32)),
+                             valid=_t(valid[rank]), stride=(8, 8, 8),
+                             batch_size=1)
+        _, i, _ = vq(mp.SparseTensor(grid=grid, features=_t(feats[rank])))
+        idx.append(i.cpu().numpy())
+    return {"idx": idx, "state": _state(vq)}
+
+
 JOBS = {"sync_bn": sync_bn, "vae_step": vae_step,
-        "resnet_bf16_step": resnet_bf16_step, "dp_sampling": dp_sampling}
+        "resnet_bf16_step": resnet_bf16_step, "dp_sampling": dp_sampling,
+        "vq_ema": vq_ema}
 
 
 def run(rank: int, world: int, port: int, payload: dict, out: str,
