@@ -115,6 +115,17 @@ read just after:
   ``api_demo`` entry point.  It prints the hash build, lookup, kernel-map
   and conv times beside the twin's, and the peak memory.
 
+- **the model zoo** — ``zoo_phase``: the five training entry points of the
+  model zoo and ``train.cond``'s oracle (see there).
+- **the data path and the utilities** — ``data_phase``: mesh files (OFF,
+  OBJ, GLB) written from a seed and read through their datasets;
+  ``train.vae --data`` (with its npy cache), ``train.classification
+  --data`` and ``train.generalize --stream_device`` (batches synthesized
+  on the card) through their entry points; `PrefetchLoader` feeding the
+  VAE step; the native voxelizer against its plain paths;
+  ``procedural_batch`` against host `ProceduralShapes`; the backend
+  self-check and differential suite on the card (see there).
+
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
 extra cases, and on the fully occupied canvas beside one cuDNN call,
@@ -3302,6 +3313,381 @@ DP_RANKS, DP_BATCH, DP_TIMEOUT_S = 2, 2, 300
 DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 3, 2, 2
 # the earlier paths whose operands main() checks at every launch shape, and
 # their kernels: the DP ranks send back only the shapes not among them
+# the data phase (``data_phase``): a ModelNet40-layout tree of tori of
+# 2·100·50 = 10,000 faces, 2 classes × (4 train + 2 test); the steps of
+# each entry point it drives
+DATA_CLASSES, DATA_TRAIN, DATA_TEST, DATA_NU, DATA_NV = \
+    ("airplane", "chair"), 4, 2, 100, 50
+DATA_VAE_STEPS, DATA_CLS_STEPS, DATA_STREAM_STEPS, DATA_PREFETCH = 3, 2, 3, 4
+# procedural_batch's and the native voxelizer's size: 4 shapes of 32,768
+# points at resolution 128 into 65,536 rows
+DATA_SHAPES, DATA_POINTS = 4, 32768
+# extra flags of each entry point the phase drives (none on the card: the
+# entry points' defaults; a CPU rehearsal appends its tiny sizes)
+DATA_FLAGS = {"data_vae": [], "data_cls": [], "data_stream": []}
+
+
+def data_phase(mp, dev, cap, power) -> dict:
+    """The data path and the utilities on the card, each path with the
+    kernels' counts read around it:
+
+    a. mesh files: a ModelNet40-layout tree of OFF meshes (DATA_CLASSES
+       × DATA_TRAIN train + DATA_TEST test tori of 10,000 faces), an OBJ
+       tree and a GLB file (a strided accessor), each read through its
+       dataset (`ModelNet40Dataset`, `ShapeNetDataset`,
+       `ObjaverseDataset`) at resolution 128.
+    b. ``train.vae --data <tree> --cache_dir`` at its defaults (VAE (32,
+       128, 512, 512, 4), resolution 128, batch 4, 65,536 rows, rotation
+       augmentation) for DATA_VAE_STEPS steps: 8 meshes, 2 batches an
+       epoch, so step 3 reads the npy cache; each mesh file is parsed
+       once.
+    c. ``train.classification --data <tree>`` (MinkowskiFCNN, resolution
+       64, batch 8, 40 classes) for DATA_CLS_STEPS steps, then its score
+       on the test split.
+    d. ``train.generalize --stream_device``, phase 1 only, at its
+       defaults (the canvas VAE, resolution 64, 32,768 points a shape) for
+       DATA_STREAM_STEPS steps, each batch from `data.procedural_batch`.
+    e. DATA_PREFETCH batches of the mesh tree fed to `train.vae`'s step
+       (the same VAE) through `PrefetchLoader` (pinned host memory, a side
+       stream): each batch on the card equal to its host arrays.
+    f. ``native.*`` (the C++ library, built at first use on this host)
+       equal to the plain paths on the xyz of 4 of the tree's shapes
+       (32,768 points each), both timed.
+    g. ``procedural_batch`` at resolution 128 (DATA_SHAPES shapes of
+       DATA_POINTS points, 65,536 rows) with no host synchronization
+       inside (``torch.cuda.set_sync_debug_mode``), timed against a host
+       `ProceduralShapes` batch of the same size.
+    h. ``utils.backend_selfcheck`` and ``backend_differential_suite`` on
+       the card (B1 as its fused conv), each op's ``max_err`` printed.
+
+    Every step's loss must be finite and each path's B1/B2/B3 launches
+    must equal its routes' (``expected_launches``); ``cap`` keeps the
+    operands of each launch shape of paths ``data_*`` for the kernel
+    checks.  Every failure is fatal."""
+    import itertools
+    import os
+    import shutil
+    import tempfile
+    import warnings
+    import numpy as np
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch import native
+    from mink_octtree_stablediffusion_tpu_torch.data import datasets as dsm
+    from mink_octtree_stablediffusion_tpu_torch.data import mesh_files
+    from mink_octtree_stablediffusion_tpu_torch.train import (
+        classification as tcls, generalize as tgen, vae as tvae)
+    failures = []
+
+    def need(ok, what):
+        if not ok:
+            failures.append(what)
+    count = counters(mp)
+    for c in count.values():
+        c.launches = 0  # counts from here on are the data phase's
+    out = {"routes": {}, "launches": {}}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        # (a) the mesh files and their datasets
+        root = os.path.join(tmp, "modelnet")
+        t0 = time.perf_counter()
+        mesh_files.write_modelnet_tree(root, DATA_CLASSES, DATA_TRAIN,
+                                       DATA_TEST, DATA_NU, DATA_NV, seed=0)
+        obj_root = os.path.join(tmp, "shapenet")
+        mesh_files.write_modelnet_tree(obj_root, DATA_CLASSES, 1, 0,
+                                       DATA_NU, DATA_NV, seed=1, ext=".obj")
+        glb_dir = os.path.join(tmp, "objaverse")
+        os.makedirs(glb_dir)
+        v, f = mesh_files.torus_mesh(DATA_NU, DATA_NV)
+        mesh_files.write_glb(os.path.join(glb_dir, "uid0.glb"), v, f,
+                             stride=16)
+        write_s = time.perf_counter() - t0
+        reads = {}
+        for name, ds in (
+                ("modelnet40", mp.data.ModelNet40Dataset(root, "train", RES)),
+                ("shapenet", mp.data.ShapeNetDataset(obj_root,
+                                                     resolution=RES)),
+                ("objaverse", mp.data.ObjaverseDataset(glb_dir, RES))):
+            t0 = time.perf_counter()
+            sample = ds[0]
+            reads[name] = {"files": len(ds), "read_s":
+                           time.perf_counter() - t0,
+                           "points": len(sample["xyz"]),
+                           "voxels": len(sample["coords"])}
+            xyz = sample["xyz"]
+            need(len(ds) > 0 and len(sample["coords"]) > 0 and
+                 xyz.min() >= 0 and xyz.max() < RES,
+                 f"{name}: a sample in [0, {RES})")
+        need(reads["modelnet40"]["files"] == len(DATA_CLASSES) * DATA_TRAIN,
+             "modelnet40: the train split's files")
+        emit({"data_files": reads, "write_s": write_s,
+              "faces_per_mesh": 2 * DATA_NU * DATA_NV})
+
+        def entry(label, module, argv):
+            """``module.main(argv)`` with its step walls and losses, its
+            routes and its launches."""
+            walls, losses = [], []
+            orig = module.make_train_step
+
+            def make(loss_fn):
+                step = orig(loss_fn)
+
+                def timed(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    loss, aux = step(*a, **k)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    losses.append(float(loss))
+                    return loss, aux
+                return timed
+            module.make_train_step = make
+            before = {k: c.launches for k, c in count.items()}
+            cap.at(label, FUSED)
+            try:
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                with mp.nn.record_routes() as routes:
+                    result = module.main(argv + ["--device", str(dev)] +
+                                         DATA_FLAGS[label])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                module.make_train_step = orig
+                cap.at(None)
+            launched = {k: c.launches - before[k] for k, c in count.items()}
+            expected = expected_launches(routes)
+            rec = {"data_path": label, "run_s": wall, "step_walls_s": walls,
+                   "losses": losses, "launches": launched,
+                   "expected_launches": expected, "convs": len(routes),
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "card": power}
+            emit(rec)
+            need(all(math.isfinite(x) for x in losses),
+                 f"{label}: finite losses")
+            need(launched == expected, f"{label}: launches")
+            need(launched["B1"] > 0, f"{label}: B1 launched")
+            out["routes"][label] = routes
+            out["launches"][label] = launched
+            return result, rec
+
+        # (b) train.vae --data, with the npy cache
+        parsed = []
+        load_off = dsm._MESH_LOADERS[".off"]
+        dsm._MESH_LOADERS[".off"] = lambda p: parsed.append(p) or load_off(p)
+        cache = os.path.join(tmp, "cache")
+        try:
+            code, rec = entry("data_vae", tvae, [
+                "--data", root, "--cache_dir", cache,
+                "--steps", str(DATA_VAE_STEPS),
+                "--ckpt_dir", os.path.join(tmp, "ckpt_vae")])
+        finally:
+            dsm._MESH_LOADERS[".off"] = load_off
+        n_train = len(DATA_CLASSES) * DATA_TRAIN
+        need(code == 0 and len(rec["step_walls_s"]) == DATA_VAE_STEPS,
+             "train.vae --data: its steps")
+        need(len(os.listdir(cache)) == n_train and
+             sorted(parsed) == sorted(set(parsed)) and
+             len(parsed) == n_train,
+             "train.vae --data: each mesh parsed once, then the cache")
+        emit({"data_vae_cache_files": len(os.listdir(cache)),
+              "meshes_parsed": len(parsed)})
+        shutil.rmtree(os.path.join(tmp, "ckpt_vae"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (c) train.classification --data
+        res, rec = entry("data_cls", tcls, [
+            "--data", root, "--steps", str(DATA_CLS_STEPS)])
+        need(len(rec["step_walls_s"]) == DATA_CLS_STEPS and
+             math.isfinite(res["final_loss"]),
+             "train.classification --data: its steps")
+        torch.cuda.empty_cache()
+
+        # (d) train.generalize --stream_device, phase 1
+        res, rec = entry("data_stream", tgen, [
+            "--stream_device", "--steps_vae", str(DATA_STREAM_STEPS),
+            "--steps_diff", "0", "--train_shapes", "4", "--val_shapes", "4",
+            "--ckpt_dir", os.path.join(tmp, "ckpt_gen")])
+        need(res["steps_vae"] == DATA_STREAM_STEPS and res["stream_device"]
+             and math.isfinite(res["val_recon_iou"]),
+             "train.generalize --stream_device: its steps")
+        torch.cuda.empty_cache()
+
+        # (e) PrefetchLoader feeding the VAE step
+        enc_caps, dec_caps = mp.serve.capacities(CAP)
+        vae = mp.models.VAE(channels=VAE_CH, encoder_capacities=enc_caps,
+                            decoder_capacities=dec_caps, device=dev, seed=0)
+        state = mp.train.TrainState(vae, mp.train.vae_optimizer(
+            vae.parameters(), TRAIN_LR))
+        step = mp.train.make_train_step(tvae.build_loss_fn(
+            input_capacity=CAP, batch_size=BATCH, resolution=RES,
+            kld_weight=TRAIN_KLD, device=dev))
+        ds = mp.data.ModelNet40Dataset(root, "train", RES, augment=True)
+        rng = np.random.RandomState(0)
+        host = []
+
+        def source():
+            epochs = itertools.chain.from_iterable(
+                mp.data.batch_iterator(ds, BATCH, rng) for _ in range(2))
+            for samples in itertools.islice(epochs, DATA_PREFETCH):
+                batch = mp.data.collate_pointclouds(
+                    [s["coords"] for s in samples], CAP)[:3]
+                host.append(batch)
+                yield batch
+        gen = mp.utils.make_generator(0, dev)
+        before = {k: c.launches for k, c in count.items()}
+        cap.at("data_prefetch", FUSED)
+        walls, losses, equal, all_routes = [], [], [], []
+        with mp.data.PrefetchLoader(source(), prefetch=2,
+                                    device=dev) as loader:
+            for i, batch in enumerate(loader):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with mp.nn.record_routes() as routes:
+                    loss, _ = step(state, batch, gen)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                all_routes += routes
+                equal.append(all(torch.equal(t.cpu(), torch.as_tensor(h))
+                                 for t, h in zip(batch, host[i])))
+        cap.at(None)
+        launched = {k: c.launches - before[k] for k, c in count.items()}
+        emit({"data_path": "data_prefetch", "step_walls_s": walls,
+              "losses": losses, "batches_equal_host": equal,
+              "launches": launched, "card": power})
+        need(len(losses) == DATA_PREFETCH and all(equal) and
+             all(map(math.isfinite, losses)),
+             "PrefetchLoader: every batch on the card equal to the host's")
+        need(launched == expected_launches(all_routes),
+             "data_prefetch: launches")
+        out["routes"]["data_prefetch"] = all_routes
+        out["launches"]["data_prefetch"] = launched
+        del vae, state, step
+        torch.cuda.empty_cache()
+
+        # (f) the native voxelizer against the plain paths
+        need(native.available(), "native: the C++ library builds and loads")
+        clouds = [np.asarray(ds[i]["xyz"], np.float32)
+                  for i in range(DATA_SHAPES)]
+        clouds = [np.concatenate([c] * (-(-DATA_POINTS // len(c))))[
+            :DATA_POINTS] for c in clouds]
+        coords = np.concatenate([np.floor(c).astype(np.int32)
+                                 for c in clouds])
+        labels = np.repeat(np.arange(DATA_SHAPES, dtype=np.int32),
+                           DATA_POINTS)
+        lib = native._load()
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            r = fn()
+            return r, (time.perf_counter() - t0) * 1e3
+        plain_ops = {
+            "sparse_quantize": lambda: [mp.ops.sparse_quantize_np(c, 1.0)
+                                        for c in clouds],
+            "quantize_label": lambda: native.quantize_label_plain(
+                coords, labels, -100),
+            "morton_codes": lambda: mp.ops.morton_encode_np(coords, 1),
+            "collate_batch": lambda: _plain_collate(mp, clouds)}
+        native_ops = {
+            "sparse_quantize": lambda: [native.sparse_quantize(c, 1.0)
+                                        for c in clouds],
+            "quantize_label": lambda: native.quantize_label(coords, labels,
+                                                            -100),
+            "morton_codes": lambda: native.morton_codes(coords, 1),
+            "collate_batch": lambda: native.collate_batch(
+                clouds, 1.0, CAP, mp.ops.INVALID_COORD)}
+        nat = {}
+        for name in native_ops:
+            got, ms = timed(native_ops[name])
+            ref, plain_ms = timed(plain_ops[name])
+            got = got if isinstance(got, (list, tuple)) else [got]
+            ref = ref if isinstance(ref, (list, tuple)) else [ref]
+            same = lib is not None and len(got) == len(ref) and all(
+                np.array_equal(a, b) for a, b in zip(got, ref))
+            nat[name] = {"native_ms": ms, "plain_ms": plain_ms,
+                         "equal": bool(same)}
+            need(same, f"native.{name} equal to its plain path")
+        emit({"native_vs_plain": nat, "clouds": DATA_SHAPES,
+              "points_per_cloud": DATA_POINTS, "card": power})
+
+        # (g) procedural_batch on the card against host ProceduralShapes
+        pgen = mp.utils.make_generator(0, dev)
+
+        def device_batch():
+            return mp.data.procedural_batch(pgen, DATA_SHAPES, DATA_POINTS,
+                                            RES, CAP)
+        device_batch()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                batch = device_batch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # each synchronizing call warns ("called a synchronizing CUDA
+        # operation"); the mode's notice that it is a prototype is not one
+        syncs = [str(w.message)[:120] for w in caught
+                 if "synchroniz" in str(w.message).lower() and
+                 "prototype" not in str(w.message)]
+        dev_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            device_batch()
+            torch.cuda.synchronize()
+            dev_ms.append((time.perf_counter() - t0) * 1e3)
+        per_inst = torch.bincount(batch[0][batch[1]][:, 0].long(),
+                                  minlength=DATA_SHAPES).tolist()
+        t0 = time.perf_counter()
+        hds = mp.data.ProceduralShapes(resolution=RES,
+                                       num_samples=DATA_SHAPES,
+                                       points_per_shape=DATA_POINTS)
+        mp.data.collate_pointclouds([hds[i]["coords"]
+                                     for i in range(DATA_SHAPES)], CAP)
+        host_s = time.perf_counter() - t0
+        emit({"procedural_batch_ms": dev_ms,
+              "procedural_batch_ms_median": statistics.median(dev_ms),
+              "host_procedural_shapes_s": host_s,
+              "voxels_per_instance": per_inst,
+              "host_syncs_inside": syncs, "card": power})
+        need(not syncs, "procedural_batch: no host synchronization")
+        need(min(per_inst) > 0, "procedural_batch: voxels in every shape")
+
+        # (h) the backend canaries on the card
+        before = {k: c.launches for k, c in count.items()}
+        cap.at("data_diff", FUSED)
+        with mp.nn.record_routes() as routes:
+            selfcheck = mp.utils.backend_selfcheck(device=dev)
+            report = mp.utils.backend_differential_suite(device=dev)
+        cap.at(None)
+        launched = {k: c.launches - before[k] for k, c in count.items()}
+        emit({"backend_selfcheck": selfcheck,
+              "backend_differential_suite": report,
+              "launches": launched, "card": power})
+        need(selfcheck, "backend_selfcheck on the card")
+        need(report["_all_ok"] and "conv_fused_bf16" in report,
+             "backend_differential_suite on the card")
+        need(launched["B1"] == 1, "differential suite: one B1 launch")
+        out["launches"]["data_diff"] = launched
+        out["routes"]["data_diff"] = []
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["ok"] = not failures
+    out["failures"] = failures
+    emit({"data_phase_s": out["phase_s"], "failures": failures})
+    return out
+
+
+def _plain_collate(mp, clouds):
+    """``native.collate_batch``'s plain path: each cloud voxelized by
+    numpy, batch-indexed and padded with ``INVALID_COORD``."""
+    vox = [mp.ops.sparse_quantize_np(c, 1.0) for c in clouds]
+    return mp.ops.pad_to_capacity(mp.ops.batched_coordinates_np(vox), CAP)
+
+
 CHECKED_PATHS = (("generation", ("B1",)), ("canvas", ("B1",)),
                  ("serve", ("B1",)), ("vae_train", FUSED),
                  ("diffusion", KERNELS), ("vae_gate_on", BRICK),
@@ -4000,6 +4386,17 @@ def main(argv) -> int:
     need(zoo["ok"], "zoo path: " + ", ".join(zoo["failures"]))
     torch.cuda.empty_cache()
 
+    # -- path 8: the data path and the utilities ----------------------------
+    try:
+        with cap:
+            data = data_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        data = {"ok": False, "failures": ["data phase raised"], "routes": {},
+                "launches": {}}
+    need(data["ok"], "data path: " + ", ".join(data["failures"]))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -4027,7 +4424,7 @@ def main(argv) -> int:
              for rs in (per_request_routes[0], canv["all_routes"],
                         train_routes, droutes, vae_off, diff_off,
                         unb["routes"], *ctrain["routes"].values(),
-                        *zoo["routes"].values())
+                        *zoo["routes"].values(), *data["routes"].values())
              for r in rs}
     for key, layer in dp["kinds"].items():
         kinds.setdefault(key, layer)
@@ -4083,6 +4480,16 @@ def main(argv) -> int:
             for key, ops in sorted(cap.case(path, kernel).items()):
                 if key not in known:
                     got[key] = check(key, ops, kinds.get(key[:4], "?"))
+    # the data phase's launch shapes that no earlier path launched
+    for path in sorted(data["launches"]):
+        for kernel in FUSED:
+            known = {key for (k, _), got in recs.items() if k == kernel
+                     for key in got}
+            got = recs.setdefault((kernel, path), {})
+            check = fused_check(kernel, path)
+            for key, ops in sorted(cap.case(path, kernel).items()):
+                if key not in known:
+                    got[key] = check(key, ops, kinds.get(key[:4], "?"))
     all_recs = [r for got in recs.values() for r in got.values()] + extras
     emit({"kernel_checks": len(all_recs),
           "failed": [(r["kernel"], r["case"], r.get("forward_shape"))
@@ -4109,6 +4516,10 @@ def main(argv) -> int:
             need(set(launched) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
     for path in zoo["routes"]:
+        for kernel in FUSED:
+            need(shapes(path, kernel) <= checked[kernel],
+                 f"{kernel} checked at every launch shape of {path}")
+    for path in data["launches"]:
         for kernel in FUSED:
             need(shapes(path, kernel) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
@@ -4331,6 +4742,8 @@ def main(argv) -> int:
                   "bound_ms_per_diffusion_step": tot_diff[name]["bound_ms"],
                   "launches_canvas_train_path": ctrain["launches"][name],
                   "launches_zoo_path": zoo["launches"][name],
+                  "launches_data_path": {
+                      p: n[name] for p, n in data["launches"].items()},
                   "ms_per_zoo_step": {p: a[name]["ms"]
                                       for p, a in zoo_account.items()},
                   "bound_ms_per_zoo_step": {

@@ -13,13 +13,20 @@ sparse ResNet classifiers of `models.resnet` through `python -m
 ...multigpu_dp`; `parallel.dryrun`), and offers the MinkowskiEngine-style
 tensor API on bounded and unbounded grids (``TensorField``, slicing,
 interpolation, the dense round trip, union arithmetic, ``python -m
-...api_demo``).  Every
+...api_demo``), and feeds training from mesh files (`data`'s OFF, OBJ
+and GLB datasets behind every ``--data`` flag), from shapes synthesized
+on the card (`data.procedural_batch`) and through a prefetching loader,
+with a native host voxelizer (`native`) and the utilities of
+`utils` (diagnostics, gradcheck, profiling, summaries, the import of
+reference checkpoints).  Every
 bounded-grid sparse conv that is not densified goes through hand-written
 CUDA kernels, forward and backward (`ops/fused_conv.py`, `csrc/`), each
 launch a PyTorch operator (`ops/library.py`).  Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"``.  It imports neither
 JAX nor anything of the JAX package.
 """
+
+__version__ = "0.1.0"
 
 from . import (config, data, diffusion, models, nn, ops, parallel, serve,
                train, utils)
@@ -35,4 +42,4 @@ __all__ = ["Algorithm", "get_algorithm", "set_algorithm", "config", "data", "dif
            "SparseGrid", "SparseTensor", "TensorField", "cat", "cat_slice",
            "dense_coordinates", "interpolate_at", "slice_to_field",
            "sparse_tensor", "stack_mean", "stack_sum", "stack_var",
-           "to_sparse_dense"]
+           "to_sparse_dense", "__version__"]

@@ -1,24 +1,72 @@
-"""Synthetic and procedural shapes (host-side numpy).
+"""Datasets (host-side numpy): mesh files and synthetic shapes.
 
-Port of `SyntheticShapes`, `ProceduralShapes` and `batch_iterator` from
-`mink_octtree_stablediffusion_tpu/data/datasets.py` and
-`normalize_to_resolution` from `data/mesh.py`: parametric surfaces (sphere /
-torus / box / cylinder) voxelized like the mesh datasets.  The same seed
-(and split) gives the same voxels as the JAX package.
+Port of `mink_octtree_stablediffusion_tpu/data/datasets.py`: the OFF and
+OBJ readers; `ModelNet40Dataset` / `ShapeNetDataset` (per-class mesh
+folders → area-uniform resampling within the point budget → scaling into
+``[0, resolution)`` → voxels, with an npy cache, the 4-sample
+``small_dataset`` mode, rotation augmentation and "a picture of a {class}"
+captions); `ObjaverseDataset` (GLB files, optional image conditions); and
+the parametric surfaces `SyntheticShapes` / `ProceduralShapes` (sphere /
+torus / box / cylinder).  The same files, seed (and split) give the same
+points and voxels as the JAX package: a mesh dataset draws its
+resampling and its rotations from one shared ``RandomState`` in the order
+of its ``__getitem__`` calls, and its cache files have the JAX package's
+names, so either package reads a cache the other wrote.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+from typing import List, Optional
+
 import numpy as np
 
 from ..ops.coords import sparse_quantize_np
+from .mesh import (load_glb, normalize_to_resolution, point_budget,
+                   resample_mesh_count, rotate_point_cloud)
 
 
-def normalize_to_resolution(xyz: np.ndarray, resolution: int) -> np.ndarray:
-    """Scale/shift a cloud into [0, resolution)."""
-    lo, hi = xyz.min(0), xyz.max(0)
-    scale = (resolution - 1.01) / max((hi - lo).max(), 1e-9)
-    return (xyz - lo) * scale
+def load_off(path: str):
+    """OFF mesh reader (ModelNet40's format); the counts may follow "OFF"
+    on its own line ("OFF8 12 0")."""
+    with open(path) as f:
+        first = f.readline().strip()
+        if first != "OFF":
+            header = first[3:].split()
+        else:
+            header = f.readline().split()
+        nv, nf = int(header[0]), int(header[1])
+        verts = np.array([[float(x) for x in f.readline().split()[:3]]
+                          for _ in range(nv)])
+        faces = np.array([[int(x) for x in f.readline().split()[1:4]]
+                          for _ in range(nf)])
+    return verts, faces
+
+
+def load_obj(path: str):
+    """Wavefront OBJ reader (ShapeNet's format): ``v`` positions and
+    fan-triangulated ``f`` faces (``v/vt/vn`` indices accepted, negative
+    indices counted from the end)."""
+    verts: List[List[float]] = []
+    faces: List[List[int]] = []
+    with open(path) as f:
+        for line in f:
+            toks = line.split()
+            if not toks:
+                continue
+            if toks[0] == "v":
+                verts.append([float(x) for x in toks[1:4]])
+            elif toks[0] == "f":
+                idx = [int(tok.split("/")[0]) for tok in toks[1:]]
+                idx = [i - 1 if i > 0 else len(verts) + i for i in idx]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return (np.asarray(verts, float),
+            np.asarray(faces, int).reshape(-1, 3))
+
+
+_MESH_LOADERS = {".off": load_off, ".obj": load_obj}
 
 
 class SyntheticShapes:
@@ -183,3 +231,132 @@ def batch_iterator(dataset, batch_size: int, rng: np.random.RandomState,
         rng.shuffle(idx)
     for i in range(0, len(idx) - batch_size + 1, batch_size):
         yield [dataset[int(j)] for j in idx[i:i + batch_size]]
+
+
+class ModelNet40Dataset:
+    """``root/<class>/<phase>/*.{off,obj}`` → resampled, scaled points and
+    their voxels (``{"coords", "xyz", "label"[, "caption"]}``).  With
+    ``small_dataset`` every index reads one of the first 4 files."""
+
+    def __init__(self, root: str, phase: str = "train",
+                 resolution: int = 128, cache_dir: Optional[str] = None,
+                 augment: bool = False, small_dataset: bool = False,
+                 with_class: bool = False, seed: int = 0):
+        self.root = root
+        self.resolution = resolution
+        self.augment = augment
+        self.small_dataset = small_dataset
+        self.with_class = with_class
+        self.cache_dir = cache_dir
+        self.rng = np.random.RandomState(seed)
+        self.files: List[str] = []
+        self.labels: List[int] = []
+        self.classes: List[str] = []
+        if os.path.isdir(root):
+            self.classes = sorted(
+                d for d in os.listdir(root)
+                if os.path.isdir(os.path.join(root, d)))
+            for li, c in enumerate(self.classes):
+                d = os.path.join(root, c, phase)
+                if os.path.isdir(d):
+                    for f in sorted(os.listdir(d)):
+                        if os.path.splitext(f)[1] in _MESH_LOADERS:
+                            self.files.append(os.path.join(d, f))
+                            self.labels.append(li)
+
+    def __len__(self):
+        return len(self.files)
+
+    def cache_path(self, path: str) -> Optional[str]:
+        """The npy cache of ``path``: keyed on the path relative to
+        ``root``, since ShapeNet's dumps share file names across class
+        folders."""
+        if not self.cache_dir:
+            return None
+        rel = os.path.relpath(path, self.root)
+        tag = hashlib.sha1(rel.encode()).hexdigest()[:16]
+        return os.path.join(
+            self.cache_dir,
+            f"{os.path.basename(path)}.{tag}.r{self.resolution}.npy")
+
+    def __getitem__(self, idx: int):
+        if self.small_dataset:
+            idx = idx % 4
+        path = self.files[idx]
+        cache = self.cache_path(path)
+        if cache:
+            os.makedirs(self.cache_dir, exist_ok=True)
+        if cache and os.path.exists(cache):
+            xyz = np.load(cache)
+        else:
+            verts, faces = _MESH_LOADERS[os.path.splitext(path)[1]](path)
+            lo, hi = point_budget(self.resolution)
+            n = min(max(lo * 2, 2 * self.resolution ** 2), hi)
+            xyz = resample_mesh_count(verts, faces, n, self.rng)
+            xyz = normalize_to_resolution(xyz, self.resolution)
+            if cache:
+                np.save(cache, xyz.astype(np.float32))
+        if self.augment:
+            xyz = rotate_point_cloud(xyz, self.rng)
+            xyz = np.clip(xyz, 0, self.resolution - 1.01)
+        out = {"coords": sparse_quantize_np(xyz, 1.0), "xyz": xyz,
+               "label": self.labels[idx]}
+        if self.with_class:
+            out["caption"] = f"a picture of a {self.classes[self.labels[idx]]}"
+        return out
+
+
+class ShapeNetDataset(ModelNet40Dataset):
+    """The same pipeline over per-class folders of ShapeNet OBJ dumps."""
+
+
+class ObjaverseDataset:
+    """Every ``*.glb`` under ``root`` (walked in order) → resampled,
+    scaled points and their voxels, label 0, ``uid`` the file's stem; with
+    ``image_dir``, ``image_dir/<uid>.npy`` (a preprocessed image condition)
+    is loaded where it exists."""
+
+    def __init__(self, root: str, resolution: int = 128,
+                 image_dir: Optional[str] = None,
+                 cache_dir: Optional[str] = None, seed: int = 0):
+        self.root = root
+        self.resolution = resolution
+        self.image_dir = image_dir
+        self.cache_dir = cache_dir
+        self.rng = np.random.RandomState(seed)
+        self.files: List[str] = []
+        if os.path.isdir(root):
+            for dirpath, _, names in os.walk(root):
+                for n in sorted(names):
+                    if n.endswith(".glb"):
+                        self.files.append(os.path.join(dirpath, n))
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int):
+        path = self.files[idx]
+        uid = os.path.splitext(os.path.basename(path))[0]
+        cache = None
+        if self.cache_dir:
+            os.makedirs(self.cache_dir, exist_ok=True)
+            cache = os.path.join(self.cache_dir,
+                                 f"{uid}.r{self.resolution}.npy")
+        if cache and os.path.exists(cache):
+            xyz = np.load(cache)
+        else:
+            verts, faces = load_glb(path)
+            lo, _ = point_budget(self.resolution)
+            xyz = resample_mesh_count(verts, faces,
+                                      max(lo, 2 * self.resolution ** 2),
+                                      self.rng)
+            xyz = normalize_to_resolution(xyz, self.resolution)
+            if cache:
+                np.save(cache, xyz.astype(np.float32))
+        out = {"coords": sparse_quantize_np(xyz, 1.0), "xyz": xyz,
+               "label": 0, "uid": uid}
+        if self.image_dir:
+            img = os.path.join(self.image_dir, f"{uid}.npy")
+            if os.path.exists(img):
+                out["image_cond"] = np.load(img)
+        return out

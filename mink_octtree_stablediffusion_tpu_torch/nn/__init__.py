@@ -10,9 +10,12 @@ from .blocks import (BasicBlock, ResBasicBlock, ResBottleneck, ResNetStack,
 from .conv import (ChannelwiseConv, GenerativeConvTranspose, Route,
                    SparseConv, SparseConvTranspose, UpsampleInterpolate,
                    record_routes)
-from .embed import TimestepEmbedding, timesteps_embedding
+from .embed import (LinearPositionalEncoding, TimestepEmbedding,
+                    timesteps_embedding)
 from .init import init_parameters
-from .linear import Dense
-from .norm import BatchNorm, DenseBatchNorm, StableInstanceNorm
+from .linear import Dense, Linear
+from .norm import (AdaStableInstanceNorm, BatchNorm, DenseBatchNorm,
+                   GroupNormDense, HjmInstanceNorm, InstanceNorm,
+                   StableGroupNorm, StableInstanceNorm)
 from .pool import (GlobalMaxAvgPool, GlobalPool, LocalPool, PoolTranspose,
                    broadcast_concat, broadcast_op, global_pool_features)

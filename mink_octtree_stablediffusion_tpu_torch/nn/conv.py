@@ -5,7 +5,8 @@ Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose`,
 `mink_octtree_stablediffusion_tpu/nn/conv.py`, the convs with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
 ``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
-kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → plain
+kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → the
+opt-in dense route (``ops.enable_dense_conv``, off by default) → plain
 gather-GEMM over a kernel map (unbounded grids always: the JAX package
 has no kernel for them either).  Kernel
 layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
@@ -32,7 +33,8 @@ from torch import nn
 from ..ops.conv import (default_compute_dtype, gather_rows, linear_apply,
                         sparse_conv_apply)
 from ..ops.coords import SparseGrid, expand_grid, stride_grid
-from ..ops.dense_conv import (dense_conv_apply, dense_conv_general_apply,
+from ..ops.dense_conv import (dense_conv_applicable, dense_conv_apply,
+                              dense_conv_general_apply,
                               dense_no_growth_preferred,
                               dense_no_growth_preferred2)
 from ..ops.fused_conv import fused_sparse_conv
@@ -145,6 +147,11 @@ class _ConvBase(nn.Module):
             branch = "fused"
             out = fused_sparse_conv(*args, x.grid, out_grid, spec, self.bias,
                                     compute_dtype=cd)
+        elif (allow_same_grid_dense and out_grid is x.grid and
+              dense_conv_applicable(spec, x.grid, cin, self.out_channels)):
+            branch = "dense"
+            out = dense_conv_apply(*args, x.grid, spec, self.bias,
+                                   compute_dtype=cd)
         else:
             branch = "plain"
             out = sparse_conv_apply(*args, kernel_map(x.grid, out_grid, spec),

@@ -1,5 +1,6 @@
-"""Timestep embeddings (port of `nn/embed.py`): sinusoidal features and
-the two-layer SiLU MLP of diffusers' `TimestepEmbedding`."""
+"""Embeddings (port of `nn/embed.py`): sinusoidal timestep features, the
+two-layer SiLU MLP of diffusers' `TimestepEmbedding`, and the linear
+positional encoding of a sparse tensor's coordinates."""
 
 from __future__ import annotations
 
@@ -40,3 +41,20 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+class LinearPositionalEncoding(nn.Module):
+    """(x, y, z, tensor stride) of every row → a dense layer ``fc`` (flax's
+    ``Dense_0``) to ``d_model`` (the reference's
+    `diffusion_block.py:377-397`)."""
+
+    def __init__(self, d_model: int, ndim: int = 3, device=None):
+        super().__init__()
+        self.fc = Dense(ndim + 1, d_model, device=device)
+
+    def forward(self, x) -> torch.Tensor:
+        pos = torch.cat([x.C[:, 1:].to(torch.float32),
+                         torch.full((x.capacity, 1),
+                                    float(x.tensor_stride[0]),
+                                    device=x.C.device)], dim=-1)
+        return self.fc(pos)

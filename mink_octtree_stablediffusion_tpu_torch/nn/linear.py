@@ -1,4 +1,6 @@
-"""Dense layer with the JAX package's default initialisation.
+"""Dense layers with the JAX package's default initialisation: `Dense`
+on a plain tensor, `Linear` (the reference's ``MinkowskiLinear``, JAX
+`nn/conv.py:288-298`) on a sparse tensor's or a field's features.
 
 A flax ``nn.Dense`` keeps its kernel as ``[in, out]``; the port uses
 ``torch.nn.Linear`` (``weight [out, in]``).  Initialisation is LeCun normal
@@ -30,3 +32,17 @@ class Dense(nn.Linear):
         b = self.bias
         return F.linear(x, self.weight.to(x.dtype),
                         None if b is None else b.to(x.dtype))
+
+
+class Linear(nn.Module):
+    """1x1 feature transform of a ``SparseTensor`` or ``TensorField``
+    (its dense layer ``fc``, flax's auto-named ``Dense_0``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 use_bias: bool = True, device=None):
+        super().__init__()
+        self.fc = Dense(in_channels, out_channels, bias=use_bias,
+                        device=device)
+
+    def forward(self, x):
+        return x.with_features(self.fc(x.features))

@@ -1,7 +1,9 @@
 """Normalization layers over sparse tensors.
 
-Port of `BatchNorm` and `StableInstanceNorm` from
-`mink_octtree_stablediffusion_tpu/nn/norm.py`.  Statistics are masked:
+Port of `mink_octtree_stablediffusion_tpu/nn/norm.py`: `BatchNorm`, the
+instance norms (`InstanceNorm`, `StableInstanceNorm`, `StableGroupNorm`,
+the AdaIN `AdaStableInstanceNorm`, the per-instance BatchNorm
+`HjmInstanceNorm`) and the dense `GroupNormDense`.  Statistics are masked:
 padding rows never contribute.  ``DenseBatchNorm`` is flax's own
 ``nn.BatchNorm`` on a dense ``[..., C]`` array, as the model zoo's dense
 heads use it.  SyncBN is `BatchNorm` with a
@@ -17,6 +19,7 @@ from torch import nn
 from ..ops.pool import broadcast_batch, global_pool
 from ..parallel.mesh import all_reduce_sum
 from ..tensor import SparseTensor
+from .linear import Dense
 
 
 class BatchNorm(nn.Module):
@@ -166,3 +169,192 @@ class StableInstanceNorm(nn.Module):
         y = centered * broadcast_batch(inv, bid, x.valid)
         return x.with_features(y * self.weight.repeat_interleave(g) +
                                self.bias.repeat_interleave(g))
+
+
+def _instance_moments(x: SparseTensor):
+    """Per-instance per-channel (mean [B, C], biased var [B, C], the
+    centred features, the batch column), over the valid rows."""
+    bid = x.grid.batch_ids()
+    mean_b, _ = global_pool(x.features, bid, x.batch_size, x.valid, "avg")
+    centered = ((x.features - broadcast_batch(mean_b, bid, x.valid)) *
+                x.valid[:, None].to(x.features.dtype))
+    var_b, _ = global_pool(centered ** 2, bid, x.batch_size, x.valid, "avg")
+    return mean_b, var_b, centered, bid
+
+
+class _Affine(nn.Module):
+    """A per-channel ``weight`` (ones) and ``bias`` (zeros)."""
+
+    def __init__(self, num_channels: int, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+
+class InstanceNorm(_Affine):
+    """Per-instance normalization (the reference's
+    ``MinkowskiInstanceNorm``): ``rsqrt(var + eps)`` of each instance's
+    biased variance, a per-channel affine."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-6, device=None):
+        super().__init__(num_channels, device)
+        self.eps = eps
+
+    def forward(self, x: SparseTensor) -> SparseTensor:
+        _, var_b, centered, bid = _instance_moments(x)
+        y = centered * broadcast_batch(torch.rsqrt(var_b + self.eps), bid,
+                                       x.valid)
+        return x.with_features(y * self.weight + self.bias)
+
+
+class StableGroupNorm(_Affine):
+    """``MinkowskiStableGroupNorm``: each instance's mean and variance
+    averaged over all channels, ``1/sqrt(var + eps)``, a per-channel
+    affine."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-6, device=None):
+        super().__init__(num_channels, device)
+        self.eps = eps
+
+    def forward(self, x: SparseTensor) -> SparseTensor:
+        bid = x.grid.batch_ids()
+        mean_b, _ = global_pool(x.features, bid, x.batch_size, x.valid,
+                                "avg")
+        mean_b = mean_b.mean(-1, keepdim=True).expand_as(mean_b)
+        centered = ((x.features - broadcast_batch(mean_b, bid, x.valid)) *
+                    x.valid[:, None].to(x.features.dtype))
+        var_b, _ = global_pool(centered ** 2, bid, x.batch_size, x.valid,
+                               "avg")
+        var_b = var_b.mean(-1, keepdim=True).expand_as(var_b)
+        y = centered * broadcast_batch(1.0 / torch.sqrt(var_b + self.eps),
+                                       bid, x.valid)
+        return x.with_features(y * self.weight + self.bias)
+
+
+class AdaStableInstanceNorm(_Affine):
+    """AdaIN conditioning: instance-normalize, then ``(x̂·w + b)·(1 +
+    scale) + shift``, where (scale, shift) ``[B, C]`` each come from a
+    dense projection ``fc`` (init normal(0.01), zero bias) of a per-instance
+    embedding ``[B, emb_dim]``."""
+
+    def __init__(self, num_channels: int, emb_dim: int, eps: float = 1e-6,
+                 device=None):
+        super().__init__(num_channels, device)
+        self.eps = eps
+        self.fc = Dense(emb_dim, 2 * num_channels, device=device)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        super().reset_parameters(generator)
+        if hasattr(self, "fc"):
+            with torch.no_grad():
+                self.fc.weight.normal_(0.0, 0.01, generator=generator)
+                self.fc.bias.zero_()
+
+    def forward(self, x: SparseTensor, emb: torch.Tensor) -> SparseTensor:
+        scale, shift = self.fc(emb).chunk(2, dim=-1)
+        _, var_b, centered, bid = _instance_moments(x)
+        y = centered * broadcast_batch(1.0 / torch.sqrt(var_b + self.eps),
+                                       bid, x.valid)
+        y = y * self.weight + self.bias
+        y = (y * (1.0 + broadcast_batch(scale, bid, x.valid)) +
+             broadcast_batch(shift, bid, x.valid))
+        return x.with_features(y)
+
+
+class GroupNormDense(nn.Module):
+    """The fork's ``HjmGroupNorm`` on a dense channel-last ``[B, ..., C]``
+    array: statistics over the spatial axes and each group's channels, one
+    (weight, bias) per group repeated over its channels."""
+
+    def __init__(self, num_channels: int, num_groups: int, eps: float = 1e-6,
+                 device=None):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels in {num_groups} "
+                             "groups")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_groups, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_groups, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.num_groups
+        xg = x.reshape(*x.shape[:-1], g, x.shape[-1] // g)
+        axes = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+        mean = xg.mean(dim=axes, keepdim=True)
+        var = ((xg - mean) ** 2).mean(dim=axes, keepdim=True)
+        y = (xg - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight[:, None] + self.bias[:, None]
+        return y.reshape(x.shape)
+
+
+class HjmInstanceNorm(nn.Module):
+    """The fork's ``HjmInstanceNorm``: one BatchNorm applied to each
+    instance on its own.  In ``.train()`` each instance's rows are
+    normalised with that instance's mean and biased variance (a shared
+    affine), and the running statistics take the instances' sequential
+    updates in closed form: with decay ``m`` (``momentum``, 0.9: the
+    weight of the old value, torch's 0.1 the other way round), present
+    instance i weighs ``(1-m)·m^(#present after i)``, the old value
+    ``m^#present``, and the running variance takes the unbiased
+    ``n/(n-1)`` variance, as ``torch.nn.BatchNorm1d``'s does.  Empty
+    instances are skipped.  ``.eval()`` uses the running statistics."""
+
+    def __init__(self, num_channels: int, momentum: float = 0.9,
+                 eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_channels, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_channels, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_channels, device=device))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: SparseTensor) -> SparseTensor:
+        if not self.training:
+            y = (x.features - self.running_mean) * torch.rsqrt(
+                self.running_var + self.eps)
+            return x.with_features(y * self.weight + self.bias)
+        bid = x.grid.batch_ids()
+        mean_b, counts = global_pool(x.features, bid, x.batch_size, x.valid,
+                                     "avg")
+        centered = ((x.features - broadcast_batch(mean_b, bid, x.valid)) *
+                    x.valid[:, None].to(x.features.dtype))
+        var_b, _ = global_pool(centered ** 2, bid, x.batch_size, x.valid,
+                               "avg")
+        y = centered * broadcast_batch(torch.rsqrt(var_b + self.eps), bid,
+                                       x.valid)
+        with torch.no_grad():
+            m = self.momentum
+            dt = self.running_mean.dtype
+            present = (counts > 0).to(dt)
+            after = present.flip(0).cumsum(0).flip(0) - present
+            w = (1.0 - m) * torch.pow(m, after) * present
+            decay = m ** present.sum()
+            bessel = counts.to(dt) / torch.clamp(counts.to(dt) - 1.0, min=1.0)
+            self.running_mean.copy_(decay * self.running_mean +
+                                    w @ mean_b.detach().to(dt))
+            self.running_var.copy_(decay * self.running_var +
+                                   w @ (var_b.detach().to(dt) *
+                                        bessel[:, None]))
+        return x.with_features(y * self.weight + self.bias)

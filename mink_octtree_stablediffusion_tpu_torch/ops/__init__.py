@@ -6,15 +6,18 @@ from .conv import (default_compute_dtype, gather_rows, linear_apply,
                    set_default_compute_dtype, sparse_conv_apply)
 from .coords import (INVALID_COORD, SparseGrid, batched_coordinates_np,
                      canonical_order, expand_grid, flat_cell_key, make_grid,
-                     pad_to_capacity, sparse_quantize_np, stride_grid,
-                     unique_coords)
-from .dense_conv import (dense_conv_apply, dense_conv_general_apply,
-                         dense_no_growth_preferred, dense_no_growth_preferred2)
+                     origin_grid, pad_to_capacity, sparse_quantize_np,
+                     stride_grid, unique_coords)
+from .dense_conv import (dense_conv_applicable, dense_conv_apply,
+                         dense_conv_general_apply, dense_no_growth_preferred,
+                         dense_no_growth_preferred2, enable_dense_conv,
+                         enable_dense_no_growth)
 from .fused_conv import fused_sparse_conv
-from .hashtable import HashTable
+from .hashtable import HashTable, build_table, lookup, pack_keys
 from .interp import (interpolate, interpolation_weights, splat,
                      splat_coordinates)
-from .kernels import KernelSpec, RegionType, region_offsets
+from .kernels import (KernelSpec, RegionType, hybrid_region_offsets,
+                      region_offsets)
 from .lut import LUT_MAX_ENTRIES, build_lut, lut_lookup
 from .morton import morton_decode, morton_encode, morton_encode_np
 from .neighbors import (get_coords_map, grid_lookup, identity_map,

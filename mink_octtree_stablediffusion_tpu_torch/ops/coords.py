@@ -325,6 +325,19 @@ def expand_grid(grid: SparseGrid, offsets: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+def origin_grid(grid: SparseGrid) -> SparseGrid:
+    """One row ``(b, 0, …, 0)`` per batch instance, all valid: the
+    reference manager's ``origin_map``, which backs global pooling."""
+    b, d = grid.batch_size, grid.ndim
+    dev = grid.coords.device
+    ids = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    coords = torch.cat([ids, torch.zeros((b, d), dtype=torch.int32,
+                                         device=dev)], dim=-1)
+    return SparseGrid(coords=coords,
+                      valid=torch.ones((b,), dtype=torch.bool, device=dev),
+                      stride=grid.stride, batch_size=b)
+
+
 def batched_coordinates_np(coord_list, dtype=np.int32) -> np.ndarray:
     """Prepend the batch index column."""
     rows = []

@@ -1,11 +1,14 @@
-"""Densify → dense conv → sparsify, for bounded grids that cannot grow.
+"""Densify → dense conv → sparsify, for bounded grids.
 
-Port of the "no-growth" branch of
-`mink_octtree_stablediffusion_tpu/ops/dense_conv.py`: when the dense cell
-count of a grid is no larger than its sparse buffer, scattering the
+Port of `mink_octtree_stablediffusion_tpu/ops/dense_conv.py`: when the
+dense cell count of a grid is no larger than its sparse buffer ("no
+growth", on by default, ``enable_dense_no_growth``), scattering the
 features onto the dense grid, running one dense convolution and gathering
-the output rows back does less work than any sparse schedule.  Padding rows
-hold zero features, so empty cells contribute exactly zero.
+the output rows back does less work than any sparse schedule.  The opt-in
+switch ``enable_dense_conv`` (off by default, as in the JAX package) sends
+same-grid stride-1 odd-kernel convs within a cell budget the same way at
+any occupancy, where the fused route is off (``nn.conv``'s branch order).
+Padding rows hold zero features, so empty cells contribute exactly zero.
 
 The JAX package's `lax.conv_general_dilated` (NDHWC / DHWIO) becomes
 `F.conv3d` (NCDHW / OIDHW) and its k==s transposed einsum stays an einsum.
@@ -23,8 +26,24 @@ import torch.nn.functional as F
 from .coords import SparseGrid
 from .kernels import KernelSpec, RegionType
 
-# "no-growth" dense routing, on by default as in the JAX package
+# max dense cells (B · prod(extent/stride)) of the opt-in dense route
+DENSE_CONV_MAX_CELLS = 4_194_304
+
+# the opt-in dense route at any occupancy, off by default
+DENSE_CONV_ENABLED = False
+
+# "no-growth" dense routing, on by default
 DENSE_NO_GROWTH = True
+
+
+def enable_dense_conv(flag: bool) -> None:
+    global DENSE_CONV_ENABLED
+    DENSE_CONV_ENABLED = flag
+
+
+def enable_dense_no_growth(flag: bool) -> None:
+    global DENSE_NO_GROWTH
+    DENSE_NO_GROWTH = flag
 
 
 def _dense_shape_ok(spec: KernelSpec, grid: SparseGrid) -> bool:
@@ -43,6 +62,17 @@ def _cells_of(grid: SparseGrid) -> list:
 
 def _total_cells(grid: SparseGrid) -> int:
     return grid.batch_size * int(np.prod(_cells_of(grid)))
+
+
+def dense_conv_applicable(spec: KernelSpec, grid: SparseGrid, cin: int,
+                          cout: int, max_cells: int | None = None) -> bool:
+    """The opt-in dense route: on, a same-grid stride-1 odd-kernel conv,
+    and the cells times the wider channel count within
+    ``32 · max_cells``."""
+    if not DENSE_CONV_ENABLED or not _dense_shape_ok(spec, grid):
+        return False
+    budget = DENSE_CONV_MAX_CELLS if max_cells is None else max_cells
+    return _total_cells(grid) * max(cin, cout) <= budget * 32
 
 
 def dense_no_growth_preferred(spec: KernelSpec, grid: SparseGrid) -> bool:

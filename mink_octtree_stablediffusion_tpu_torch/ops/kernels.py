@@ -56,6 +56,34 @@ def region_offsets(kernel_size, ndim: int,
     raise NotImplementedError(region_type)
 
 
+def hybrid_region_offsets(kernel_size, axis_types, dilation=1) -> np.ndarray:
+    """HYBRID region (the reference's ``convert_region_type``,
+    `MinkowskiKernelGenerator.py:105-242`) as explicit CUSTOM offsets:
+    ``axis_types`` gives each dimension's RegionType; the cube axes form
+    a cartesian block, each cross axis adds ±spokes off the origin.  Rows
+    come sorted and unique."""
+    d = len(axis_types)
+    ks = _tuplize(kernel_size, d)
+    dil = _tuplize(dilation, d)
+    lows = [int(np.floor((k - 1) / 2)) for k in ks]
+    cube_axes = [(np.arange(k) - lo) * dil[i]
+                 if t == RegionType.HYPER_CUBE else np.zeros(1, np.int64)
+                 for i, (k, lo, t) in enumerate(zip(ks, lows, axis_types))]
+    base = np.stack([np.array(o, dtype=np.int32)
+                     for o in itertools.product(*cube_axes)])
+    extra = []
+    for i, (k, lo, t) in enumerate(zip(ks, lows, axis_types)):
+        if t != RegionType.HYPER_CROSS:
+            continue
+        for v in (np.arange(k) - lo) * dil[i]:
+            if v != 0:
+                o = np.zeros(d, dtype=np.int32)
+                o[i] = v
+                extra.append(o)
+    out = base if not extra else np.concatenate([base, np.stack(extra)])
+    return np.unique(out, axis=0).astype(np.int32)
+
+
 class KernelSpec:
     """Static description of one sparse conv kernel application."""
 

@@ -19,9 +19,12 @@ The voxel buffer holds ``batch_size · num_points`` rows.  A step is the
 cross-entropy of the logits in ``.train()`` (BatchNorm moves its running
 statistics; no dropout, as the example passes no ``dropout_rng``) and one
 Adam step.  With ``--steps`` the run stops there, scores the held-out
-shapes in ``.eval()`` and prints ``{"final_loss", "val_acc"}``.  Not
-ported yet (raises): the ModelNet40 dataset (``--data`` without
-``--synthetic``; ROADMAP.md queue A item 7).
+shapes in ``.eval()`` and prints ``{"final_loss", "val_acc"}``.  With
+``--data <root>`` (and no ``--synthetic``) the shapes are ModelNet40's
+meshes, its ``train`` split for training and its ``test`` split held out,
+over 40 classes; as the example, the run first reads the first batch's
+samples, so that a mesh dataset's shared generator draws in the example's
+order.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data import SyntheticShapes, batch_iterator, collate_fields
+from ..data import (ModelNet40Dataset, SyntheticShapes, batch_iterator,
+                    collate_fields)
 from ..models import MinkowskiFCNN, MinkowskiPointNet, MinkowskiSplatFCNN
 from ..tensor import TensorField
 from ..utils.device import resolve_device
@@ -139,20 +143,24 @@ def evaluate(model, ds_val, collate_fn, *, batch_size: int, extent,
 
 def main(argv=None) -> dict:
     cfg = parse_args(argv)
-    if cfg.data is not None and not cfg.synthetic:
-        raise NotImplementedError(
-            "ModelNet40Dataset is not ported yet (ROADMAP.md queue A item "
-            "7); use --synthetic")
     logging.basicConfig(level=logging.INFO)
     dev = resolve_device(cfg.device)
     np_rng = np.random.RandomState(cfg.seed)
-    ds = SyntheticShapes(resolution=cfg.resolution, num_samples=256,
-                         points_per_shape=cfg.num_points)
-    ds_val = SyntheticShapes(resolution=cfg.resolution, num_samples=64,
-                             points_per_shape=cfg.num_points, seed=777)
+    if cfg.synthetic or cfg.data is None:
+        ds = SyntheticShapes(resolution=cfg.resolution, num_samples=256,
+                             points_per_shape=cfg.num_points)
+        ds_val = SyntheticShapes(resolution=cfg.resolution, num_samples=64,
+                                 points_per_shape=cfg.num_points, seed=777)
+        n_classes = len(ds.CLASSES)
+    else:
+        ds = ModelNet40Dataset(cfg.data, "train", cfg.resolution)
+        ds_val = ModelNet40Dataset(cfg.data, "test", cfg.resolution)
+        n_classes = 40
     b, cap = cfg.batch_size, cfg.batch_size * cfg.num_points
+    # the example's initial reads, which move a mesh dataset's generator
+    [ds[i] for i in range(b)]
     extent = field_extent(cfg.voxel_size)
-    net = build_model(cfg.network, len(ds.CLASSES), cap, dev, cfg.seed)
+    net = build_model(cfg.network, n_classes, cap, dev, cfg.seed)
     log.info("params: %d", sum(p.numel() for p in net.parameters()))
     state = TrainState(net, vae_optimizer(net.parameters(), cfg.lr))
     step_fn = make_train_step(build_loss_fn(batch_size=b, extent=extent,

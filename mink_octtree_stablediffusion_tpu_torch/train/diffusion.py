@@ -13,10 +13,11 @@ Same flags and defaults as the JAX example (resolution 128, batch 4,
 attention and the latent-derived ``attn_max_len`` and down capacities,
 DDPM with 1000 ``scaled_linear`` steps, AdamW at lr 1e-4 with 1000 warmup
 steps of a 100000-step cosine schedule, weight decay 1e-2, clipping 0.5,
-the coordinate NLL at weight 0.01, synthetic shapes), plus ``--device``
-(default: the card).  The VAE is frozen: random weights from ``--seed``,
-or a checkpoint of ``train.vae`` (``--vae_ckpt``: its directory, latest
-step); its encoder runs in eval mode without a graph and its mean,
+the coordinate NLL at weight 0.01, synthetic shapes; ``--data <root>``
+without ``--synthetic`` reads ModelNet40's training meshes), plus
+``--device`` (default: the card).  The VAE is frozen: random weights from
+``--seed``, or a checkpoint of ``train.vae`` (``--vae_ckpt``: its
+directory, latest step); its encoder runs in eval mode without a graph and its mean,
 scaled by ``--vae_scale``, is the clean latent.  Each step draws one
 timestep per instance and the noise from a seeded generator, noises the
 latent, runs the UNet, takes the ε-loss plus the NLL, backpropagates into
@@ -36,8 +37,9 @@ with the training scheduler over ``--sample_steps`` steps, decodes it and
 renders the batch's first instance beside its sample to
 ``<viz_dir>/step_<step>.png`` (``validate``; matplotlib).
 
-Not ported yet (raises ``NotImplementedError``; ROADMAP.md queue A): the
-ModelNet40 dataset (``--data`` without ``--synthetic``).
+As the example, the run first reads the first batch's samples (the
+example builds its initial tensor from them), so that a mesh dataset's
+shared generator draws in the example's order.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..data import SyntheticShapes, batch_iterator, collate_pointclouds
+from ..data import (ModelNet40Dataset, SyntheticShapes, batch_iterator,
+                    collate_pointclouds)
 from ..diffusion import (CoordNLLParams, DDPMScheduler,
                          diffusion_training_loss, inject_noise_points)
 from ..ops.coords import SparseGrid
@@ -61,8 +64,6 @@ from ..tensor import sparse_tensor
 from ..utils.device import make_generator, resolve_device
 from .optim import diffusion_optimizer
 from .trainer import CheckpointManager, TrainState, make_train_step
-
-NOT_PORTED = "is not ported yet (ROADMAP.md queue A)"
 
 
 def parse_args(argv=None):
@@ -111,9 +112,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(cfg) -> None:
-    if cfg.data is not None and not cfg.synthetic:
-        raise NotImplementedError(f"ModelNet40Dataset {NOT_PORTED}")
+def open_dataset(cfg):
+    """The example's dataset: synthetic shapes, or with ``--data`` (and no
+    ``--synthetic``) ModelNet40's training meshes."""
+    if cfg.synthetic or cfg.data is None:
+        return SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    return ModelNet40Dataset(cfg.data, "train", cfg.resolution)
 
 
 def load_vae_checkpoint(vae, directory: str, device) -> int:
@@ -146,8 +150,7 @@ def build_loss_fn(vae, scheduler, *, input_capacity: int, batch_size: int,
 
     def loss_fn(model, batch, generator=None, timesteps=None, noise=None,
                 encoder_hidden_state=None):
-        cpad, valid = (torch.as_tensor(np.asarray(a), device=dev)
-                       for a in batch)
+        cpad, valid = (torch.as_tensor(a, device=dev) for a in batch)
         feats = torch.ones((input_capacity, 1), device=dev) * valid[:, None]
         st = sparse_tensor(cpad, feats, capacity=input_capacity,
                            batch_size=batch_size, valid=valid,
@@ -178,7 +181,6 @@ def setup(cfg, device=None) -> SimpleNamespace:
     """The models, optimizer, state, loss and step function of a run of
     ``cfg`` (``parse_args``) on ``device`` (default: the card), before any
     checkpoint is restored."""
-    check_ported(cfg)
     dev = resolve_device(device)
     vae, unet = generation_models(
         input_capacity=cfg.input_capacity, batch_size=cfg.batch_size,
@@ -245,7 +247,9 @@ def main(argv=None) -> int:
     state = ckpt.restore(run.state)
     log.info("resumed at step %d", state.step)
     np_rng = np.random.RandomState(cfg.seed)
-    ds = SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    ds = open_dataset(cfg)
+    # the example's initial reads, which move a mesh dataset's generator
+    [ds[i] for i in range(cfg.batch_size)]
     gen = make_generator(cfg.seed, run.device)
     t0 = time.time()
     while True:

@@ -43,8 +43,13 @@ with ``composite_prob`` 0.25, VAE (32, 128, 512, 512, 4), UNet (4, 128,
 Checkpoints go to ``<ckpt_dir>/vae`` and ``<ckpt_dir>/diff_<prediction>``
 every 2000 steps and at the end; a run resumes each phase from its
 latest, and ``--skip_vae`` / ``--skip_diff`` restore a phase instead of
-training it.  Not ported: ``--stream_device`` (on-device shapes, queue A
-item 7), which raises.
+training it.
+
+``--stream_device`` synthesizes every training batch on the device
+(`data.procedural_batch`, the script's ``procedural_batch`` stream): one
+``torch.Generator`` seeded with ``seed + 77``, which each batch advances,
+where the script folds a batch counter into ``PRNGKey(seed + 77)``.  The
+shapes follow the same distribution, not the same draws.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..data import ProceduralShapes, collate_pointclouds
+from ..data import ProceduralShapes, collate_pointclouds, procedural_batch
 from ..diffusion import (DDPMScheduler, diffusion_training_loss,
                          sample_latent)
 from ..models.unet import UNet
@@ -93,7 +98,7 @@ def parse_args(argv=None):
                         "threads")
     p.add_argument("--stream_workers", type=int, default=3)
     p.add_argument("--stream_device", action="store_true",
-                   help="on-device shape synthesis (not ported)")
+                   help="synthesize the training batches on the device")
     p.add_argument("--caps", type=int, nargs=9, default=None,
                    help="5 encoder + 4 decoder capacities")
     p.add_argument("--composite_prob", type=float, default=0.25)
@@ -187,7 +192,7 @@ def build_input(batch, *, input_capacity: int, batch_size: int,
                 resolution: int, device):
     """A collated ``(cpad, valid, feats, ...)`` (numpy or tensors) → the
     input SparseTensor on ``device``."""
-    cpad, valid, feats = (torch.as_tensor(np.asarray(a), device=device)
+    cpad, valid, feats = (torch.as_tensor(a, device=device)
                           for a in batch[:3])
     return sparse_tensor(cpad, feats, capacity=input_capacity,
                          batch_size=batch_size, valid=valid,
@@ -234,7 +239,7 @@ def build_diffusion_loss_fn(vae: VAE, scheduler, *, input_capacity: int,
         ehs = None
         table = getattr(model, "cond_table", cond_table)
         if table is not None:
-            labels = torch.as_tensor(np.asarray(batch[3]), device=dev).long()
+            labels = torch.as_tensor(batch[3], device=dev).long()
             if drop is None:
                 drop = torch.rand((batch_size,), generator=generator,
                                   device=dev) < cond_dropout
@@ -432,10 +437,6 @@ def run_steps(name: str, state: TrainState, step_fn, next_batch, gen,
 
 def main(argv=None) -> dict:
     cfg = parse_args(argv)
-    if cfg.stream_device:
-        raise NotImplementedError(
-            "--stream_device (data/device_shapes.py) is not ported yet "
-            "(ROADMAP.md queue A item 7)")
     logging.basicConfig(level=logging.INFO)
     res, b, cap = cfg.resolution, cfg.batch_size, cfg.input_capacity
     if res % 8:
@@ -454,7 +455,13 @@ def main(argv=None) -> dict:
              cfg.train_shapes, cfg.val_shapes, time.time() - t0,
              np.mean([len(s["coords"]) for s in train_pool]))
     np_rng = np.random.RandomState(cfg.seed + 1)
-    if cfg.stream:
+    if cfg.stream_device:
+        stream_gen = make_generator(cfg.seed + 77, dev)
+
+        def train_batch():
+            return procedural_batch(stream_gen, b, cfg.points, res, cap,
+                                    composite_prob=cfg.composite_prob)
+    elif cfg.stream:
         train_batch = shape_stream(train_ds, b, cap, cfg.stream_workers)
     else:
         def train_batch():
@@ -495,7 +502,9 @@ def main(argv=None) -> dict:
                                              **sizes),
               "train_recon_iou": val_recon_iou(vae, train_probe,
                                                device=dev, **sizes),
-              "train_shapes": cfg.train_shapes, "stream": cfg.stream,
+              "train_shapes": cfg.train_shapes,
+              "stream": bool(cfg.stream or cfg.stream_device),
+              "stream_device": cfg.stream_device,
               "resolution": res, "steps_vae": state.step}
     log.info("held-out reconstruction IoU (%d val shapes): %.4f (train "
              "%.4f)", cfg.val_shapes, result["val_recon_iou"],

@@ -8,7 +8,12 @@
 Same flags and defaults as the JAX example (resolution 128, batch 4,
 ``input_capacity`` 65536, VAE (32, 128, 512, 512, 4) with the
 `capacities()` schedule, Adam at lr 1e-3, ``kld_weight`` 1e-6, synthetic
-shapes), plus ``--device`` (default: the card).  Each step builds the
+shapes; ``--data <root>`` without ``--synthetic`` reads ModelNet40's
+training meshes, `ModelNet40Dataset` with ``--cache_dir``, rotation
+augmentation and ``--small_dataset``), plus ``--device`` (default: the
+card).  As the example, the run first reads ``ds[0]`` and the first batch's
+samples (the example builds its initial tensor from them), so that a mesh
+dataset's shared generator draws in the example's order.  Each step builds the
 input tensor, runs the encoder, the reparameterisation and the pruning
 decoder in train mode, takes `vae_loss`, backpropagates and steps Adam;
 BatchNorm moves its running statistics.  The run resumes from the latest
@@ -18,9 +23,7 @@ run its own directory to start afresh), logs loss, BCE and KLD every 10
 steps, and checkpoints
 every ``--save_every`` steps and at the end.  ``--viz_every N`` renders the
 step's batch (its first instance) beside its eval-mode reconstruction to
-``<viz_dir or viz_vae>/step_<step>.png`` every N steps (matplotlib).  Not
-ported yet (raises): the ModelNet40 dataset (``--data`` without
-``--synthetic``).
+``<viz_dir or viz_vae>/step_<step>.png`` every N steps (matplotlib).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import time
 import numpy as np
 import torch
 
-from ..data import SyntheticShapes, batch_iterator, collate_pointclouds
+from ..data import (ModelNet40Dataset, SyntheticShapes, batch_iterator,
+                    collate_pointclouds)
 from ..models.vae import VAE, vae_loss
 from ..serve import capacities
 from ..tensor import sparse_tensor
@@ -83,7 +87,7 @@ def build_loss_fn(*, input_capacity: int, batch_size: int, resolution: int,
     dev = torch.device(device)
 
     def loss_fn(model, batch, generator=None, eps=None, canvas_noise=None):
-        cpad, valid, feats = (torch.as_tensor(np.asarray(a), device=dev)
+        cpad, valid, feats = (torch.as_tensor(a, device=dev)
                               for a in batch)
         st = sparse_tensor(cpad, feats, capacity=input_capacity,
                            batch_size=batch_size, valid=valid,
@@ -113,16 +117,26 @@ def render_reconstruction(vae: VAE, cfg, batch, step: int, device) -> str:
         titles=["input", "reconstruction"], resolution=cfg.resolution)
 
 
+def open_dataset(cfg):
+    """`examples/train_vae.py`'s dataset: synthetic shapes, or with
+    ``--data`` (and no ``--synthetic``) ModelNet40's training meshes."""
+    if cfg.synthetic or cfg.data is None:
+        return SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    return ModelNet40Dataset(cfg.data, "train", cfg.resolution,
+                             cache_dir=cfg.cache_dir, augment=True,
+                             small_dataset=cfg.small_dataset)
+
+
 def main(argv=None) -> int:
     cfg = parse_args(argv)
-    if cfg.data is not None and not cfg.synthetic:
-        raise NotImplementedError(
-            "ModelNet40Dataset is not ported yet; use --synthetic")
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train_vae")
     dev = resolve_device(cfg.device)
     np_rng = np.random.RandomState(cfg.seed)
-    ds = SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    ds = open_dataset(cfg)
+    # the example's initial reads, which move a mesh dataset's generator
+    ds[0]
+    [ds[i] for i in range(min(cfg.batch_size, len(ds)))]
     enc_caps, dec_caps = capacities(cfg.input_capacity)
     vae = VAE(channels=tuple(cfg.vae_channel), encoder_capacities=enc_caps,
               decoder_capacities=dec_caps, device=dev, seed=cfg.seed)

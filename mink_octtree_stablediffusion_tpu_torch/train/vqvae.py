@@ -9,16 +9,16 @@
 Same flags and defaults as the JAX example (resolution 128, batch 4,
 ``max_batch_len`` 200,000, the VAE's widths (32, 128, 512, 512, 4) with
 `serve.capacities`' schedule for 65,536 input rows, 512 codes, Adam at lr
-1e-3, seed 42, synthetic shapes), plus ``--device`` (default: the card).
+1e-3, seed 42, synthetic shapes; ``--data <root>`` without ``--synthetic``
+reads ModelNet40's training meshes, after the first batch's samples, as
+the example), plus ``--device`` (default: the card).
 A step encodes, quantizes (nearest code, straight-through) and decodes
 against the input's own grid in ``.train()``; the loss is the mean
 per-level occupancy BCE plus both commitment terms
 (``‖zq − sg(ze)‖² + ‖sg(zq) − ze‖²``), then one Adam step.  The run resumes
 from the latest checkpoint in ``--ckpt_dir`` (default ``ckpt_vqvae``; give
 each run its own directory to start afresh) and checkpoints every
-``--save_every`` steps and at the end.  Not ported yet (raises): the
-ModelNet40 dataset (``--data`` without ``--synthetic``; ROADMAP.md queue A
-item 7).
+``--save_every`` steps and at the end.
 """
 
 from __future__ import annotations
@@ -32,11 +32,12 @@ import time
 import numpy as np
 import torch
 
-from ..data import SyntheticShapes, batch_iterator, collate_pointclouds
+from ..data import batch_iterator, collate_pointclouds
 from ..models import VQVAE, occupancy_bce
 from ..serve import capacities
 from ..tensor import sparse_tensor
 from ..utils.device import resolve_device
+from .diffusion import open_dataset
 from .optim import vae_optimizer
 from .trainer import CheckpointManager, TrainState, make_train_step
 
@@ -93,15 +94,13 @@ def build_loss_fn(*, input_capacity: int, batch_size: int, resolution: int,
 
 def main(argv=None) -> dict:
     cfg = parse_args(argv)
-    if cfg.data is not None and not cfg.synthetic:
-        raise NotImplementedError(
-            "ModelNet40Dataset is not ported yet (ROADMAP.md queue A item "
-            "7); use --synthetic")
     logging.basicConfig(level=logging.INFO)
     dev = resolve_device(cfg.device)
     np_rng = np.random.RandomState(cfg.seed)
-    ds = SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+    ds = open_dataset(cfg)
     cap, b = cfg.input_capacity, cfg.batch_size
+    # the example's initial reads, which move a mesh dataset's generator
+    [ds[i] for i in range(b)]
     net = build_model(vae_channel=cfg.vae_channel,
                       num_embeddings=cfg.num_embeddings,
                       input_capacity=cap, device=dev, seed=cfg.seed)

@@ -368,8 +368,13 @@ def test_canvas_entry_points_run_and_restore(tmp_path, caplog):
                                   "32", "--level0_skip"])
     assert out2["steps_vae"] == 2 and out2["steps_diff"] == 3
     assert "restored VAE at step 2" in caplog.text
-    with pytest.raises(NotImplementedError):
-        generalize.main(gen + ["--stream_device"])
+    # --stream_device: phase 1 on batches synthesized on the device
+    out3 = generalize.main(tiny + [
+        "--train_shapes", "4", "--val_shapes", "2", "--steps_vae", "1",
+        "--steps_diff", "0", "--stream_device", "--ckpt_dir",
+        str(tmp_path / "stream")])
+    assert out3["stream_device"] and out3["stream"]
+    assert out3["steps_vae"] == 1 and 0.0 <= out3["val_recon_iou"] <= 1.0
 
     # the oracle and the per-class scoring at their smallest: 2 classifier
     # steps, 4 held-out shapes, one CFG scale, one round of 2 DDPM steps
