@@ -125,6 +125,20 @@ read just after:
   VAE step; the native voxelizer against its plain paths;
   ``procedural_batch`` against host `ProceduralShapes`; the backend
   self-check and differential suite on the card (see there).
+- **precision** — ``precision_phase``: `train.check_bf16_training` at its
+  full-width defaults, its steps cut to ``PRECISION_STEPS`` (the VAE
+  trained at float32 compute, then at bf16, on 4 fixed batches of sphere
+  shells):
+  both curves, the verdict (``BF16 TRAINING OK``), each arm's step walls
+  and busy share; the float32 arm launches the float32 variants of B1, B2
+  and B3 and no plain route, and each variant is held against its float32
+  plain version within ``B7_F32_RTOL``·max|ref| at every launch shape;
+  B4 at float32 on the library path's three workloads (``library_phase``).
+- **the fused conv's domain** — ``domain_phase``: `tests/test_2d.py`'s
+  two cases on the card against the CPU, a 2-D k3 conv on 4 x 256 x 256
+  rows (64→64, forward and both gradients: B1, B2, B3 in 2-D against
+  their plain versions), and a k=7 cube (K = 343) on the plain route
+  against the CPU, with its plain calls counted and no launch.
 
 Then every kernel is held against its plain PyTorch version on the same
 bf16-rounded operands, at the shapes its paths gave it (B1 also at a few
@@ -445,13 +459,33 @@ def timed_check(kernel, case, kind, run, plain, pairs, cin, cout, nbytes,
 MIN_REF_GRAD = 1e-2
 
 
+def compute_args(mp, compute, w_bf16=False) -> dict:
+    """``timed_check``'s arguments for a fused kernel at ``compute``
+    ("bf16" or "f32"): the compute dtype, its split terms and products
+    (``fused_conv.operand_terms``: 1, or 6 on float32 operands and 3 on a
+    bf16 weight, each a bf16 product on the tensor cores, which the bound
+    counts at the bf16 peak), and the float32 tolerance ``B7_F32_RTOL``
+    for float32 compute."""
+    import torch
+    cd = torch.bfloat16 if compute == "bf16" else torch.float32
+    ta, tb = mp.ops.fused_conv.operand_terms(cd, w_bf16)
+    out = {"cd": cd, "terms": [ta, tb], "products": sum(
+        a + b <= 2 for a in range(ta) for b in range(tb))}
+    if compute != "bf16":
+        out.update(rel_tol=B7_F32_RTOL, abs_tol=0.0)
+    return out
+
+
 def check_conv_launch(mp, kernel, case, kind, ops, transpose_weight=False,
-                      **extra):
+                      compute="bf16", **extra):
     """B1, or B2 with ``transpose_weight``: ``ops`` = (features, weight,
     keys, out_coords, out_valid, offs, stride, cells) of one launch, B2's
-    features being the cotangent, checked at unit RMS.  Bytes: the
-    features, the weight, the keys and the output coordinates and valid
-    mask read once, the output written once."""
+    features being the cotangent, checked at unit RMS; at ``compute``
+    "bf16" on bf16-rounded operands, at "f32" (the split-term variant) on
+    the float32 operands against the float32 plain version within
+    ``B7_F32_RTOL``·max|ref|.  Bytes: the features, the weight, the keys
+    and the output coordinates and valid mask read once, the output
+    written once; operations: each product term's 2·Cin·Cout a pair."""
     import torch
     fc = mp.ops.fused_conv
     f, w, keys, oc, ov, offs, s, cells = ops
@@ -459,20 +493,28 @@ def check_conv_launch(mp, kernel, case, kind, ops, transpose_weight=False,
         f, extra["g_rms"] = unit_rms(f)
         ops = (f,) + tuple(ops[1:])
         extra["min_ref"] = MIN_REF_GRAD
-    f16, w16 = f.bfloat16().float(), w.bfloat16().float()
+    ca = compute_args(mp, compute, w.dtype == torch.bfloat16)
+    cd = ca.pop("cd")
+    if compute == "bf16":
+        f16, w16 = f.bfloat16().float(), w.bfloat16().float()
+    else:
+        f16, w16 = f, w.float()
     wp = w16.transpose(1, 2) if transpose_weight else w16
     k, cin, cout = wp.shape
     n_out = oc.shape[0]
     nbytes = (4 * f.numel() + w.element_size() * w.numel() +
-              4 * keys.numel() + 17 * n_out + 4 * n_out * cout)
+              4 * keys.numel() + (5 + 4 * offs.shape[1]) * n_out +
+              4 * n_out * cout)
+    pairs = matched_pairs(fc, keys, oc, ov, offs, s, cells)
     return timed_check(
         kernel, case, kind,
-        lambda: fc._launch(*ops, torch.bfloat16,
-                           transpose_weight=transpose_weight),
+        lambda: fc._launch(*ops, cd, transpose_weight=transpose_weight),
         lambda: fc._fused_sparse_conv_plain(f16, wp, keys, oc, ov, offs, s,
                                             cells, torch.float32),
-        matched_pairs(fc, keys, oc, ov, offs, s, cells), cin, cout, nbytes,
-        n_out=n_out, n_in=f.shape[0], k=k, **extra)
+        pairs, cin, cout, nbytes,
+        flops=2.0 * cin * cout * pairs * ca["products"], n_out=n_out,
+        n_in=f.shape[0], k=k, ndim=offs.shape[1], compute=compute,
+        **ca, **extra)
 
 
 def check_case(mp, name, kind, features, kernel, in_grid, out_grid, spec):
@@ -483,27 +525,37 @@ def check_case(mp, name, kind, features, kernel, in_grid, out_grid, spec):
         out_grid.valid, offs, s_in, cells))
 
 
-def check_dkernel_launch(mp, case, kind, ops):
+def check_dkernel_launch(mp, case, kind, ops, compute="bf16",
+                         kernel="B3"):
     """B3: ``ops`` = (features, g, keys, out_coords, out_valid, offs,
-    stride, cells) of one launch, checked with ``g`` at unit RMS.  Bytes:
-    the features, the cotangent, the keys and the output coordinates and
-    valid mask read once, dW (float32 [K, Cin, Cout]) written once."""
+    stride, cells) of one launch, checked with ``g`` at unit RMS, at
+    ``compute`` as ``check_conv_launch``.  Bytes: the features, the
+    cotangent, the keys and the output coordinates and valid mask read
+    once, dW (float32 [K, Cin, Cout]) written once."""
     import torch
     fc = mp.ops.fused_conv
     f, g, keys, oc, ov, offs, s, cells = ops
     g, g_rms = unit_rms(g)
     ops = (f, g) + tuple(ops[2:])
-    f16, g16 = f.bfloat16().float(), g.bfloat16().float()
+    ca = compute_args(mp, compute)
+    cd = ca.pop("cd")
+    if compute == "bf16":
+        f16, g16 = f.bfloat16().float(), g.bfloat16().float()
+    else:
+        f16, g16 = f, g
     k, (n_in, cin), (n_out, cout) = offs.shape[0], f.shape, g.shape
     nbytes = (4 * f.numel() + 4 * g.numel() + 4 * keys.numel() +
-              17 * n_out + 4 * k * cin * cout)
+              (5 + 4 * offs.shape[1]) * n_out + 4 * k * cin * cout)
+    pairs = matched_pairs(fc, keys, oc, ov, offs, s, cells)
     return timed_check(
-        "B3", case, kind,
-        lambda: fc._launch_dkernel(*ops, torch.bfloat16),
+        kernel, case, kind,
+        lambda: fc._launch_dkernel(*ops, cd),
         lambda: fc._dkernel_plain(f16, g16, keys, oc, ov, offs, s, cells,
                                   torch.float32),
-        matched_pairs(fc, keys, oc, ov, offs, s, cells), cin, cout, nbytes,
-        min_ref=MIN_REF_GRAD, n_out=n_out, n_in=n_in, k=k, g_rms=g_rms)
+        pairs, cin, cout, nbytes,
+        flops=2.0 * cin * cout * pairs * ca["products"],
+        min_ref=MIN_REF_GRAD, n_out=n_out, n_in=n_in, k=k,
+        ndim=offs.shape[1], g_rms=g_rms, compute=compute, **ca)
 
 
 def occupied_pairs(occ_out, occ_in) -> int:
@@ -1204,13 +1256,18 @@ def expected_launches(routes) -> dict:
     fused-route (brick-route) conv, a rematerialized stack's recompute in
     the backward pass included; B3 (B6) where its kernel is trained, B2
     (the dF pass) where its input carries a gradient, once per conv (a
-    recompute launches no backward kernel)."""
+    recompute launches no backward kernel); a fused conv of more than
+    ``fused_conv.MAX_K`` offsets launches each once per band of offsets."""
+    from mink_octtree_stablediffusion_tpu_torch.ops.fused_conv import \
+        offset_bands
     out = {}
     for names, branch in ((FUSED, "fused"), (BRICK, "brick")):
-        rs = [r for r in routes if r.branch == branch]
-        first = [r for r in rs if not r.recompute]
-        out.update(zip(names, (len(rs), sum(r.grad_in for r in first),
-                               sum(r.grad_w for r in first))))
+        rs = [(r, len(offset_bands(r.k)) if branch == "fused" else 1)
+              for r in routes if r.branch == branch]
+        first = [(r, n) for r, n in rs if not r.recompute]
+        out.update(zip(names, (sum(n for _, n in rs),
+                               sum(n * r.grad_in for r, n in first),
+                               sum(n * r.grad_w for r, n in first))))
     return out
 
 
@@ -2192,9 +2249,10 @@ def check_map_conv(mp, kernel, w, dtype=None):
     at one bf16 ulp of max|ref| + 1e-5 (``timed_check``'s ``bf16_out``).
     Two launches must give the same output bit for bit, and the profiler
     must read a device time (``device_ms``).  Bounds: at the bf16 peak
-    (``bound_ms``), with B7's products as the kernel forms them on the
-    tensor cores (``bound_split_ms``: 3 bf16 products on bf16 features, 6
-    on float32) and as float32 FMAs (``bound_fp32_ms``)."""
+    (``bound_ms``), with B7's
+    products as the kernel forms them on the tensor cores
+    (``bound_split_ms``: 3 bf16 products on bf16 features, 6 on float32)
+    and as float32 FMAs (``bound_fp32_ms``)."""
     import torch
     from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
     oc, pc = mp.ops.onehot_conv, mp.ops.pallas_conv
@@ -2214,16 +2272,16 @@ def check_map_conv(mp, kernel, w, dtype=None):
                 if f.dtype == torch.float32 else {"bf16_out": True})
     same = bool(torch.equal(run(), run()))
     dev_ms = bc.device_ms(run)
-    source = oc.SOURCES[kernel == "B7"]
+    source = oc.SOURCES[kernel != "B4"]
     ta, tb = oc.MAP_TERMS[source][f.dtype]
     products = sum(a + b <= 2 for a in range(ta) for b in range(tb))
     nbytes = map_conv_bytes(w, f)
     rec = timed_check(
         kernel, w.name, "k3s1", run, plain, w.pairs, cin, cout, nbytes,
-        fp32_flops=kernel == "B7", extra_ok=same and dev_ms > 0,
+        fp32_flops=kernel != "B4", extra_ok=same and dev_ms > 0,
         n_out=nbr.shape[1], n_in=f.shape[0], k=nbr.shape[0],
         dtype=str(f.dtype), terms=[ta, tb], products=products,
-        tile=list(oc.map_tile_shape(cin, cout, (ta, tb))),
+        tile=list(oc.tile_shape(cin, cout, (ta, tb))),
         groups=-(-nbr.shape[0] // oc.map_groups(nbr.shape[1], cout,
                                                  nbr.shape[0])),
         bound_split_ms=max(products * 2.0 * w.pairs * cin * cout /
@@ -2258,7 +2316,7 @@ def map_pass_table(mp, kernel, w) -> dict:
     kv, n_out = nbr.shape
     rec = {"map_pass_table": kernel, "workload": w.name,
            "matched_pairs": w.pairs, "terms": list(terms),
-           "tile": list(oc.map_tile_shape(k.shape[1], k.shape[2], terms)),
+           "tile": list(oc.tile_shape(k.shape[1], k.shape[2], terms)),
            "groups": -(-kv // oc.map_groups(n_out, k.shape[2], kv)),
            "device_ms": passes, "device_ms_sum": sum(passes.values()),
            "other_device_ms": sum(ms for n, ms in by_name.items()
@@ -2487,6 +2545,9 @@ def library_phase(mp, dev, power) -> dict:
       (``conv_xla``) at the same bound.  Prints B4's and B7's launch table
       (pairs, bounds, event, device and plain ms) and their passes on
       every workload (``map_pass_table``).
+    - B4 at float32 compute launches B7's float32 instantiation: on each
+      workload it must count one B4 launch and equal B7 bit for bit
+      (reported with B7's kernel entry, not timed again).
     - Holds ``onehot_conv``'s backward on the card (plain PyTorch, a
       unit-RMS cotangent) against the same formula on the CPU, with
       max|ref| ≥ 1e-2.
@@ -2537,13 +2598,29 @@ def library_phase(mp, dev, power) -> dict:
     if not all(launches.values()):
         failures.append("a kernel of the library path did not launch")
 
+    # B4 at float32 compute on the same workloads, counted from 0: it
+    # launches B7's float32 instantiation, so it must count as B4 and equal
+    # B7 bit for bit (B7's checks below time and hold that kernel)
+    oc.onehot_sparse_conv.launches = 0
+    b4_f32_equal = all(torch.equal(
+        oc.onehot_sparse_conv(w.features, w.kernel, w.nbr, torch.float32),
+        pc.pallas_sparse_conv(w.features, w.kernel, w.nbr))
+        for w in ws.values())
+    torch.cuda.synchronize()
+    b4_f32 = {"launches_as_b4": oc.onehot_sparse_conv.launches,
+              "equal_to_b7": b4_f32_equal}
+    emit({"library_path_b4_float32": b4_f32})
+    if b4_f32 != {"launches_as_b4": len(ws), "equal_to_b7": True}:
+        failures.append("B4 at float32: B7's kernel, counted as B4")
+
     recs = {(n, "library"): {} for n in ("B1", *LIBRARY_KERNELS)}
     for w in ws.values():
         for kernel in ("B4", "B7"):
             recs[(kernel, "library")][w.name] = check_map_conv(mp, kernel, w)
     # B7 on bf16 features (not on the path, which builds float32 ones)
     b7_bf16 = check_map_conv(mp, "B7", ws["wide"], torch.bfloat16)
-    rows = [r for n in ("B4", "B7") for r in recs[(n, "library")].values()]
+    rows = [r for n in ("B4", "B7")
+            for r in recs[(n, "library")].values()]
     emit({"map_conv_launch_table": power, "rows": [
         {key: r[key] for key in (
             "kernel", "case", "dtype", "n_out", "cin", "cout",
@@ -2615,7 +2692,7 @@ def library_phase(mp, dev, power) -> dict:
     del ws, room, f, k, nbr, xla, fg, kg, grads
     torch.cuda.empty_cache()
     return {"ok": not failures, "failures": failures, "recs": recs,
-            "launches": launches}
+            "launches": launches, "b4_f32": b4_f32}
 
 
 # -- the unbounded-grid phase -----------------------------------------------
@@ -3688,6 +3765,357 @@ def _plain_collate(mp, clouds):
     return mp.ops.pad_to_capacity(mp.ops.batched_coordinates_np(vox), CAP)
 
 
+# -- the fused conv's whole domain (float32 compute, 2-D grids, K > 125) --
+# train.check_bf16_training's steps an arm here: cut from its --steps
+# default of 200 so that the script keeps its time limit (at 200 the phase
+# took 102 s and the whole script 1,120 s on the H100); the curves fall
+# from 0.82 to ~0.13 BCE by step 50 in both arms
+PRECISION_STEPS = 50
+# the fused kernels' variants: (module in ops/, wrapper, source, the TPU
+# kernel it replaces), as KERNELS
+VARIANTS = {f"{k}-{v}": KERNELS[k] for v in ("f32", "2d") for k in FUSED}
+# the 2-D conv at a real size: 4 instances of a full 256 x 256 grid, 64->64
+DOMAIN_2D = dict(batch=4, side=256, cin=64, cout=64)
+# the k=7 cube: 2 instances of 3,000 random points in a 32^3 extent, 16->16
+DOMAIN_K7 = dict(batch=2, points=3000, extent=32, capacity=8192, cin=16,
+                 cout=16)
+
+
+def check_variant(mp, kernel, path, key, ops, compute, kind):
+    """A fused kernel's variant (``kernel`` "B1-f32", "B2-2d", ...) at one
+    launch shape ``key`` of ``path``, through ``check_conv_launch`` or
+    ``check_dkernel_launch`` at ``compute``."""
+    base = kernel.split("-")[0]
+    if base == "B3":
+        return check_dkernel_launch(mp, path, kind, ops, compute=compute,
+                                    kernel=kernel)
+    return check_conv_launch(mp, kernel, path, kind, ops,
+                             transpose_weight=base == "B2",
+                             compute=compute, forward_shape=list(key))
+
+
+def precision_phase(mp, dev, cap, power) -> dict:
+    """`train.check_bf16_training` at its full-width defaults but its
+    steps (the same VAE trained from seed 0 on 4 fixed batches of sphere
+    shells, ``PRECISION_STEPS`` steps at float32 compute, then at bf16),
+    through its ``setup``, ``run_arm`` and ``verdict``.
+
+    - Prints both curves, the final BCEs and their relative difference,
+      each arm's step walls and, from one profiled step of each
+      (``profile_run``), its device busy share; the script's three checks
+      must hold (``BF16 TRAINING OK``).
+    - The float32 arm: TF32 off, and B1/B2/B3 launched as its routes call
+      for, every launch their float32 split-term variant; each of its
+      launch shapes is held against the float32 plain version within
+      ``B7_F32_RTOL``·max|ref|
+      (``B1-f32``, ``B2-f32``, ``B3-f32``), the bf16 arm's at bf16 (B1, B2,
+      B3, 1e-3·max|ref| + 1e-5), each timed beside its bound and its plain
+      version, and summed per step.
+
+    Returns ok, the failures, the kernel records by (kernel, path), the
+    f32 variants' launches and their times per float32 step."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import \
+        check_bf16_training as cb
+    failures, recs, t_phase = [], {}, time.perf_counter()
+    env = cb.setup(small=False, device=dev)
+    torch.cuda.synchronize()
+    emit({"precision_setup_s": time.perf_counter() - t_phase,
+          "config": {k: v for k, v in env["cfg"].items()},
+          "steps": PRECISION_STEPS,
+          "input_voxels": [int(v.sum()) for _, v in env["batches"]],
+          "vae_params": sum(p.numel() for p in env["vae"].parameters())})
+    count = counters(mp)
+    log_every = max(PRECISION_STEPS // 10, 1)
+    curves, arms, kinds = {}, {}, {}
+    for name, dtype in cb.ARMS:
+        path = f"precision_{name}"
+        for c in count.values():
+            c.launches = 0  # counts from here on are this arm's
+        cap.at(path, FUSED)
+        t0 = time.perf_counter()
+        out = cb.run_arm(env, dtype, PRECISION_STEPS, log_every)
+        torch.cuda.synchronize()
+        arm_s = time.perf_counter() - t0
+        cap.at(None)
+        launched = {n: count[n].launches for n in FUSED}
+        want = {n: v * PRECISION_STEPS for n, v in
+                expected_launches(out["routes"]).items() if n in FUSED}
+        branches = dict(Counter(r.branch for r in out["routes"]))
+        kinds.update({(r.n_out, r.cin, r.cout, r.k): r.layer
+                      for r in out["routes"]})
+        walls = out["walls"]
+        q = statistics.quantiles(walls[1:], n=4)
+        curves[name] = out["curve"]
+        print(cb.format_curve(name, out["curve"]), flush=True)
+        prof = profile_run(f"one {name} step of check_bf16_training",
+                           out["one_more_step"], statistics.median(walls[1:]))
+        arms[name] = {"arm_s": arm_s, "wall_s_first": walls[0],
+                      "wall_s_median": statistics.median(walls[1:]),
+                      "wall_s_quartiles": [q[0], q[2]],
+                      "device_busy_share": prof["device_busy_share"],
+                      "branches_per_step": branches, "launches": launched,
+                      "expected_launches": want, "tf32": out["tf32"]}
+        emit({"precision_arm": name, "card": power, **arms[name]})
+        if launched != want:
+            failures.append(f"{name} arm launches")
+        if out["tf32"]:
+            failures.append(f"{name} arm TF32")
+        del out
+    f32_final, bf16_final, rel, fails = cb.verdict(curves, 0.15)
+    print(f"final BCE fp32={f32_final:.4f} bf16={bf16_final:.4f} "
+          f"rel_diff={rel:.3f}", flush=True)
+    emit({"precision_verdict": "BF16 TRAINING OK" if not fails else fails,
+          "final_bce_fp32": f32_final, "final_bce_bf16": bf16_final,
+          "first_bce_fp32": curves["fp32"][0][1], "rel_diff": rel,
+          "tol": 0.15, "curves": curves})
+    failures += fails
+
+    for name, dtype in cb.ARMS:
+        path = f"precision_{name}"
+        compute = name.replace("fp32", "f32")
+        for base in FUSED:
+            kernel = f"{base}-f32" if compute == "f32" else base
+            got = recs.setdefault((kernel, path), {})
+            for key, ops in sorted(cap.case(path, base).items()):
+                got[key] = check_variant(mp, kernel, path, key, ops, compute,
+                                         kinds.get(key, "?"))
+            if set(got) != set(cap.counts.get(path, {}).get(base, {})):
+                failures.append(f"{kernel} checked at every launch shape "
+                                f"of {path}")
+    if not all(r["ok"] for got in recs.values() for r in got.values()):
+        failures.append("precision kernel checks")
+    per_step = {}
+    for base in FUSED:
+        kernel = f"{base}-f32"
+        per = cap.per_step("precision_fp32", base, PRECISION_STEPS)
+        per_step[kernel] = {"launches": sum(per.values()),
+                            **totals(per, recs[(kernel, "precision_fp32")])}
+        bf = cap.per_step("precision_bf16", base, PRECISION_STEPS)
+        per_step[base + " (bf16 arm)"] = {
+            "launches": sum(bf.values()),
+            **totals(bf, recs[(base, "precision_bf16")])}
+    emit({"precision_step_kernel_account": per_step, "card": power})
+    emit({"precision_phase_s": time.perf_counter() - t_phase,
+          "failures": failures})
+    del env
+    torch.cuda.empty_cache()
+    return {"ok": not failures, "failures": failures, "recs": recs,
+            "launches": {f"{b}-f32": arms["fp32"]["launches"][b]
+                         for b in FUSED},
+            "per_step": per_step}
+
+
+def domain_2d_cases(mp, dev) -> dict:
+    """`tests/test_2d.py`'s two cases on the card and on the CPU, bf16
+    compute on both (the card's default; the plain versions on the CPU):
+    the k3 conv of a full 6x6 grid through the fused route, and the k2 s2
+    down / transpose up round trip (its routes fused), each launching B1
+    once a conv on the card.  Returns the comparisons; the card tests
+    call it too."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    g = np.stack(np.meshgrid(np.arange(6), np.arange(6), indexing="ij"),
+                 -1).reshape(-1, 2)
+    coords = np.concatenate([np.zeros((len(g), 1), np.int32), g],
+                            1).astype(np.int32)
+    feats = rng.randn(len(coords), 3).astype(np.float32)
+    conv = mp.nn.SparseConv(3, 4, kernel_size=3, ndim=2, device="cpu")
+    c2 = np.concatenate([np.zeros((32, 1), np.int32),
+                         rng.randint(0, 8, (32, 2))], 1).astype(np.int32)
+    cpad, valid = mp.ops.pad_to_capacity(c2, 32)
+    f2 = (rng.randn(32, 4) * valid[:, None]).astype(np.float32)
+    down = mp.nn.SparseConv(4, 8, kernel_size=2, stride=2, ndim=2,
+                            out_capacity=16, device="cpu")
+    up = mp.nn.SparseConvTranspose(8, 4, kernel_size=2, stride=2, ndim=2,
+                                   device="cpu")
+    outs, branches, b1 = {}, {}, mp.ops.fused_conv.fused_sparse_conv
+    launched = []  # B1's launches on the card: the full conv, the round trip
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        for d in ("cpu", dev):
+            st = mp.sparse_tensor(torch.as_tensor(coords, device=d),
+                                  torch.as_tensor(feats, device=d),
+                                  capacity=len(coords), extent=(6, 6))
+            before = b1.launches
+            full = mp.ops.fused_sparse_conv(st.features, conv.kernel.to(d),
+                                            st.grid, st.grid, conv.spec)
+            launched.append(b1.launches - before)
+            st2 = mp.sparse_tensor(torch.as_tensor(cpad, device=d),
+                                   torch.as_tensor(f2, device=d),
+                                   capacity=32,
+                                   valid=torch.as_tensor(valid, device=d),
+                                   extent=(8, 8))
+            before = b1.launches
+            with mp.nn.record_routes() as routes:
+                rt = up.to(d)(down.to(d)(st2), st2.grid)
+            launched.append(b1.launches - before)
+            branches[str(d)] = [r.branch for r in routes]
+            outs[str(d)] = (full.detach().cpu(),
+                            rt.features.detach().cpu(), rt.grid.coords.cpu())
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    out = {}
+    for i, (case, want) in enumerate((("k3_full_6x6", 1),
+                                      ("down_up_round_trip", 2))):
+        got, ref = outs[str(dev)][i], outs["cpu"][i]
+        err = (got - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        out[case] = {"max_abs_err": err, "max_abs_ref": ref_max,
+                     "tol": 1e-3 * ref_max + 1e-5, "b1_launches":
+                     launched[2 + i],
+                     "ok": err <= 1e-3 * ref_max + 1e-5 and ref_max > 0
+                     and launched[2 + i] == want and launched[i] == 0}
+    out["down_up_round_trip"]["ok"] &= bool(
+        torch.equal(outs[str(dev)][2], outs["cpu"][2]) and
+        branches[str(dev)] == ["fused", "fused"])
+    return out
+
+
+def domain_phase(mp, dev, cap, power) -> dict:
+    """The fused conv's domain beyond 3-D bf16 (``fused_conv.
+    kernel_domain``), each part with the launch counts set to 0 just before
+    it and read just after:
+
+    - 2-D grids: `tests/test_2d.py`'s two cases on the card against the
+      CPU (``domain_2d_cases``); then a 2-D k3 conv at a real size
+      (``DOMAIN_2D``: 4 full 256 x 256 grids, 64->64, bf16 compute),
+      forward and both gradients through ``ops.fused_sparse_conv``: B1, B2
+      and B3 each launch once on it, and every 2-D launch shape of the part
+      is held against its plain version within 1e-3·max|ref| + 1e-5
+      (``B1-2d``, ``B2-2d``, ``B3-2d``), timed beside its bound.
+    - K > 125: a k=7 cube (K = 343, ``DOMAIN_K7``) launches B1, B2 and B3
+      once per band of offsets (``fused_conv.offset_bands``: 125, 125,
+      93); its layer's forward and both gradients equal the CPU's plain
+      versions (bf16 compute on both) within 1e-3·max|ref| + 1e-5.
+
+    Returns ok, the failures, the kernel records by (kernel, path), the
+    2-D variants' launches and their times over the part."""
+    import numpy as np
+    import torch
+    fc = mp.ops.fused_conv
+    failures, recs, t_phase = [], {}, time.perf_counter()
+    count = counters(mp)
+    for c in count.values():
+        c.launches = 0  # counts from here on are the 2-D part's
+    cap.at("domain_2d", FUSED)
+    cases = domain_2d_cases(mp, dev)
+    emit({"domain_test_2d_cases": "card vs cpu", **cases})
+    failures += [f"test_2d case {n}" for n, c in cases.items() if not c["ok"]]
+    b, side = DOMAIN_2D["batch"], DOMAIN_2D["side"]
+    cin, cout = DOMAIN_2D["cin"], DOMAIN_2D["cout"]
+    xy = torch.stack(torch.meshgrid(torch.arange(side), torch.arange(side),
+                                    indexing="ij"), -1).reshape(-1, 2)
+    coords = torch.cat([torch.arange(b).repeat_interleave(side * side)[:, None],
+                        xy.repeat(b, 1)], 1).int().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n = coords.shape[0]
+    st = mp.sparse_tensor(coords, torch.randn(n, cin, device=dev,
+                                              generator=gen),
+                          capacity=n, batch_size=b, extent=(side, side))
+    spec = mp.ops.KernelSpec(3, 1, ndim=2)
+    f = st.features.clone().requires_grad_()
+    k = (torch.randn(9, cin, cout, device=dev, generator=gen) /
+         math.sqrt(9 * cin)).requires_grad_()
+    before = {name: count[name].launches for name in FUSED}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mp.ops.fused_sparse_conv(f, k, st.grid, st.grid, spec)
+    out.backward(torch.randn(n, cout, device=dev, generator=gen))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cap.at(None)
+    big = {name: count[name].launches - before[name] for name in FUSED}
+    launches = {f"{name}-2d": count[name].launches for name in FUSED}
+    emit({"domain_2d_conv": DOMAIN_2D, "rows": n, "wall_s": wall,
+          "launches": big, "finite": bool(torch.isfinite(out).all() and
+                                          torch.isfinite(f.grad).all() and
+                                          torch.isfinite(k.grad).all()),
+          "launches_2d_part": launches})
+    if big != dict.fromkeys(FUSED, 1):
+        failures.append("2-D conv launches")
+    del out, f, k, st
+    for base in FUSED:
+        kernel = f"{base}-2d"
+        got = recs.setdefault((kernel, "domain_2d"), {})
+        for key, ops in sorted(cap.case("domain_2d", base).items()):
+            got[key] = check_variant(mp, kernel, "domain_2d", key, ops,
+                                     "bf16", "k3s1 2-D" if key[0] == n
+                                     else "test_2d")
+        if set(got) != set(cap.counts.get("domain_2d", {}).get(base, {})):
+            failures.append(f"{kernel} checked at every launch shape")
+    if not all(r["ok"] for got in recs.values() for r in got.values()):
+        failures.append("2-D kernel checks")
+    per_part = {f"{b_}-2d": totals(
+        cap.per_step("domain_2d", b_, 1), recs[(f"{b_}-2d", "domain_2d")])
+        for b_ in FUSED}
+    emit({"domain_2d_kernel_account": per_part, "card": power})
+
+    # K = 343 in bands of offsets, card vs CPU
+    cfg = DOMAIN_K7
+    rng = np.random.RandomState(7)
+    rows = []
+    for i in range(cfg["batch"]):
+        c = np.unique(rng.randint(0, cfg["extent"], (cfg["points"], 3)),
+                      axis=0)
+        rows.append(np.concatenate([np.full((len(c), 1), i, np.int32), c],
+                                   1))
+    cpad, valid = mp.ops.pad_to_capacity(np.concatenate(rows),
+                                         cfg["capacity"])
+    feats = (rng.randn(cfg["capacity"], cfg["cin"]) *
+             valid[:, None]).astype(np.float32)
+    gout = rng.randn(cfg["capacity"], cfg["cout"]).astype(np.float32)
+    conv = mp.nn.SparseConv(cfg["cin"], cfg["cout"], kernel_size=7,
+                            device="cpu")
+    res, k7 = {}, {}
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        for d in ("cpu", dev):
+            c = conv.to(d)
+            c.zero_grad()
+            x = mp.sparse_tensor(torch.as_tensor(cpad, device=d),
+                                 torch.as_tensor(feats, device=d),
+                                 capacity=cfg["capacity"],
+                                 batch_size=cfg["batch"],
+                                 valid=torch.as_tensor(valid, device=d),
+                                 extent=(cfg["extent"],) * 3)
+            leaf = x.features.clone().requires_grad_()
+            x = mp.SparseTensor(grid=x.grid, features=leaf)
+            for w in count.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            with mp.nn.record_routes() as routes:
+                y = c(x).features
+            y.backward(torch.as_tensor(gout, device=d))
+            if d == dev:
+                torch.cuda.synchronize()
+                k7 = {"wall_s": time.perf_counter() - t0,
+                      "branches": [r.branch for r in routes],
+                      "launches": {n_: count[n_].launches for n_ in FUSED}}
+            res[str(d)] = [t.detach().cpu() for t in (y, leaf.grad,
+                                                      c.kernel.grad)]
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    for name, got, ref in zip(("out", "dF", "dW"), res[str(dev)],
+                              res["cpu"]):
+        err = (got - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        k7[name] = {"max_abs_err": err, "max_abs_ref": ref_max,
+                    "ok": err <= 1e-3 * ref_max + 1e-5 and ref_max > 0}
+    emit({"domain_k7_cube": cfg, "k": 343, "card": power, **k7})
+    bands = len(fc.offset_bands(343))
+    if not (k7["branches"] == ["fused"] and
+            k7["launches"] == dict.fromkeys(FUSED, bands) and
+            all(k7[n_]["ok"] for n_ in ("out", "dF", "dW"))):
+        failures.append("k=7 cube in bands of offsets")
+    emit({"domain_phase_s": time.perf_counter() - t_phase,
+          "failures": failures})
+    torch.cuda.empty_cache()
+    return {"ok": not failures, "failures": failures, "recs": recs,
+            "launches": launches, "per_part": per_part, "k7": k7}
+
+
 CHECKED_PATHS = (("generation", ("B1",)), ("canvas", ("B1",)),
                  ("serve", ("B1",)), ("vae_train", FUSED),
                  ("diffusion", KERNELS), ("vae_gate_on", BRICK),
@@ -4683,6 +5111,29 @@ def main(argv) -> int:
                "launches": {}}
     need(lib["ok"], "library path: " + ", ".join(lib["failures"]))
     recs.update(lib["recs"])
+    torch.cuda.empty_cache()
+
+    # -- path 9: the fused conv's whole domain -----------------------------
+    try:
+        with cap:
+            prec = precision_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        prec = {"ok": False, "failures": ["precision phase raised"],
+                "recs": {}}
+    need(prec["ok"], "precision path: " + ", ".join(
+        map(str, prec["failures"])))
+    recs.update(prec["recs"])
+    torch.cuda.empty_cache()
+    try:
+        with cap:
+            dom = domain_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        dom = {"ok": False, "failures": ["domain phase raised"], "recs": {}}
+    need(dom["ok"], "domain path: " + ", ".join(dom["failures"]))
+    recs.update(dom["recs"])
+    torch.cuda.empty_cache()
 
     # -- end-to-end references on a small input --------------------------
     for ref in (tiny_reference, tiny_canvas_reference, tiny_train_reference,
@@ -4701,7 +5152,8 @@ def main(argv) -> int:
                     "; ".join(failed))
 
     def entry(name, launches, t, per):
-        _, wrapper, source, replaces = {**KERNELS, **LIBRARY_KERNELS}[name]
+        _, wrapper, source, replaces = {**KERNELS, **LIBRARY_KERNELS,
+                                        **VARIANTS}[name]
         cases = [r for (k, _), got in recs.items() if k == name
                  for r in got.values()]
         cases += [r for r in extras if name == "B1"]
@@ -4771,10 +5223,23 @@ def main(argv) -> int:
                   totals(Counter(dict.fromkeys(got, 1)), got),
                   "one pass of the library path")
         e["path"] = "library"
+        if name == "B7":  # B4 at float32 compute runs this kernel
+            e["counted_as"] = {"B4": "compute_dtype=float32",
+                               **lib["b4_f32"]}
         if any("bound_fp32_ms" in r for r in got.values()):
             # the same bound with the float32 FMAs at the float32 peak
             e["bound_fp32_ms"] = sum(r.get("bound_fp32_ms", r["bound_ms"])
                                      for r in got.values())
+        kernels.append(e)
+    for name in VARIANTS:  # the fused kernels' float32 and 2-D variants
+        if name.endswith("-f32"):
+            e = entry(name, prec["launches"][name], prec["per_step"][name],
+                      "one float32 step of check_bf16_training")
+            e["path"] = "precision_fp32"
+        else:
+            e = entry(name, dom["launches"][name], dom["per_part"][name],
+                      "the 2-D part of the domain phase")
+            e["path"] = "domain_2d"
         kernels.append(e)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
@@ -4804,7 +5269,9 @@ def profile_run(label: str, run, wall_unprofiled: float) -> dict:
            "device_kernels": sum(r[2] for r in rows),
            # B1 and B2 are one instantiation (B2's weight is cast
            # transposed), told apart only by their launches
-           "B1_and_B2_s": kernel_s(r"fused_sparse_conv_kernel<\d+, \d+, 0>"),
+           # (both variants: <BN, BK, TA, TB, stage 0>)
+           "B1_and_B2_s": kernel_s(
+               r"fused_sparse_conv_kernel<\d+, \d+, \d, \d, 0>"),
            "B3_s": kernel_s("fused_sparse_conv_dw::"),  # all its passes
            "B5_and_dF_s": kernel_s("brick_conv_kernel<"),
            "B6_s": kernel_s("brick_conv_dw::"),  # all its passes

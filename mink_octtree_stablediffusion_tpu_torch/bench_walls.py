@@ -17,7 +17,12 @@ its kernels, and times, each call ending in ``torch.cuda.synchronize()``:
 - the host time of one fused conv call (``ops.fused_sparse_conv``, B1, a
   k3 s1 32→32 conv on the batch's 65,536-row input grid, no gradient):
   200 calls enqueued with no synchronisation, their host clock over 200,
-  the median of 5 rounds.
+  the median of 5 rounds;
+- with ``--kernels``, the device time of B1, B2 and B3 in one request and
+  one VAE step: every launch of the first timed request and step is
+  recorded at ``ops.fused_conv._launch`` / ``_launch_dkernel`` (the
+  launchers the operators call by module-global name), then run again
+  alone, CUDA events, the median of 25 after 3, summed per kernel.
 
 It uses only entry points that every checkout of the port since PR 6
 has, so that a parent commit and a change run the same measurement.
@@ -42,6 +47,7 @@ def main(argv=None) -> dict:
     p.add_argument("--label", default="")
     p.add_argument("--requests", type=int, default=4)
     p.add_argument("--steps", type=int, default=5)
+    p.add_argument("--kernels", action="store_true")
     args = p.parse_args(argv)
     # import the port of --root, not a module beside this file
     sys.path[:] = [os.path.abspath(args.root)] + [
@@ -75,6 +81,10 @@ def main(argv=None) -> dict:
         device=dev)
     gen_walls = [timed(lambda s=s: fn(cpad, valid, generator=torch.Generator(
         device=dev).manual_seed(s))) for s in range(args.requests + 1)]
+    kernels = {}
+    if args.kernels:
+        kernels["request"] = kernel_ms(mp, lambda: fn(
+            cpad, valid, generator=torch.Generator(device=dev).manual_seed(1)))
     del vae, unet, fn
     torch.cuda.empty_cache()
 
@@ -109,6 +119,9 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     vae_walls = [timed(lambda: step(state, (cpad, valid, feats), gen))
                  for _ in range(args.steps + 1)]
+    if args.kernels:
+        kernels["vae_step"] = kernel_ms(
+            mp, lambda: step(state, (cpad, valid, feats), gen))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -119,9 +132,60 @@ def main(argv=None) -> dict:
            "gen_request_warmup_s": gen_walls[0],
            "vae_step_wall_s": vae_walls[1:],
            "vae_step_warmup_s": vae_walls[0],
-           "b1_call_host_us": sorted(host_us[1:])[2]}
+           "b1_call_host_us": sorted(host_us[1:])[2],
+           "kernel_ms": kernels}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def event_ms(fn, warmup: int = 3, iters: int = 25) -> float:
+    """Median ms of one call of ``fn`` on the card, CUDA events."""
+    import statistics
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def kernel_ms(mp, run) -> dict:
+    """{kernel: {"launches", "ms"}} of one call of ``run``: each launch of
+    B1 (``_launch``), B2 (``_launch`` with ``transpose_weight``) and B3
+    (``_launch_dkernel``) recorded with its operands, then timed alone
+    (``event_ms``) and summed per kernel."""
+    import torch
+    fc = mp.ops.fused_conv
+    launch, launch_dk = fc._launch, fc._launch_dkernel
+    calls = []
+
+    def rec_launch(*a, **kw):
+        name = "B2" if kw.get("transpose_weight") else "B1"
+        calls.append((name, launch, a, kw))
+        return launch(*a, **kw)
+
+    def rec_launch_dk(*a, **kw):
+        calls.append(("B3", launch_dk, a, kw))
+        return launch_dk(*a, **kw)
+    fc._launch, fc._launch_dkernel = rec_launch, rec_launch_dk
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        fc._launch, fc._launch_dkernel = launch, launch_dk
+    out = {}
+    for name, fn, a, kw in calls:
+        got = out.setdefault(name, {"launches": 0, "ms": 0.0})
+        got["launches"] += 1
+        got["ms"] += event_ms(lambda: fn(*a, **kw))
+    return out
 
 
 if __name__ == "__main__":

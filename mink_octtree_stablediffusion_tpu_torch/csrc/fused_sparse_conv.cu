@@ -13,8 +13,27 @@
 //     cotangent g with W_k transposed, which the operand cast below
 //     applies.
 // One kernel covers plain k3s1, strided k3s2, pinned transpose k2s2 and
-// generative k2s2 convs in both directions: only the offsets and strides
-// differ.
+// generative k2s2 convs in both directions, on 3-D and 2-D grids: only the
+// offsets, strides and the geometry's D (`sparse_conv_common.cuh`) differ.
+//
+// Compute dtype.  The TPU kernel takes `compute_dtype` bf16 or float32
+// ("full precision at reduced MXU rate").  The products are a template
+// parameter (TA, TB), the bf16 terms of the features and of the weight
+// (`split`, `hopper_mma.cuh`), as in B7 (`map_conv.cuh`):
+//   - bf16 compute: (1, 1), one bf16 product, as the TPU kernel;
+//   - float32 compute: (3, 3), the 6 products a_i . b_j with i + j <= 2,
+//     fp32-accurate (the dropped ones are below 2^-24 of the result); on a
+//     weight stored in bf16, which one term holds exactly, (3, 1), 3
+//     products.
+// The split-term instantiations keep the ring within ~24 KB a stage with
+// BK = 16 (`ops/fused_conv.py::tile_shape`) and serve only the full conv.
+// They also sum in two levels: each ring step's products accumulate on the
+// tensor cores from zero, and are then added to a second fp32 sum on the
+// CUDA cores.  The tensor cores' fp32 accumulation aligns its addends by
+// truncation, an error that grows with the number of k16 products chained
+// into one accumulator: chained over K x Cin = 27 x 512 (864 steps x 6
+// products) it reached 5e-5 of max|out| on the H100, above the 2e-5 that
+// a float32 result must meet; one step's chain keeps it at the fp32 sum's.
 //
 // What bounds it on the H100: at the widths of the main path (Cin, Cout in
 // 1..512, 2,048 to 131,072 rows) one conv's arithmetic intensity is far
@@ -63,7 +82,7 @@
 // (checks, the launch) is longer than the kernel for the narrow convs.
 //
 // Tiles: BM = 128 rows; BN in {32, 64, 128} after Cout and BK in {16, 32,
-// 64} after Cin (`ops/fused_conv.py::tile_shape`).
+// 64} after Cin, BK 16 with split terms (`ops/fused_conv.py::tile_shape`).
 //
 // Stages (`stage`, default kFull): the same kernel cut at a point of its
 // pipeline, so that each stage's cost on the card can be seen.  They
@@ -100,11 +119,11 @@ constexpr int MAX_CLUSTER = 8;  // blocks of a row tile (portable cluster size)
 
 enum Stage { kFull = 0, kEmpty = 1, kSearch = 2, kGather = 3 };
 
-template <int BN, int BK>
+template <int BN, int BK, int TA, int TB>
 struct Cfg {
-  static constexpr int A_ELEMS = BM * BK;  // gathered rows, swizzled
-  static constexpr int B_ELEMS = BK * BN;  // W_k box, swizzled
-  static constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
+  static constexpr int A_ELEMS = BM * BK;  // one term's gathered rows, swizzled
+  static constexpr int B_ELEMS = BK * BN;  // one term's W_k box, swizzled
+  static constexpr int STAGE_ELEMS = TA * A_ELEMS + TB * B_ELEMS;
   static constexpr int STAGE_BYTES = STAGE_ELEMS * 2;
   static constexpr int STAGES =
       STAGE_BYTES > 24576 ? 3 : STAGE_BYTES > 16384 ? 4 : 6;
@@ -114,21 +133,27 @@ struct Cfg {
 // Dynamic shared memory: the ring, sIdx [K][BM], the live-offset list
 // (MAX_K + 1 ints, its count last), the block's 4-word mask of live
 // offsets and the cluster's.
-template <int BN, int BK>
+template <int BN, int BK, int TA, int TB>
 size_t smem_bytes(int k) {
-  return (size_t)Cfg<BN, BK>::RING_BYTES +
+  return (size_t)Cfg<BN, BK, TA, TB>::RING_BYTES +
          ((size_t)k * BM + MAX_K + 1 + 8) * 4;
 }
 
-template <int BN, int BK, int kStage>
-__global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
+// feat [TA][n_in, cinf] and wp [TB][k, cinw, coutp], the operands' bf16
+// terms (one each with bf16 compute).  A split-term instantiation's ring
+// and sIdx leave room for one block an SM.
+template <int BN, int BK, int TA, int TB, int kStage>
+__global__ void __launch_bounds__(NTHREADS, TA > 1 ? 1 : 2)
+    fused_sparse_conv_kernel(
     const __nv_bfloat16* __restrict__ feat,
     const __nv_bfloat16* __restrict__ wp, const int* __restrict__ in_keys,
     const int* __restrict__ out_coords,
     const unsigned char* __restrict__ out_valid, float* __restrict__ out,
     int n_in, int n_out, int cinf, int cin, int cinw, int cout, int coutp,
     const Geom g) {
-  using C = Cfg<BN, BK>;
+  using C = Cfg<BN, BK, TA, TB>;
+  static_assert(kStage == kFull || (TA == 1 && TB == 1),
+                "the cut stages are bf16 only");
   constexpr int STAGES = C::STAGES;
   constexpr int WCOLS = BN / 2;   // a warp's columns
   constexpr int NF = WCOLS / 8;   // its n8 tiles
@@ -165,21 +190,27 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
   // (mod 2C); the cluster then shares sIdx through distributed shared
   // memory, so each (row, offset) is searched once
   const int r = tid & (BM - 1), half = tid >> 7;
-  int coord[4] = {-1, 0, 0, 0};
-  sparse_conv::load_coord(coord, row0 + r, n_out, out_coords, out_valid);
+  int coord[1 + sparse_conv::MAX_D] = {-1, 0, 0, 0};
+  sparse_conv::with_ndim(g, [&](auto nd) {
+    sparse_conv::load_coord<decltype(nd)::value>(coord, row0 + r, n_out,
+                                                 out_coords, out_valid);
+  });
   if (tid < 8) sMask[tid] = 0u;
   // the same for every block of the cluster: all exit, or none
   if (!__syncthreads_or(coord[0] >= 0)) {  // all rows invalid or past the end
     fill(zero);
     return;
   }
-  for (int k = 2 * crank + half; k < g.k; k += 2 * csize) {
-    const int f = sparse_conv::find_neighbor(coord, k, g, in_keys, n_in);
-    sIdx[k * BM + r] = f;
-    // a warp's lanes share k
-    if (__any_sync(0xffffffffu, f >= 0) && lane == 0)
-      atomicOr(&sMask[k >> 5], 1u << (k & 31));
-  }
+  sparse_conv::with_ndim(g, [&](auto nd) {
+    for (int k = 2 * crank + half; k < g.k; k += 2 * csize) {
+      const int f = sparse_conv::find_neighbor<decltype(nd)::value>(
+          coord, k, g, in_keys, n_in);
+      sIdx[k * BM + r] = f;
+      // a warp's lanes share k
+      if (__any_sync(0xffffffffu, f >= 0) && lane == 0)
+        atomicOr(&sMask[k >> 5], 1u << (k & 31));
+    }
+  });
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every block's searches are done and visible
   if (csize > 1) {
@@ -220,11 +251,14 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
   const int steps = sLive[MAX_K] * nch;  // (live offset, Cin chunk)
   const int wm = warp & 3, wn = warp >> 2;
   const int mlim = min(cin, cout);  // kGather's columns
+  const size_t fterm = (size_t)n_in * cinf;           // a feature term
+  const size_t wterm = (size_t)g.k * cinw * coutp;    // a weight term
 
   for (int tn = crank; tn < ntn; tn += csize) {
     const int n0 = tn * BN;
-    // step s: the gathered rows of (offset, chunk) and, for the product,
-    // the W_k box, as one cp.async group (empty past the last step)
+    // step s: every term's gathered rows of (offset, chunk) and, for the
+    // product, every term's W_k box, as one cp.async group (empty past the
+    // last step)
     auto load_step = [&](int s) {
       if (s < steps) {
         const int li = s / nch, c0 = (s - li * nch) * BK, k = sLive[li];
@@ -234,19 +268,26 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
           const int row = e / (BK / 8), seg = e % (BK / 8);
           const int src = idx[row], ch = c0 + seg * 8;
           const bool ok = src >= 0 && ch < cinf;
-          cp_async16(
-              smem_u32(sA + row * BK + swizzle<BK / 8>(row, seg) * 8),
-              ok ? feat + (size_t)src * cinf + ch : feat, ok ? 16 : 0);
+          const uint32_t dst =
+              smem_u32(sA + row * BK + swizzle<BK / 8>(row, seg) * 8);
+          const size_t so = ok ? (size_t)src * cinf + ch : 0;
+#pragma unroll
+          for (int a = 0; a < TA; ++a)
+            cp_async16(dst + a * C::A_ELEMS * 2, feat + a * fterm + so,
+                       ok ? 16 : 0);
         }
         if constexpr (kStage == kFull) {
-          __nv_bfloat16* sB = sA + C::A_ELEMS;
+          __nv_bfloat16* sB = sA + TA * C::A_ELEMS;
           const __nv_bfloat16* wk =
               wp + ((size_t)k * cinw + c0) * coutp + n0;
           for (int e = tid; e < BK * (BN / 8); e += NTHREADS) {
             const int kr = e / (BN / 8), seg = e % (BN / 8);
-            cp_async16(
-                smem_u32(sB + kr * BN + swizzle<BN / 8>(kr, seg) * 8),
-                wk + (size_t)kr * coutp + seg * 8, 16);
+            const uint32_t dst =
+                smem_u32(sB + kr * BN + swizzle<BN / 8>(kr, seg) * 8);
+#pragma unroll
+            for (int b = 0; b < TB; ++b)
+              cp_async16(dst + b * C::B_ELEMS * 2,
+                         wk + b * wterm + (size_t)kr * coutp + seg * 8, 16);
           }
         }
       }
@@ -254,6 +295,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
     };
 
     float acc[2][NF][4];  // kFull: 32 rows x WCOLS of the warp
+    float tot[2][NF][4];  // split terms: the sum of the steps' acc
     float gsum[WCOLS];    // kGather: row r, columns half * WCOLS + j
     if constexpr (kStage == kFull) {
 #pragma unroll
@@ -261,7 +303,7 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
 #pragma unroll
         for (int j = 0; j < NF; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mi][j][i] = 0.0f;
+          for (int i = 0; i < 4; ++i) acc[mi][j][i] = tot[mi][j][i] = 0.0f;
     } else {
 #pragma unroll
       for (int j = 0; j < WCOLS; ++j) gsum[j] = 0.0f;
@@ -275,29 +317,54 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
       load_step(s + STAGES - 1);
       const __nv_bfloat16* sA = sRing + (s % STAGES) * C::STAGE_ELEMS;
       if constexpr (kStage == kFull) {
-        const __nv_bfloat16* sB = sA + C::A_ELEMS;
+        const __nv_bfloat16* sB = sA + TA * C::A_ELEMS;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          uint32_t a[2][4];
+          uint32_t a[TA][2][4];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            const int row = wm * 32 + mi * 16 + (lane & 15);
-            ldmatrix_x4(a[mi], smem_u32(sA + row * BK +
-                                        swizzle<BK / 8>(row, kk * 2 + (lane >> 4)) * 8));
-          }
+          for (int ta = 0; ta < TA; ++ta)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              const int row = wm * 32 + mi * 16 + (lane & 15);
+              ldmatrix_x4(a[ta][mi],
+                          smem_u32(sA + ta * C::A_ELEMS + row * BK +
+                                   swizzle<BK / 8>(row, kk * 2 + (lane >> 4)) * 8));
+            }
           const int krow = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
           for (int jp = 0; jp < NF / 2; ++jp) {
             const int chunk = (wn * WCOLS + jp * 16) / 8 + (lane >> 4);
-            uint32_t b[4];
-            ldmatrix_x4_trans(
-                b, smem_u32(sB + krow * BN + swizzle<BN / 8>(krow, chunk) * 8));
+            uint32_t b[TB][4];
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-              mma_16816(acc[mi][2 * jp], a[mi], b[0], b[1]);
-              mma_16816(acc[mi][2 * jp + 1], a[mi], b[2], b[3]);
-            }
+            for (int tb = 0; tb < TB; ++tb)
+              ldmatrix_x4_trans(
+                  b[tb], smem_u32(sB + tb * C::B_ELEMS + krow * BN +
+                                  swizzle<BN / 8>(krow, chunk) * 8));
+            // the term products a_i . b_j with i + j <= 2, the smallest first
+#pragma unroll
+            for (int ta = TA - 1; ta >= 0; --ta)
+#pragma unroll
+              for (int tb = TB - 1; tb >= 0; --tb) {
+                if (ta + tb > 2) continue;
+#pragma unroll
+                for (int mi = 0; mi < 2; ++mi) {
+                  mma_16816(acc[mi][2 * jp], a[ta][mi], b[tb][0], b[tb][1]);
+                  mma_16816(acc[mi][2 * jp + 1], a[ta][mi], b[tb][2],
+                            b[tb][3]);
+                }
+              }
           }
+        }
+        if constexpr (TA > 1) {  // the step's sum into the fp32 total
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int j = 0; j < NF; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                tot[mi][j][i] += acc[mi][j][i];
+                acc[mi][j][i] = 0.0f;
+              }
         }
       } else {  // kGather: add the chunk's columns that are this row's
         const int li = s / nch, c0 = (s - li * nch) * BK;
@@ -318,6 +385,14 @@ __global__ void __launch_bounds__(NTHREADS, 2) fused_sparse_conv_kernel(
 
     if constexpr (kStage == kFull) {
       const int t2 = (lane & 3) * 2;
+      if constexpr (TA > 1) {  // the two-level sum is the result
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int j = 0; j < NF; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mi][j][i] = tot[mi][j][i];
+      }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -347,10 +422,10 @@ struct Args {
   int n_in, n_out, cinf, cin, cinw, cout, coutp;
 };
 
-template <int BN, int BK, int kStage>
+template <int BN, int BK, int TA, int TB, int kStage>
 int launch(const Args& a, const Geom& g, cudaStream_t stream) {
-  auto kernel = fused_sparse_conv_kernel<BN, BK, kStage>;
-  const size_t smem = kStage == kEmpty ? 0 : smem_bytes<BN, BK>(g.k);
+  auto kernel = fused_sparse_conv_kernel<BN, BK, TA, TB, kStage>;
+  const size_t smem = kStage == kEmpty ? 0 : smem_bytes<BN, BK, TA, TB>(g.k);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -381,26 +456,38 @@ template <int kStage>
 int launch_tile(int bn, int bk, const Args& a, const Geom& g,
                 cudaStream_t s) {
   switch (bn * 1000 + bk) {
-    case 32016: return launch<32, 16, kStage>(a, g, s);
-    case 32032: return launch<32, 32, kStage>(a, g, s);
-    case 32064: return launch<32, 64, kStage>(a, g, s);
-    case 64016: return launch<64, 16, kStage>(a, g, s);
-    case 64032: return launch<64, 32, kStage>(a, g, s);
-    case 64064: return launch<64, 64, kStage>(a, g, s);
-    case 128016: return launch<128, 16, kStage>(a, g, s);
-    case 128032: return launch<128, 32, kStage>(a, g, s);
-    case 128064: return launch<128, 64, kStage>(a, g, s);
+    case 32016: return launch<32, 16, 1, 1, kStage>(a, g, s);
+    case 32032: return launch<32, 32, 1, 1, kStage>(a, g, s);
+    case 32064: return launch<32, 64, 1, 1, kStage>(a, g, s);
+    case 64016: return launch<64, 16, 1, 1, kStage>(a, g, s);
+    case 64032: return launch<64, 32, 1, 1, kStage>(a, g, s);
+    case 64064: return launch<64, 64, 1, 1, kStage>(a, g, s);
+    case 128016: return launch<128, 16, 1, 1, kStage>(a, g, s);
+    case 128032: return launch<128, 32, 1, 1, kStage>(a, g, s);
+    case 128064: return launch<128, 64, 1, 1, kStage>(a, g, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split-term full conv: BK 16, BN after Cout.
+template <int TA, int TB>
+int launch_split(int bn, const Args& a, const Geom& g, cudaStream_t s) {
+  switch (bn) {
+    case 32: return launch<32, 16, TA, TB, kFull>(a, g, s);
+    case 64: return launch<64, 16, TA, TB, kFull>(a, g, s);
+    case 128: return launch<128, 16, TA, TB, kFull>(a, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The operand casts, one pass before the conv (`ops/fused_conv.py::
 // pad_features` and `pack_weight` are their plain versions): features fp32
-// [n_in, cin] -> bf16 [n_in, cinf], zero past cin; weight W (fp32, or bf16
-// where the parameters are stored in bf16) [k, cin, cout] ([k, cout, cin],
-// the forward's, read transposed for dF) -> bf16 [k, cinw, coutp], zero
-// past cin and cout.  Rounds as __float2bfloat16 (a bf16 weight is copied
-// as it is).
+// [n_in, cin] -> TA bf16 terms [TA][n_in, cinf], zero past cin; weight W
+// (fp32, or bf16 where the parameters are stored in bf16) [k, cin, cout]
+// ([k, cout, cin], the forward's, read transposed for dF) -> TB bf16 terms
+// [TB][k, cinw, coutp], zero past cin and cout.  Each term rounds to
+// nearest what the earlier ones left (`split`; one term is
+// __float2bfloat16, and a bf16 weight is copied as it is).
 __device__ __forceinline__ float load_weight(const float* w, long long i) {
   return w[i];
 }
@@ -409,7 +496,7 @@ __device__ __forceinline__ float load_weight(const __nv_bfloat16* w,
   return __bfloat162float(w[i]);
 }
 
-template <typename W>
+template <typename W, int TA, int TB>
 __global__ void cast_operands_kernel(const float* __restrict__ f,
                                      __nv_bfloat16* __restrict__ fb,
                                      const W* __restrict__ w,
@@ -418,13 +505,17 @@ __global__ void cast_operands_kernel(const float* __restrict__ f,
                                      int k, int cinw, int coutp,
                                      int transpose) {
   const long long nf = (long long)n_in * cinf;
-  const long long total = nf + (long long)k * cinw * coutp;
+  const long long nw = (long long)k * cinw * coutp;
+  const long long total = nf + nw;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     if (e < nf) {
       const long long r = e / cinf;
       const int c = (int)(e - r * cinf);
-      fb[e] = __float2bfloat16(c < cin ? f[r * cin + c] : 0.0f);
+      __nv_bfloat16 t[TA];
+      split(c < cin ? f[r * cin + c] : 0.0f, t);
+#pragma unroll
+      for (int u = 0; u < TA; ++u) fb[u * nf + e] = t[u];
     } else {
       const long long q = e - nf;
       const long long o = q / ((long long)cinw * coutp);
@@ -434,79 +525,109 @@ __global__ void cast_operands_kernel(const float* __restrict__ f,
       if (i < cin && j < cout)
         v = load_weight(w, transpose ? (o * cout + j) * cin + i
                                      : (o * cin + i) * cout + j);
-      wp[q] = __float2bfloat16(v);
+      __nv_bfloat16 t[TB];
+      split(v, t);
+#pragma unroll
+      for (int u = 0; u < TB; ++u) wp[u * nw + q] = t[u];
     }
   }
 }
 
-int cast_operands(const void* feat, const void* w, void* fb, void* wp,
-                  int n_in, int cin, int cout, int k, int bn, int bk,
-                  int transpose, int w_bf16, cudaStream_t stream) {
+template <int TA, int TB>
+int cast_terms(const void* feat, const void* w, void* fb, void* wp,
+               int n_in, int cin, int cout, int k, int bn, int bk,
+               int transpose, int w_bf16, cudaStream_t stream) {
   const int cinf = (cin + 7) / 8 * 8, cinw = (cin + bk - 1) / bk * bk;
   const int coutp = (cout + bn - 1) / bn * bn;
   const long long total =
       (long long)n_in * cinf + (long long)k * cinw * coutp;
   const int blocks = (int)(total / 256 + 1 < 4096 ? total / 256 + 1 : 4096);
   if (w_bf16)
-    cast_operands_kernel<<<blocks, 256, 0, stream>>>(
+    cast_operands_kernel<__nv_bfloat16, TA, TB><<<blocks, 256, 0, stream>>>(
         (const float*)feat, (__nv_bfloat16*)fb, (const __nv_bfloat16*)w,
         (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp,
         transpose);
   else
-    cast_operands_kernel<<<blocks, 256, 0, stream>>>(
+    cast_operands_kernel<float, TA, TB><<<blocks, 256, 0, stream>>>(
         (const float*)feat, (__nv_bfloat16*)fb, (const float*)w,
         (__nv_bfloat16*)wp, n_in, cin, cinf, cout, k, cinw, coutp,
         transpose);
   return (int)cudaGetLastError();
 }
 
-bool valid_tile(int bn, int bk) {
-  return (bn == 32 || bn == 64 || bn == 128) &&
-         (bk == 16 || bk == 32 || bk == 64);
+int cast_operands(const void* feat, const void* w, void* fb, void* wp,
+                  int n_in, int cin, int cout, int k, int bn, int bk, int ta,
+                  int tb, int transpose, int w_bf16, cudaStream_t stream) {
+  switch (ta * 10 + tb) {
+    case 11: return cast_terms<1, 1>(feat, w, fb, wp, n_in, cin, cout, k, bn,
+                                     bk, transpose, w_bf16, stream);
+    case 33: return cast_terms<3, 3>(feat, w, fb, wp, n_in, cin, cout, k, bn,
+                                     bk, transpose, w_bf16, stream);
+    case 31: return cast_terms<3, 1>(feat, w, fb, wp, n_in, cin, cout, k, bn,
+                                     bk, transpose, w_bf16, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tiles and term counts instantiated: (1, 1) on every tile; (3, 3)
+// and (3, 1) with BK 16.
+bool valid_tile(int bn, int bk, int ta, int tb) {
+  const bool terms = (ta == 1 && tb == 1) || (ta == 3 && (tb == 3 || tb == 1));
+  return terms && (bn == 32 || bn == 64 || bn == 128) &&
+         (ta > 1 ? bk == 16 : (bk == 16 || bk == 32 || bk == 64));
 }
 
 }  // namespace
 
 // The operand casts alone (the pass `fused_sparse_conv_forward` runs
-// first): feat fp32 [n_in, cin] -> fb bf16 [n_in, cin rounded up to 8];
-// w fp32, or bf16 with w_bf16, [k, cin, cout] ([k, cout, cin] with
-// transpose) -> wp bf16 [k, cin rounded up to bk, cout rounded up to bn].
+// first): feat fp32 [n_in, cin] -> fb bf16 [ta][n_in, cin rounded up to
+// 8]; w fp32, or bf16 with w_bf16, [k, cin, cout] ([k, cout, cin] with
+// transpose) -> wp bf16 [tb][k, cin rounded up to bk, cout rounded up to
+// bn]; (ta, tb) the terms, (1, 1), (3, 3) or (3, 1).
 extern "C" int fused_sparse_conv_cast(const void* feat, const void* w,
                                       void* fb, void* wp, int n_in, int cin,
                                       int cout, int k, int bn, int bk,
-                                      int transpose, int w_bf16,
-                                      void* stream) {
-  if (n_in < 0 || cin < 1 || cout < 1 || k < 1 || !valid_tile(bn, bk))
+                                      int ta, int tb, int transpose,
+                                      int w_bf16, void* stream) {
+  if (n_in < 0 || cin < 1 || cout < 1 || k < 1 ||
+      !valid_tile(bn, bk, ta, tb))
     return (int)cudaErrorInvalidValue;
-  return cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
+  return cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk, ta, tb,
                        transpose, w_bf16, (cudaStream_t)stream);
 }
 
 // Launch on `stream`: the operand casts into fb and wp (as
-// `fused_sparse_conv_cast`, the weight bf16 with w_bf16), then the conv; returns cudaGetLastError()
-// right after the launches.  in_keys int32 [n_in] (sorted, INT32_MAX on
-// padding rows), out_coords int32 [n_out, 4], out_valid bool [n_out], out
-// fp32 [n_out, cout]; offs [k*3], s_in [3] and cells [3] are host arrays.
-// (bn, bk) is the tile (`ops/fused_conv.py::tile_shape`); `stage` a Stage
-// (see the header); transpose only with kFull (B2).
+// `fused_sparse_conv_cast`, the weight bf16 with w_bf16), then the conv;
+// returns cudaGetLastError() right after the launches.  in_keys int32
+// [n_in] (sorted, INT32_MAX on padding rows), out_coords int32 [n_out, 1 +
+// ndim], out_valid bool [n_out], out fp32 [n_out, cout]; offs [k*ndim],
+// s_in [ndim] and cells [ndim] are host arrays, ndim 2 or 3.  (bn, bk) is
+// the tile and (ta, tb) the terms (`ops/fused_conv.py::tile_shape`,
+// `operand_terms`); `stage` a Stage (see the header), the cut stages with
+// (1, 1) only; transpose only with kFull (B2).
 extern "C" int fused_sparse_conv_forward(
     const void* feat, const void* w, void* fb, void* wp, const void* in_keys,
     const void* out_coords, const void* out_valid, void* out, int n_in,
-    int n_out, int cin, int cout, int k, const int* offs, const int* s_in,
-    const int* cells, int bn, int bk, int transpose, int w_bf16, int stage,
-    void* stream) {
-  if (k < 1 || k > MAX_K || n_in < 1 || n_out < 1 || cout < 1 || cin < 1 ||
-      !valid_tile(bn, bk) || stage < kFull || stage > kGather ||
-      (transpose && stage != kFull))
+    int n_out, int cin, int cout, int k, int ndim, const int* offs,
+    const int* s_in, const int* cells, int bn, int bk, int ta, int tb,
+    int transpose, int w_bf16, int stage, void* stream) {
+  if (k < 1 || k > MAX_K || ndim < 2 || ndim > sparse_conv::MAX_D ||
+      n_in < 1 || n_out < 1 || cout < 1 || cin < 1 ||
+      !valid_tile(bn, bk, ta, tb) || stage < kFull || stage > kGather ||
+      (transpose && stage != kFull) || (ta > 1 && stage != kFull))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk,
+  int rc = cast_operands(feat, w, fb, wp, n_in, cin, cout, k, bn, bk, ta, tb,
                          transpose, w_bf16, s);
   if (rc != 0) return rc;
   const Args a{fb, wp, in_keys, out_coords, out_valid, out, n_in, n_out,
                (cin + 7) / 8 * 8, cin, (cin + bk - 1) / bk * bk, cout,
                (cout + bn - 1) / bn * bn};
-  const Geom g = sparse_conv::make_geom(k, offs, s_in, cells);
+  const Geom g = sparse_conv::make_geom(k, ndim, offs, s_in, cells);
+  if (ta == 3) {  // the split-term full conv (float32 compute)
+    return tb == 3 ? launch_split<3, 3>(bn, a, g, s)
+                   : launch_split<3, 1>(bn, a, g, s);
+  }
   switch (stage) {  // each stage on the tile and cluster of the conv
     case kEmpty: return launch_tile<kEmpty>(bn, bk, a, g, s);
     case kSearch: return launch_tile<kSearch>(bn, bk, a, g, s);

@@ -1,8 +1,8 @@
 // PTX wrappers shared by the pipelined bf16 kernels (`brick_conv.cu`,
-// `fused_sparse_conv.cu`, `fused_sparse_conv_dw.cu`): 16-byte `cp.async`
-// copies into a ring of shared-memory stages, `ldmatrix` fragment loads,
-// and the warp-level tensor-core product `mma.sync.m16n8k16` (bf16 in,
-// fp32 accumulate).
+// `fused_sparse_conv.cu`, `fused_sparse_conv_dw.cu`, `map_conv.cuh`):
+// 16-byte `cp.async` copies into a ring of shared-memory stages, `ldmatrix`
+// fragment loads, the warp-level tensor-core product `mma.sync.m16n8k16`
+// (bf16 in, fp32 accumulate), and `split`, an fp32 value as bf16 terms.
 //
 // Fragments of m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major): a0 = (g, 2t..2t+1), a1 = (g + 8, 2t..),
@@ -23,6 +23,21 @@
 #include <stdint.h>
 
 namespace hopper {
+
+// x as T bf16 terms, each the rounding of what the earlier ones left:
+// t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1).  Three terms hold
+// an fp32 value to about 2^-24 of itself, so the products a_i . b_j with
+// i + j <= 2 on the bf16 tensor cores, summed in fp32, give an
+// fp32-accurate product (the split-term kernels: `map_conv.cuh`,
+// `fused_sparse_conv.cu`, `fused_sparse_conv_dw.cu`).
+template <int T>
+__device__ __forceinline__ void split(float x, __nv_bfloat16 (&t)[T]) {
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    t[u] = __float2bfloat16_rn(x);
+    x -= __bfloat162float(t[u]);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -23,8 +23,9 @@
 //      and the weight to TB bf16 terms [TB][K, CinW, CoutP] in the MMA's B
 //      layout (CinF = Cin rounded up to 8, CinW to the chunk BK, CoutP to
 //      the tile BN, zero-filled), once per call.  A value x is split as
-//      t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1): three terms
-//      hold an fp32 value to about 2^-24 of itself.  Plain versions:
+//      t0 = bf16(x), t1 = bf16(x - t0), t2 = bf16(x - t0 - t1) (`split`,
+//      `hopper_mma.cuh`): three terms hold an fp32 value to about 2^-24 of
+//      itself.  Plain versions:
 //      `ops/onehot_conv.py::split_terms`, `map_conv_operands`;
 //   2. count (`count_kernel`): matches per (offset, block of 256 outputs),
 //      a block walking 8 offsets;
@@ -116,16 +117,6 @@ __device__ __forceinline__ float load_val(const void* p, int is_bf16,
   return is_bf16
              ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
              : reinterpret_cast<const float*>(p)[i];
-}
-
-// x as T bf16 terms, each the rounding of what the earlier ones left
-template <int T>
-__device__ __forceinline__ void split(float x, __nv_bfloat16 (&t)[T]) {
-#pragma unroll
-  for (int u = 0; u < T; ++u) {
-    t[u] = __float2bfloat16_rn(x);
-    x -= __bfloat162float(t[u]);
-  }
 }
 
 // -- 1. cast -----------------------------------------------------------------
@@ -551,7 +542,7 @@ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
 // The instantiated tiles: BN in {32, 64, 128}; BK in {16, 32, 64} with one
 // feature term, {16, 32} with three weight terms, 16 with three of each
-// (`ops/onehot_conv.py::map_tile_shape`).
+// (`ops/fused_conv.py::tile_shape`).
 template <int BK, int TA, int TB>
 constexpr bool tile_allowed() {
   return TA > 1 ? BK == 16 : TB > 1 ? BK <= 32 : true;
@@ -689,7 +680,7 @@ int forward(const Args& a, cudaStream_t s) {
 // int32 [k * rb + 1] (rb = ceil(n_out / 256)), tile_off int32 [k + 1],
 // pair_in and pos int32 [k * n_out], part fp32 [group * n_out * cout], acc
 // fp32 [n_out * cout] (unused with group >= k); (bn, bk) the GEMM tile
-// (`map_tile_shape`), group the offsets per GEMM launch (`map_groups`),
+// (`fused_conv.tile_shape`), group the offsets per GEMM launch (`map_groups`),
 // stage a Stage.
 #define MAP_CONV_ENTRY_PARAMS                                                  \
   const void *feat, int feat_bf16, const void *w, int w_bf16,                  \

@@ -4,10 +4,10 @@ Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose`,
 `UpsampleInterpolate` and `ChannelwiseConv` from
 `mink_octtree_stablediffusion_tpu/nn/conv.py`, the convs with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
-``ops.enable_brick_conv``, off by default, never for CPU tensors) → fused
-kernel (bounded grids, unless ``ops.use_onehot_conv(False)``) → the
-opt-in dense route (``ops.enable_dense_conv``, off by default) → plain
-gather-GEMM over a kernel map (unbounded grids always: the JAX package
+``ops.enable_brick_conv``, off by default, never for CPU tensors, bf16
+compute only) → fused kernel (bounded grids, unless
+``ops.use_onehot_conv(False)``) → the opt-in dense route
+(``ops.enable_dense_conv``, off by default) → plain gather-GEMM over a kernel map (unbounded grids always: the JAX package
 has no kernel for them either).  Kernel
 layout is (K, Cin, Cout) with kaiming-normal initialisation over K·Cin.
 
@@ -17,8 +17,8 @@ gradient and whether it is a rematerialized stack's recompute in the
 backward pass (``recomputing``), independently of the kernels' own launch
 counters — so a run can check that every fused-route (brick-route) conv
 launched the forward kernel and, in training, the dW kernel and (where its
-input carries a gradient) the dF kernel, once per conv and not per
-recompute.
+input carries a gradient) the dF kernel, once per conv (once per band of
+``ops.fused_conv.offset_bands`` past 125 offsets) and not per recompute.
 """
 
 from __future__ import annotations
@@ -138,7 +138,7 @@ class _ConvBase(nn.Module):
                                            self.bias, compute_dtype=cd)
         elif (allow_same_grid_dense and out_grid is x.grid and
               brick_preferred(spec, x.grid, cin, self.out_channels,
-                              x.features.device)):
+                              x.features.device, cd)):
             branch = "brick"
             out = brick_pallas_conv(*args, x.grid, compute_dtype=cd)
             if self.bias is not None:

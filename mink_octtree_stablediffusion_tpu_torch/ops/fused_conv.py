@@ -25,6 +25,17 @@ GEMM over the pairs and, where the rows are split (``dw_splits``), an
 ordered sum of the splits' partials (``_dkernel_pairs_plain``); its GEMM
 tile is ``dw_tile_shape``'s.
 
+The kernels' domain is ``kernel_domain``: compute dtype bf16 or float32
+on grids of D = 2 or 3, as JAX's kernels take ``compute_dtype`` bf16 or
+float32 and flat keys of any D; another compute dtype or D raises on the
+card.  Float32 compute splits each float32 operand into three bf16 terms
+(``split_terms``, ``operand_terms``) and sums the products of the terms
+whose indices add up to at most 2, float32-accurate on the bf16 tensor
+cores.  A launch takes at most ``MAX_K`` offsets; a conv with more (a
+k=7 cube, K = 343) launches once per band of offsets (``offset_bands``),
+B1/B2's outputs summed in offset order and B3's dW bands concatenated, as
+JAX's band-split schedule runs one kernel per band (``use_band_split``).
+
 For each output row j and offset k the query ``out_coord_j + delta_k`` must
 lie on the input lattice, inside the extent, and row j must be valid; its
 int32 flat key is then matched against the sorted input keys
@@ -39,9 +50,9 @@ as in JAX.
 
 Each wrapper (``fused_sparse_conv``, ``fused_conv_dfeatures``,
 ``fused_conv_dkernel``, ``fused_conv_stage``) calls its operator of
-``ops/library.py``, which launches the kernel for CUDA tensors (or raises)
-and takes the plain PyTorch version only for tensors on the CPU: there is
-no fallback.  Each kernel's launches are counted in its wrapper's
+``ops/library.py``, which launches the kernel for CUDA tensors (or
+raises) and takes the plain PyTorch version only for tensors on the CPU:
+there is no fallback.  Each kernel's launches are counted in its wrapper's
 ``.launches``.  The Mosaic mechanics of the TPU kernels (one-hot gather
 as a matmul, lane padding, VMEM budgets, band schedules and the "over
 budget → XLA" fallbacks of the forward and the backward) are not carried
@@ -66,7 +77,12 @@ from ..utils.device import stream_guard
 SOURCE = "fused_sparse_conv.cu"  # B1, B2 and the stages (B8/B9)
 DW_SOURCE = "fused_sparse_conv_dw.cu"  # B3
 SOURCES = (SOURCE, DW_SOURCE)
-MAX_K = 125  # offsets the kernels' geometry block holds (csrc MAX_K)
+# offsets of one launch (csrc MAX_K): the geometry is a by-value kernel
+# parameter of MAX_K x 3 offsets, and B1 keeps K x 128 match indices in
+# shared memory (64 KB at K = 125); more offsets launch in bands
+MAX_K = 125
+COMPUTE_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' products
+NDIMS = (2, 3)  # the kernels' grids (csrc Geom.ndim)
 # B1's pipeline cut at a stage (csrc ``Stage``, in its order): ``full`` the
 # conv, ``empty`` zeros, ``search`` the matches counted, ``gather`` the
 # matched rows summed (see ``_stage_plain``)
@@ -80,6 +96,43 @@ DW_ROWS = 256  # output rows of B3's search and compaction blocks (csrc ROWS)
 # chunk of depth, and partials of at most DW_PARTIAL_BYTES
 DW_FULL_BLOCKS, DW_TARGET_BLOCKS = 264, 528
 DW_MAX_SPLITS, DW_PARTIAL_BYTES = 64, 16 << 20
+
+
+def kernel_domain(compute_dtype, ndim: int) -> bool:
+    """Whether the CUDA kernels take a conv: compute dtype bf16 or float32
+    on a grid of D = 2 or 3 (any K: ``offset_bands``)."""
+    return compute_dtype in COMPUTE_DTYPES and ndim in NDIMS
+
+
+def offset_bands(k: int) -> list:
+    """(first, end) of each launch's offsets for a conv of ``k``: bands of
+    at most ``MAX_K`` in offset order (one band for ``k`` ≤ ``MAX_K``)."""
+    return [(k0, min(k0 + MAX_K, k)) for k0 in range(0, max(k, 1), MAX_K)]
+
+
+def operand_terms(compute_dtype, w_bf16: bool = False) -> tuple:
+    """(TA, TB): the bf16 terms of the features (or cotangent) and of the
+    weight in the kernels' products.  bf16 compute: (1, 1); float32: three
+    terms of each, or one of a weight stored in bf16, which it holds
+    exactly."""
+    if compute_dtype == torch.bfloat16:
+        return 1, 1
+    return 3, 1 if w_bf16 else 3
+
+
+def split_terms(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` as ``n`` bf16 terms [n, *x.shape], each the round-to-nearest
+    of what the earlier ones left: three hold a float32 value to about
+    2⁻²⁴ of itself (the cast passes' plain version, csrc ``split``).  The
+    kernels sum the products of the terms whose indices add up to at most
+    2, each exact in float32."""
+    r = x.float()
+    terms = []
+    for _ in range(n):
+        t = r.to(torch.bfloat16)
+        terms.append(t)
+        r = r - t.float()
+    return torch.stack(terms)
 
 
 def conv_geometry(in_grid: SparseGrid, spec: KernelSpec):
@@ -164,24 +217,34 @@ def _dkernel_plain(features: torch.Tensor, g: torch.Tensor,
     return mm_f32(a.permute(1, 2, 0), g.to(compute_dtype))
 
 
-def dw_tile_shape(cin: int, cout: int) -> tuple:
+def dw_tile_shape(cin: int, cout: int, terms: int = 1) -> tuple:
     """(BI, BO, BD) of B3's GEMM: the Cin and the Cout tile, each the
     smallest of 32 and 64 that holds the width, else 128, and the pairs of
     one ring stage, 128 for the 32 x 32 tile (whose 8 warps all split the
-    depth), else 64."""
+    depth), else 64.  With split ``terms`` (3 of f and of g, float32
+    compute) BD is the largest power of two that keeps a stage's
+    ``terms · BD · (BI + BO)`` bf16 values within 24 KB, but at least one
+    k16 step for each group of warps that splits the depth (csrc
+    ``Tile``)."""
     def pick(c):
         return next((t for t in (32, 64) if c <= t), 128)
     bi, bo = pick(cin), pick(cout)
-    return bi, bo, 128 if bi == bo == 32 else 64
+    if terms == 1:
+        return bi, bo, 128 if bi == bo == 32 else 64
+    wtn = 64 if bi * bo > 128 * 64 else 32
+    wk = 8 // ((bi // 32) * (bo // wtn))  # warps split the depth wk ways
+    fit = 1 << (24576 // ((bi + bo) * 2 * terms)).bit_length() - 1
+    return bi, bo, max(fit, 16 * wk)
 
 
-def dw_splits(n_out: int, cin: int, cout: int, k: int) -> int:
+def dw_splits(n_out: int, cin: int, cout: int, k: int,
+              terms: int = 1) -> int:
     """The row splits S of B3's GEMM: 1 where its (Cin tile, Cout tile,
     offset) blocks reach ``DW_FULL_BLOCKS``, else enough splits for
     ``DW_TARGET_BLOCKS`` blocks, bounded by ``DW_MAX_SPLITS``, by one chunk
     of ``BD`` pairs a split at ``n_out`` pairs an offset, and by float32
     partials [S, K, Cin, Cout] of ``DW_PARTIAL_BYTES``."""
-    bi, bo, bd = dw_tile_shape(cin, cout)
+    bi, bo, bd = dw_tile_shape(cin, cout, terms)
     blocks = -(-cin // bi) * -(-cout // bo) * k
     if blocks >= DW_FULL_BLOCKS:
         return 1
@@ -189,11 +252,13 @@ def dw_splits(n_out: int, cin: int, cout: int, k: int) -> int:
                       DW_MAX_SPLITS, DW_PARTIAL_BYTES // (4 * k * cin * cout)))
 
 
-def dw_operands(features: torch.Tensor, g: torch.Tensor) -> tuple:
+def dw_operands(features: torch.Tensor, g: torch.Tensor,
+                terms: int = 1) -> tuple:
     """B3's operands as its cast pass makes them once per call (this is
     that pass's plain version): ``pad_features`` of the features and of
-    the cotangent, bf16 [N, C rounded up to 8], zero past C."""
-    return pad_features(features), pad_features(g)
+    the cotangent, bf16 [N, C rounded up to 8], zero past C ([terms, N, C
+    rounded up to 8] with split terms)."""
+    return pad_features(features, terms), pad_features(g, terms)
 
 
 def pair_list(in_keys: torch.Tensor, out_coords: torch.Tensor,
@@ -274,18 +339,18 @@ def _stage_plain(features: torch.Tensor, kernel: torch.Tensor,
 # -- CUDA launches ------------------------------------------------------------
 
 # kernel entry → (source, its argtypes, error-string function): device
-# pointers, ints, the three host int arrays of the geometry (offsets,
-# strides, cells), ints, the stream (see each entry in csrc/)
+# pointers, ints (the last D), the three host int arrays of the geometry
+# (offsets, strides, cells), ints, the stream (see each entry in csrc/)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEOM = [ctypes.POINTER(ctypes.c_int)] * 3
 _ENTRIES = {
-    "fused_sparse_conv_forward": (SOURCE, [_P] * 8 + [_I] * 5 + _GEOM
-                                  + [_I] * 5 + [_P],
+    "fused_sparse_conv_forward": (SOURCE, [_P] * 8 + [_I] * 6 + _GEOM
+                                  + [_I] * 7 + [_P],
                                   "fused_sparse_conv_error_string"),
-    "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 8 + [_P],
+    "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 10 + [_P],
                                "fused_sparse_conv_error_string"),
-    "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 14 + [_I] * 5 + _GEOM
-                                  + [_I] * 4 + [_P],
+    "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 14 + [_I] * 6 + _GEOM
+                                  + [_I] * 5 + [_P],
                                   "fused_sparse_conv_dw_error_string"),
 }
 
@@ -300,14 +365,13 @@ def _lib(entry: str):
 
 
 def _check_operands(dev, compute_dtype, offs, k, *named):
-    if compute_dtype != torch.bfloat16:
+    if not kernel_domain(compute_dtype, offs.shape[1]):
         raise NotImplementedError(
-            f"the CUDA fused conv computes in bfloat16, not {compute_dtype}")
-    if offs.shape[1] != 3:
-        raise NotImplementedError("the CUDA fused conv takes 3-D grids")
+            f"the CUDA fused conv computes in {COMPUTE_DTYPES} on grids of D "
+            f"in {NDIMS}, not {compute_dtype} on D = {offs.shape[1]}")
     if not 1 <= k <= MAX_K or offs.shape[0] != k:
         raise ValueError(f"kernel volume {k} (offsets {offs.shape[0]}) "
-                         f"outside 1..{MAX_K}")
+                         f"outside 1..{MAX_K} a launch")
     for name, t, dt in named:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on "
@@ -318,14 +382,15 @@ _GEOMETRY_ARGS: dict = {}
 
 
 def _geometry_args(offs, s_in, cells):
-    """The geometry as the kernels' host arrays, made once per geometry."""
-    key = (offs.tobytes(), tuple(s_in), tuple(cells))
+    """(D, and the geometry as the kernels' host arrays: offsets [K·D],
+    strides [D], cells [D]), made once per geometry."""
+    key = (offs.tobytes(), offs.shape, tuple(s_in), tuple(cells))
     args = _GEOMETRY_ARGS.get(key)
     if args is None:
-        k = offs.shape[0]
-        c_int3 = ctypes.c_int * 3
-        args = ((ctypes.c_int * (3 * k))(*offs.reshape(-1).tolist()),
-                c_int3(*s_in), c_int3(*cells))
+        k, d = offs.shape
+        c_intd = ctypes.c_int * d
+        args = (d, (ctypes.c_int * (d * k))(*offs.reshape(-1).tolist()),
+                c_intd(*s_in), c_intd(*cells))
         if len(_GEOMETRY_ARGS) >= 1024:
             _GEOMETRY_ARGS.clear()
         _GEOMETRY_ARGS[key] = args
@@ -336,76 +401,94 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def tile_shape(cin: int, cout: int) -> tuple:
-    """(BN, BK) of the forward kernel's instantiation: the Cout tile (32,
-    64 or 128) and the Cin chunk (16, 32 or 64), the smallest that hold
-    Cout and the 8-padded Cin, up to 128 and 64."""
+def tile_shape(cin: int, cout: int, terms: tuple = (1, 1)) -> tuple:
+    """(BN, BK) of the kernels' GEMM tile (B1/B2, and B4/B7's): the Cout
+    tile (32, 64 or 128) and the Cin chunk (16, 32 or 64), the smallest
+    that hold Cout and the 8-padded Cin, up to 128 and 64; with split
+    ``terms`` (TA, TB) the Cin chunk is cut to 32 where the weight has
+    three terms and to 16 where the features do too, so that a ring stage
+    stays within 32 KB."""
     bn = next((n for n in (32, 64) if cout <= n), 128)
     bk = next((k for k in (16, 32) if _round_up(cin, 8) <= k), 64)
+    if terms[0] > 1:
+        bk = 16
+    elif terms[1] > 1:
+        bk = min(bk, 32)
     return bn, bk
 
 
-def pad_features(features: torch.Tensor) -> torch.Tensor:
+def _with_terms(x: torch.Tensor, terms: int) -> torch.Tensor:
+    """``x`` [terms, ...], or ``x[0]`` with one term."""
+    return x[0] if terms == 1 else x
+
+
+def pad_features(features: torch.Tensor, terms: int = 1) -> torch.Tensor:
     """The forward kernel's features as its cast pass makes them once per
     call (this is that pass's plain version): bf16 [N, CinF], CinF = Cin
     rounded up to 8 (one 16-byte copy per 8 channels), the channels past
-    Cin zero."""
+    Cin zero; with split ``terms``, ``split_terms`` of the features, [terms,
+    N, CinF]."""
     n, cin = features.shape
-    cinf = _round_up(cin, 8)
-    out = torch.zeros((n, cinf), dtype=torch.bfloat16,
+    out = torch.zeros((terms, n, _round_up(cin, 8)), dtype=torch.bfloat16,
                       device=features.device)
-    out.narrow(1, 0, cin).copy_(features)
-    return out
+    out[:, :, :cin] = split_terms(features, terms)
+    return _with_terms(out, terms)
 
 
 def pack_weight(kernel: torch.Tensor, transpose: bool, bn: int,
-                bk: int) -> torch.Tensor:
+                bk: int, terms: int = 1) -> torch.Tensor:
     """The forward kernel's weight as its cast pass makes it once per call
     (this is that pass's plain version): bf16 [K, CinW, CoutP] with ``W =
     kernel`` ([K, Cin, Cout]) or, for dF (``transpose``), ``W = kernelᵀ``
     per offset (``kernel`` the forward's [K, Cout, Cin]), zero-padded to
-    CinW = Cin rounded up to ``bk`` and CoutP = Cout rounded up to
-    ``bn``."""
+    CinW = Cin rounded up to ``bk`` and CoutP = Cout rounded up to ``bn``;
+    with split ``terms``, ``split_terms`` of W, [terms, K, CinW, CoutP]."""
     w = kernel.transpose(1, 2) if transpose else kernel
     k, cin, cout = w.shape
-    out = torch.zeros((k, _round_up(cin, bk), _round_up(cout, bn)),
+    out = torch.zeros((terms, k, _round_up(cin, bk), _round_up(cout, bn)),
                       dtype=torch.bfloat16, device=w.device)
-    out.narrow(1, 0, cin).narrow(2, 0, cout).copy_(w)
-    return out
+    out[:, :, :cin, :cout] = split_terms(w, terms)
+    return _with_terms(out, terms)
 
 
 def _cast_buffers(n_in: int, cin: int, cout: int, k: int, bn: int, bk: int,
-                  dev) -> tuple:
-    """Uninitialised bf16 buffers for the cast pass: the features [N_in,
-    CinF] and the weight [K, CinW, CoutP] (see ``pad_features``,
+                  terms: tuple, dev) -> tuple:
+    """Uninitialised bf16 buffers for the cast pass: the features [TA,
+    N_in, CinF] and the weight [TB, K, CinW, CoutP] (see ``pad_features``,
     ``pack_weight``)."""
-    return (torch.empty((n_in, _round_up(cin, 8)), dtype=torch.bfloat16,
-                        device=dev),
-            torch.empty((k, _round_up(cin, bk), _round_up(cout, bn)),
-                        dtype=torch.bfloat16, device=dev))
+    return (torch.empty((terms[0], n_in, _round_up(cin, 8)),
+                        dtype=torch.bfloat16, device=dev),
+            torch.empty((terms[1], k, _round_up(cin, bk),
+                         _round_up(cout, bn)), dtype=torch.bfloat16,
+                        device=dev))
 
 
 def _launch_cast(features: torch.Tensor, kernel: torch.Tensor,
-                 transpose: bool = False) -> tuple:
+                 transpose: bool = False,
+                 compute_dtype=torch.bfloat16) -> tuple:
     """The cast pass alone on the card (B1's launch runs it itself): the
-    bf16 features and weight that ``pad_features`` and ``pack_weight``
-    define, for the card test that holds them equal."""
+    bf16 features and weight (their terms, for float32 compute) that
+    ``pad_features`` and ``pack_weight`` define, for the card test that
+    holds them equal."""
     dev = features.device
     k, cin, cout = kernel.shape
     if transpose:
         cin, cout = cout, cin
-    bn, bk = tile_shape(cin, cout)
-    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, dev)
+    terms = operand_terms(compute_dtype, kernel.dtype == torch.bfloat16)
+    bn, bk = tile_shape(cin, cout, terms)
+    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, terms,
+                           dev)
     fn, err = _lib("fused_sparse_conv_cast")
     stream, guard = stream_guard(dev)
     with guard:
         rc = fn(features.data_ptr(), kernel.data_ptr(), fb.data_ptr(),
                 wp.data_ptr(), features.shape[0], cin, cout, k, bn, bk,
-                int(transpose), int(kernel.dtype == torch.bfloat16), stream)
+                *terms, int(transpose), int(kernel.dtype == torch.bfloat16),
+                stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_cast launch failed: " +
                            err(rc).decode())
-    return fb, wp
+    return _with_terms(fb, terms[0]), _with_terms(wp, terms[1])
 
 
 def _launch(features: torch.Tensor, kernel: torch.Tensor,
@@ -415,15 +498,18 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
             stage: str = "full") -> torch.Tensor:
     """Check the operands, allocate the output and the bf16 operand
     buffers, and launch ``fused_sparse_conv.cu`` on PyTorch's current
-    stream: its operand cast (``pad_features``, ``pack_weight``), then the
-    conv (B1; B2 with ``transpose_weight``, where ``kernel`` is the
-    forward's [K, Cout, Cin] weight, cast transposed; B8/B9 with ``stage``
-    other than ``full``).  The weight is float32, or bf16 where the
+    stream: its operand cast (``pad_features``, ``pack_weight``; their
+    split terms for float32 compute, ``operand_terms``), then the conv
+    (B1; B2 with ``transpose_weight``, where ``kernel`` is the forward's
+    [K, Cout, Cin] weight, cast transposed; B8/B9 with ``stage`` other than
+    ``full``, bf16 compute).  The weight is float32, or bf16 where the
     parameters are stored in bf16.  Counts nothing: the wrappers do."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
-    if transpose_weight and stage != "full":
-        raise ValueError("the cut stages take the forward's weight")
+    if stage != "full" and (transpose_weight or
+                            compute_dtype != torch.bfloat16):
+        raise ValueError("the cut stages take the forward's weight and "
+                         "bf16 compute")
     dev = features.device
     if transpose_weight:
         k, cout, cin = kernel.shape
@@ -439,15 +525,20 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
                     ("in_keys", in_keys, torch.int32),
                     ("out_coords", out_coords, torch.int32),
                     ("out_valid", out_valid, torch.bool))
-    if features.shape[1] != cin or in_keys.shape[0] != features.shape[0]:
-        raise ValueError("features/kernel/in_keys shapes disagree")
+    if (features.shape[1] != cin or in_keys.shape[0] != features.shape[0]
+            or out_coords.shape[1:] != (1 + offs.shape[1],)):
+        raise ValueError("features/kernel/in_keys/out_coords shapes "
+                         "disagree")
     out = torch.empty((n_out, cout), dtype=torch.float32, device=dev)
     if n_out == 0 or cout == 0:
         return out
     if cin == 0 or features.shape[0] == 0:
         return out.zero_()
-    bn, bk = tile_shape(cin, cout)
-    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, dev)
+    w_bf16 = kernel.dtype == torch.bfloat16
+    terms = operand_terms(compute_dtype, w_bf16)
+    bn, bk = tile_shape(cin, cout, terms)
+    fb, wp = _cast_buffers(features.shape[0], cin, cout, k, bn, bk, terms,
+                           dev)
     fn, err = _lib("fused_sparse_conv_forward")
     stream, guard = stream_guard(dev)
     with guard:
@@ -455,7 +546,7 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
                 wp.data_ptr(), in_keys.data_ptr(), out_coords.data_ptr(),
                 out_valid.data_ptr(), out.data_ptr(), features.shape[0],
                 n_out, cin, cout, k, *_geometry_args(offs, s_in, cells), bn,
-                bk, int(transpose_weight), int(kernel.dtype == torch.bfloat16),
+                bk, *terms, int(transpose_weight), int(w_bf16),
                 STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_forward launch failed: "
@@ -469,15 +560,16 @@ _DW_BUFFERS = ("fb", "gb", "map", "cnt", "off", "pair_in", "pair_out",
 
 @functools.lru_cache(maxsize=256)
 def _dw_workspace(n_in: int, n_out: int, cin: int, cout: int, k: int,
-                  splits: int) -> tuple:
+                  splits: int, terms: int = 1) -> tuple:
     """(byte offset of each of B3's buffers, in ``_DW_BUFFERS``' order, in
-    one workspace; its size): fb bf16 [N_in, CinF], gb bf16 [N_out, CoutF]
-    (``dw_operands``), the match map [K, N_out], the counts [K, row
-    blocks] and their prefix sums [K · row blocks + 1], the pair lists
-    [K · N_out] each (int32), and the float32 partials [S, K, Cin, Cout]
-    where S > 1; each 256-byte aligned."""
+    one workspace; its size): fb bf16 [terms, N_in, CinF], gb bf16 [terms,
+    N_out, CoutF] (``dw_operands``), the match map [K, N_out], the counts
+    [K, row blocks] and their prefix sums [K · row blocks + 1], the pair
+    lists [K · N_out] each (int32), and the float32 partials [S, K, Cin,
+    Cout] where S > 1; each 256-byte aligned."""
     rb = -(-n_out // DW_ROWS)
-    sizes = (2 * n_in * _round_up(cin, 8), 2 * n_out * _round_up(cout, 8),
+    sizes = (2 * terms * n_in * _round_up(cin, 8),
+             2 * terms * n_out * _round_up(cout, 8),
              4 * k * n_out, 4 * k * rb, 4 * (k * rb + 1), 4 * k * n_out,
              4 * k * n_out, 4 * splits * k * cin * cout if splits > 1 else 0)
     offsets, at = [], 0
@@ -494,8 +586,9 @@ def _run_dkernel(features: torch.Tensor, g: torch.Tensor,
                  stage: str) -> tuple:
     """Check the operands, allocate the workspace and launch
     ``fused_sparse_conv_dw.cu``'s passes up to ``stage`` on PyTorch's
-    current stream, writing dW into ``dw`` (``full``).  Returns (workspace,
-    its offsets, S), or None where an operand is empty (nothing
+    current stream, writing dW into ``dw`` (``full``); float32 compute
+    splits f and g into three bf16 terms each.  Returns (workspace, its
+    offsets, the terms), or None where an operand is empty (nothing
     launched)."""
     dev = features.device
     k = offs.shape[0]
@@ -506,13 +599,15 @@ def _run_dkernel(features: torch.Tensor, g: torch.Tensor,
                     ("in_keys", in_keys, torch.int32),
                     ("out_coords", out_coords, torch.int32),
                     ("out_valid", out_valid, torch.bool))
-    if in_keys.shape[0] != n_in or out_coords.shape[0] != n_out:
+    if (in_keys.shape[0] != n_in or out_coords.shape[0] != n_out or
+            out_coords.shape[1:] != (1 + offs.shape[1],)):
         raise ValueError("features/g/keys/coords shapes disagree")
     if 0 in (n_in, n_out, cin, cout):
         return None
-    bi, bo, _ = dw_tile_shape(cin, cout)
-    splits = dw_splits(n_out, cin, cout, k)
-    offsets, size = _dw_workspace(n_in, n_out, cin, cout, k, splits)
+    terms = operand_terms(compute_dtype)[0]
+    bi, bo, _ = dw_tile_shape(cin, cout, terms)
+    splits = dw_splits(n_out, cin, cout, k, terms)
+    offsets, size = _dw_workspace(n_in, n_out, cin, cout, k, splits, terms)
     ws = torch.empty(size, dtype=torch.uint8, device=dev)
     base = ws.data_ptr()
     bufs = [base + o for o in offsets]
@@ -524,12 +619,12 @@ def _run_dkernel(features: torch.Tensor, g: torch.Tensor,
         rc = fn(features.data_ptr(), g.data_ptr(), in_keys.data_ptr(),
                 out_coords.data_ptr(), out_valid.data_ptr(),
                 None if dw is None else dw.data_ptr(), *bufs, n_in, n_out,
-                cin, cout, k, *_geometry_args(offs, s_in, cells), bi, bo,
-                splits, DW_STAGES.index(stage), stream)
+                cin, cout, k, *_geometry_args(offs, s_in, cells), terms, bi,
+                bo, splits, DW_STAGES.index(stage), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_dkernel launch failed: " +
                            err(rc).decode())
-    return ws, offsets, splits
+    return ws, offsets, terms
 
 
 def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
@@ -551,15 +646,17 @@ def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
 def _launch_dkernel_passes(features: torch.Tensor, g: torch.Tensor,
                            in_keys: torch.Tensor, out_coords: torch.Tensor,
                            out_valid: torch.Tensor, offs: np.ndarray, s_in,
-                           cells, stage: str) -> tuple:
+                           cells, stage: str,
+                           compute_dtype=torch.bfloat16) -> tuple:
     """B3's passes alone on the card, for the card tests that hold them
     equal to their plain versions: ``cast`` gives (fb, gb) as
-    ``dw_operands``; ``pairs`` (starts, pair_in, pair_out) as
-    ``pair_list``."""
+    ``dw_operands`` (with its terms for float32 compute); ``pairs``
+    (starts, pair_in, pair_out) as ``pair_list``."""
     if stage not in DW_STAGES[1:]:
         raise ValueError(f"stage {stage!r} not in {DW_STAGES[1:]}")
-    ws, at, _ = _run_dkernel(features, g, in_keys, out_coords, out_valid,
-                             offs, s_in, cells, torch.bfloat16, None, stage)
+    ws, at, terms = _run_dkernel(features, g, in_keys, out_coords, out_valid,
+                                 offs, s_in, cells, compute_dtype, None,
+                                 stage)
     (n_in, cin), (n_out, cout) = features.shape, g.shape
 
     def view(name, dtype, *shape):
@@ -567,8 +664,10 @@ def _launch_dkernel_passes(features: torch.Tensor, g: torch.Tensor,
         return ws.narrow(0, at[_DW_BUFFERS.index(name)], n).view(
             dtype).view(shape)
     if stage == "cast":
-        return (view("fb", torch.bfloat16, n_in, _round_up(cin, 8)),
-                view("gb", torch.bfloat16, n_out, _round_up(cout, 8)))
+        return (_with_terms(view("fb", torch.bfloat16, terms, n_in,
+                                 _round_up(cin, 8)), terms),
+                _with_terms(view("gb", torch.bfloat16, terms, n_out,
+                                 _round_up(cout, 8)), terms))
     rb = -(-n_out // DW_ROWS)
     k = offs.shape[0]
     starts = view("off", torch.int32, k * rb + 1)[::rb].clone()

@@ -10,7 +10,10 @@ with three implementations:
   ``_launch_dw``, ``onehot_conv.launch_map_conv``), so that whoever wraps a
   launcher sees every launch, also those made from an exported program.
   The launch counters (``fused_sparse_conv.launches`` and the others) are
-  counted here, where the kernel launches, and nowhere else;
+  counted here, where the kernel launches, and nowhere else.  The fused
+  conv's three operators launch once per band of at most
+  ``fused_conv.MAX_K`` offsets (``fused_conv.offset_bands``), each launch
+  counted;
 - **CPU**: the kernel's plain PyTorch version;
 - **fake**: the output's shape and dtype, for tracing.
 
@@ -102,17 +105,32 @@ def _geometry(offs, stride, cells) -> tuple:
     return _offsets(tuple(offs), len(stride)), tuple(stride), list(cells)
 
 
+def _bands(offs, stride, kernel=None) -> list:
+    """(flat offsets, the weight's rows) of each launch of a fused conv:
+    the bands of ``fused_conv.offset_bands``.  A one-band conv passes the
+    weight itself, no view of it."""
+    d = len(stride)
+    bands = fc.offset_bands(len(offs) // d)
+    if len(bands) == 1:
+        return [(offs, kernel)]
+    return [(offs[k0 * d:k1 * d], None if kernel is None else kernel[k0:k1])
+            for k0, k1 in bands]
+
+
 # -- B1 (fused_conv) with B2 and B3 as its backward ---------------------------
 
 
 def _fused_cuda(features, kernel, in_keys, in_coords, in_valid, out_keys,
                 out_coords, out_valid, offs, in_stride, in_extent, out_stride,
                 out_extent, compute_dtype):
-    geo = _geometry(offs, in_stride, _cells(in_extent, in_stride))
-    out = fc._launch(features, kernel, in_keys, out_coords, out_valid, *geo,
-                     compute_dtype)
-    if out.numel() and features.numel():  # an empty conv launches nothing
-        fc.fused_sparse_conv.launches += 1
+    cells = _cells(in_extent, in_stride)
+    out = None
+    for band, w in _bands(offs, in_stride, kernel):  # summed in offset order
+        part = fc._launch(features, w, in_keys, out_coords, out_valid,
+                          *_geometry(band, in_stride, cells), compute_dtype)
+        if part.numel() and features.numel():  # an empty conv launches nothing
+            fc.fused_sparse_conv.launches += 1
+        out = part if out is None else out.add_(part)
     return out
 
 
@@ -164,11 +182,14 @@ def _fused_backward(ctx, g):
 
 def _dfeatures_cuda(g, kernel, out_keys, in_coords, in_valid, offs,
                     out_stride, out_cells, compute_dtype):
-    out = fc._launch(g, kernel, out_keys, in_coords, in_valid,
-                     *_geometry(offs, out_stride, out_cells), compute_dtype,
-                     transpose_weight=True)
-    if out.numel() and g.numel():
-        fc.fused_conv_dfeatures.launches += 1
+    out = None
+    for band, w in _bands(offs, out_stride, kernel):
+        part = fc._launch(g, w, out_keys, in_coords, in_valid,
+                          *_geometry(band, out_stride, out_cells),
+                          compute_dtype, transpose_weight=True)
+        if part.numel() and g.numel():
+            fc.fused_conv_dfeatures.launches += 1
+        out = part if out is None else out.add_(part)
     return out
 
 
@@ -186,12 +207,14 @@ def _dfeatures_fake(g, kernel, out_keys, in_coords, in_valid, offs,
 
 def _dkernel_cuda(features, g, in_keys, out_coords, out_valid, offs,
                   in_stride, in_cells, compute_dtype):
-    out = fc._launch_dkernel(features, g, in_keys, out_coords, out_valid,
-                             *_geometry(offs, in_stride, in_cells),
-                             compute_dtype)
-    if features.numel() and g.numel():
-        fc.fused_conv_dkernel.launches += 1
-    return out
+    parts = []
+    for band, _ in _bands(offs, in_stride):  # dW's offset bands
+        parts.append(fc._launch_dkernel(
+            features, g, in_keys, out_coords, out_valid,
+            *_geometry(band, in_stride, in_cells), compute_dtype))
+        if features.numel() and g.numel():
+            fc.fused_conv_dkernel.launches += 1
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _dkernel_cpu(features, g, in_keys, out_coords, out_valid, offs,
@@ -345,10 +368,14 @@ def _vdw_fake(volp, gvolp, cin, cout):
 
 
 def _onehot_cuda(features, kernel, nbr_idx, compute_dtype):
-    if compute_dtype != torch.bfloat16:
+    # float32 compute is B7's function: its split-term instantiation
+    sources = {torch.bfloat16: oc.SOURCE, torch.float32: oc.SOURCES[1]}
+    if compute_dtype not in sources:
         raise NotImplementedError(
-            f"the CUDA one-hot conv computes in bfloat16, not {compute_dtype}")
-    out, launched = oc.launch_map_conv(oc.SOURCE, features, kernel, nbr_idx)
+            "the CUDA one-hot conv computes in bfloat16 or float32, not "
+            f"{compute_dtype}")
+    out, launched = oc.launch_map_conv(sources[compute_dtype], features,
+                                       kernel, nbr_idx)
     oc.onehot_sparse_conv.launches += launched
     return out
 

@@ -7,15 +7,18 @@ onehot_conv.py` (the fused conv, its other half, is ``ops/fused_conv.py``):
   ``out_j = Σ_k f[nbr[k, j]] · W_k`` for a precomputed map
   ``nbr_idx int32[K, N_out]`` (-1 = missing), with bf16 operands by default
   and float32 accumulation, the output in the features' dtype.  On the card
-  it launches ``csrc/onehot_sparse_conv.cu``; on the CPU it takes its plain
-  version ``map_conv_plain``.
+  it launches ``csrc/onehot_sparse_conv.cu``; at float32 compute, where its
+  function is B7's (float32 products, the output in the features' dtype),
+  it launches B7's float32-accurate split-term instantiation,
+  ``csrc/pallas_sparse_conv.cu``.  On the CPU it takes its plain version
+  ``map_conv_plain``.
 - B4 and B7 (``ops/pallas_conv.py``) share one CUDA design,
   ``csrc/map_conv.cuh`` (its header states it), launched by
   ``launch_map_conv``: a cast pass into bf16 terms (``split_terms``,
   ``map_conv_operands``), per-offset pair lists from the map
   (``map_pair_list``), a GEMM over exactly the matched pairs into float32
   partials, and a sum of each row's partials in offset order
-  (``_map_conv_pairs_plain``); its tile is ``map_tile_shape``'s, its
+  (``_map_conv_pairs_plain``); its tile is ``tile_shape``'s, its
   offset groups ``map_groups``'.
 - ``onehot_conv`` is JAX's ``custom_vjp`` ``onehot_conv``: forward B4,
   backward ``_xla_backward``, the JAX package's XLA formula (a masked
@@ -46,7 +49,7 @@ import torch
 
 from .conv import mm_f32
 from .coords import SparseGrid
-from .fused_conv import _round_up, tile_shape
+from .fused_conv import _round_up, split_terms, tile_shape
 from ..utils.device import stream_guard
 
 SOURCE = "onehot_sparse_conv.cu"
@@ -102,29 +105,6 @@ MAP_MAX_K = 65535  # offsets (the grids' y dimension)
 MAP_PARTIAL_BYTES = 1 << 30  # the GEMM's fp32 partials, at most
 
 
-def split_terms(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x`` as ``n`` bf16 terms [n, *x.shape], each the round-to-nearest
-    of what the earlier ones left: three hold a float32 value to about
-    2⁻²⁴ of itself (the cast pass's plain version)."""
-    r = x.float()
-    terms = []
-    for _ in range(n):
-        t = r.to(torch.bfloat16)
-        terms.append(t)
-        r = r - t.float()
-    return torch.stack(terms)
-
-
-def map_tile_shape(cin: int, cout: int, terms: tuple) -> tuple:
-    """(BN, BK) of the GEMM: ``fused_conv.tile_shape``'s, with the Cin
-    chunk cut to 32 where the weight has three terms and to 16 where the
-    features do too, so that a ring stage stays within 32 KB."""
-    bn, bk = tile_shape(cin, cout)
-    if terms[0] > 1:
-        bk = 16
-    elif terms[1] > 1:
-        bk = min(bk, 32)
-    return bn, bk
 
 
 def map_groups(n_out: int, cout: int, k: int) -> int:
@@ -176,7 +156,7 @@ def _map_conv_pairs_plain(features: torch.Tensor, kernel: torch.Tensor,
     wterm_b[k]``, then every output row's partials added offset by offset
     to a float32 sum, ``group`` offsets at a time → the features'
     dtype."""
-    bn, bk = map_tile_shape(features.shape[1], kernel.shape[2], terms)
+    bn, bk = tile_shape(features.shape[1], kernel.shape[2], terms)
     fb, wb = map_conv_operands(features, kernel, terms, bn, bk)
     cin, cout = features.shape[1], kernel.shape[2]
     fb, wb = fb[..., :cin].float(), wb[:, :, :cin, :cout].float()
@@ -261,7 +241,7 @@ def _run_map_conv(source: str, features: torch.Tensor, kernel: torch.Tensor,
                              f"{t.dtype} on {t.device}")
     out = torch.empty((n_out, cout), dtype=features.dtype, device=dev)
     terms = MAP_TERMS[source][features.dtype]
-    bn, bk = map_tile_shape(cin, cout, terms)
+    bn, bk = tile_shape(cin, cout, terms)
     if n_out == 0 or cout == 0:
         return out, None, None, (terms, bn, bk)
     if cin == 0 or n == 0 or k == 0:
@@ -340,10 +320,12 @@ def onehot_sparse_conv(features: torch.Tensor, kernel: torch.Tensor,
     whose gradient is ``onehot_conv``'s).
 
     The JAX kernel's Mosaic parameters ``tile``, ``tw`` and ``interpret``
-    are left out: the CUDA kernel's tiles follow ``map_tile_shape``.  CUDA
+    are left out: the CUDA kernel's tiles follow ``tile_shape``.  CUDA
     tensors launch the kernel (up to ``MAP_MAX_K`` offsets, a float32 or
-    bf16 kernel), which computes in bf16 only (another ``compute_dtype``
-    raises); CPU tensors take the plain version in ``compute_dtype``."""
+    bf16 kernel): bf16 compute ``csrc/onehot_sparse_conv.cu``, float32
+    compute the split-term products of ``csrc/pallas_sparse_conv.cu``
+    (another ``compute_dtype`` raises); CPU tensors take the plain version
+    in ``compute_dtype``."""
     return torch.ops.mink_torch.onehot_sparse_conv(features, kernel, nbr_idx,
                                                    compute_dtype)
 

@@ -526,11 +526,14 @@ def enable_brick_conv(flag: bool) -> None:
 
 
 def brick_preferred(spec: KernelSpec, grid: SparseGrid, cin: int, cout: int,
-                    device) -> bool:
-    """Whether a conv of tensors on ``device`` takes the brick route: the
-    gate is on, the tensors are not on the CPU, both widths are ≤ 128 and
-    the conv is ``brick_pallas_applicable``."""
-    if not _BRICK_ENABLED or torch.device(device).type == "cpu":
+                    device, compute_dtype=torch.bfloat16) -> bool:
+    """Whether a conv of tensors on ``device`` at ``compute_dtype`` takes
+    the brick route: the gate is on, the tensors are not on the CPU, the
+    compute dtype is bf16 (the brick kernels' only one; a float32 conv
+    takes the fused route, whose kernels compute float32 too), both widths
+    are ≤ 128 and the conv is ``brick_pallas_applicable``."""
+    if (not _BRICK_ENABLED or torch.device(device).type == "cpu" or
+            compute_dtype != torch.bfloat16):
         return False
     if cin > 128 or cout > 128:
         return False

@@ -2,8 +2,9 @@
 entry points are the modules ``train.vae``, ``train.diffusion``,
 ``train.generalize``, ``train.cond``, ``train.diffusion_cross`` and the
 model zoo's ``train.classification``, ``train.segmentation``,
-``train.reconstruction``, ``train.vqvae`` and ``train.diffusion_dense``
-(imported on demand, so that ``python -m
+``train.reconstruction``, ``train.vqvae`` and ``train.diffusion_dense``,
+and the bf16-vs-float32 check ``train.check_bf16_training`` (imported on
+demand, so that ``python -m
 mink_octtree_stablediffusion_tpu_torch.train.vae`` runs them)."""
 
 from .optim import (AdafactorOptimizer, DiffusionOptimizer,

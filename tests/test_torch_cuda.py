@@ -442,17 +442,29 @@ def test_vae_train_step_on_card_gives_every_parameter_a_gradient():
 
 @pytest.mark.cuda
 def test_kernel_raises_instead_of_falling_back():
-    """On CUDA tensors the wrapper launches the kernel or raises."""
+    """On CUDA tensors the wrapper launches the kernel or raises: float32
+    compute launches B1's float32 variant, K = 343 launches once per band
+    of offsets (125, 125, 93), float16 compute (outside
+    ``kernel_domain``) and float64 features raise, launching nothing."""
     dev = _card()
     g = _grid(dev)
     f = torch.randn(g.capacity, 4, device=dev)
     k = torch.randn(27, 4, 4, device=dev)
     spec = mp.ops.KernelSpec(3, 1, ndim=3)
+    w = fused_conv.fused_sparse_conv
+    before = w.launches
+    mp.ops.fused_sparse_conv(f, k, g, g, spec, compute_dtype=torch.float32)
+    assert w.launches == before + 1
+    cube = mp.ops.KernelSpec(7, 1, ndim=3)
+    mp.ops.fused_sparse_conv(f, torch.randn(343, 4, 4, device=dev), g, g,
+                             cube)
+    assert w.launches == before + 4
     with pytest.raises(NotImplementedError):
         mp.ops.fused_sparse_conv(f, k, g, g, spec,
-                                 compute_dtype=torch.float32)
+                                 compute_dtype=torch.float16)
     with pytest.raises(ValueError):
         mp.ops.fused_sparse_conv(f.double(), k, g, g, spec)
+    assert w.launches == before + 4
 
 
 def _close_to(got, ref):
@@ -797,7 +809,7 @@ def test_map_conv_passes_match_plain(source, dtype):
         fb, wb = onehot_conv._launch_map_conv_passes(source, f, k, m, "cast")
         torch.cuda.synchronize()
         pfb, pwb = onehot_conv.map_conv_operands(
-            f, k, terms, *onehot_conv.map_tile_shape(37, 70, terms))
+            f, k, terms, *onehot_conv.tile_shape(37, 70, terms))
         assert torch.equal(fb, pfb) and torch.equal(wb, pwb)
     got = onehot_conv._launch_map_conv_passes(source, f, k, m, "pairs")
     torch.cuda.synchronize()
@@ -837,8 +849,9 @@ def test_map_conv_offset_groups_are_bit_identical(monkeypatch):
 @pytest.mark.cuda
 def test_map_conv_kernels_empty_maps_and_bad_operands():
     """``N_out = 0`` launches nothing; an all-missing map gives zeros (one
-    launch each); a bad map dtype, a float32 compute dtype for B4 or
-    float64 features raise before any launch."""
+    launch each); a bad map dtype or float64 features raise before any
+    launch; B4 at float32 compute launches (B7's split-term
+    instantiation) and counts as B4."""
     dev = _card()
     f = torch.randn(300, 8, device=dev)
     k = torch.randn(27, 8, 16, device=dev)
@@ -857,9 +870,12 @@ def test_map_conv_kernels_empty_maps_and_bad_operands():
         mp.ops.onehot_sparse_conv(f, k, missing.long())
     with pytest.raises(ValueError):
         pallas_conv.pallas_sparse_conv(f.double(), k, missing)
-    with pytest.raises(NotImplementedError):
-        mp.ops.onehot_sparse_conv(f, k, missing, compute_dtype=torch.float32)
     assert [a - b for a, b in zip(_map_counts(), before)] == [1, 1]
+    out = mp.ops.onehot_sparse_conv(f, k, missing,
+                                    compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.shape == (256, 16) and torch.all(out == 0)
+    assert [a - b for a, b in zip(_map_counts(), before)] == [2, 1]
 
 
 @pytest.mark.cuda
@@ -1051,3 +1067,302 @@ def test_hash_route_equals_sorted_route_on_card():
                              3)
     assert torch.equal(mp.ops.kernel_map(grid, grid, spec).cpu(),
                        mp.ops.kernel_map(cpu_grid, cpu_grid, spec))
+
+
+# -- the fused conv's whole domain: float32 compute, 2-D grids, K > 125 -------
+
+F32_RTOL = 2e-5  # float32 compute vs float32 plain: B7's (``_close_f32``)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,w_bf16", [(1, 8, False), (5, 7, False),
+                                             (96, 130, False),
+                                             (40, 72, True)])
+def test_float32_kernels_match_plain(cin, cout, w_bf16):
+    """B1, B2 and B3 at float32 compute (split terms: (3, 3), or (3, 1) on
+    a bf16 weight) against their float32 plain versions on the four conv
+    kinds; each launches once, and the weight's gradient is B3's dW in the
+    weight's dtype."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 100 + cout)
+    for name, gi, go, spec in _grids(dev):
+        f = (torch.randn(gi.capacity, cin, device=dev, generator=gen) *
+             gi.valid[:, None]).requires_grad_()
+        k = torch.randn(spec.volume, cin, cout, device=dev, generator=gen) \
+            / np.sqrt(spec.volume * cin)
+        if w_bf16:
+            k = k.bfloat16()
+        k.requires_grad_()
+        gout = torch.randn(go.capacity, cout, device=dev, generator=gen) * \
+            go.valid[:, None]
+        counts = [w.launches for w in (fused_conv.fused_sparse_conv,
+                                       fused_conv.fused_conv_dfeatures,
+                                       fused_conv.fused_conv_dkernel)]
+        out = mp.ops.fused_sparse_conv(f, k, gi, go, spec,
+                                       compute_dtype=torch.float32)
+        out.backward(gout)
+        assert [w.launches for w in (fused_conv.fused_sparse_conv,
+                                     fused_conv.fused_conv_dfeatures,
+                                     fused_conv.fused_conv_dkernel)] == [
+            c + 1 for c in counts], name
+        offs, s_in, cells = fused_conv.conv_geometry(gi, spec)
+        f_offs, s_out, f_cells = fused_conv.flipped_geometry(go, offs)
+        kf = k.detach().float()
+        _close_f32(out, fused_conv._fused_sparse_conv_plain(
+            f.detach(), kf, gi.flat_keys(), go.coords, go.valid, offs, s_in,
+            cells, torch.float32))
+        _close_f32(f.grad, fused_conv._fused_sparse_conv_plain(
+            gout, kf.transpose(1, 2), go.flat_keys(), gi.coords, gi.valid,
+            f_offs, s_out, f_cells, torch.float32))
+        # B3's float32 dW, before the autograd formula rounds it to the
+        # weight's dtype
+        dw = fused_conv._launch_dkernel(f.detach(), gout, gi.flat_keys(),
+                                        go.coords, go.valid, offs, s_in,
+                                        cells, torch.float32)
+        ref_dw = fused_conv._dkernel_plain(
+            f.detach(), gout, gi.flat_keys(), go.coords, go.valid, offs,
+            s_in, cells, torch.float32)
+        _close_f32(dw, ref_dw)
+        assert torch.equal(k.grad, dw.to(k.dtype)), name
+
+
+@pytest.mark.cuda
+def test_float32_cast_passes_match_plain():
+    """The float32 cast passes: B1's features and weight (plain and
+    transposed; a bf16 weight as one term) and B3's f and g as three bf16
+    terms each, equal to ``pad_features`` / ``pack_weight`` /
+    ``dw_operands`` with their terms exactly."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f = torch.randn(1000, 33, device=dev, generator=gen)
+    for transpose in (False, True):
+        for w_bf16 in (False, True):
+            k = torch.randn(8, 129 if transpose else 33,
+                            33 if transpose else 129, device=dev,
+                            generator=gen)
+            if w_bf16:
+                k = k.bfloat16()
+            ta, tb = fused_conv.operand_terms(torch.float32, w_bf16)
+            fb, wp = fused_conv._launch_cast(f, k, transpose, torch.float32)
+            torch.cuda.synchronize()
+            bn, bk = fused_conv.tile_shape(33, 129, (ta, tb))
+            assert torch.equal(fb, fused_conv.pad_features(f, ta))
+            assert torch.equal(wp, fused_conv.pack_weight(k, transpose, bn,
+                                                          bk, tb))
+    g = _grid(dev)
+    ops = _b3_case(g, g, mp.ops.KernelSpec(3, 1, ndim=3), 33, 70, 0)
+    fb, gb = fused_conv._launch_dkernel_passes(*ops, "cast", torch.float32)
+    want = fused_conv.dw_operands(*ops[:2], 3)
+    assert torch.equal(fb, want[0]) and torch.equal(gb, want[1])
+
+
+def _grid_2d(dev, n=400, cap=1024, ext=40, bsz=2, seed=0):
+    rng = np.random.RandomState(seed)
+    rows = []
+    for b in range(bsz):
+        c = np.unique(rng.randint(0, ext, (n, 2)), axis=0)
+        rows.append(np.concatenate([np.full((len(c), 1), b, np.int32), c], 1))
+    cpad, valid = mp.ops.pad_to_capacity(np.concatenate(rows), cap)
+    grid, _, _ = mp.ops.make_grid(torch.as_tensor(cpad, device=dev),
+                                  torch.as_tensor(valid, device=dev), cap, 1,
+                                  bsz, extent=(ext, ext))
+    return grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["bf16", "f32"])
+def test_2d_kernels_match_plain(compute):
+    """B1, B2 and B3 on 2-D grids (k3s1, k3s2, k2s2 pinned transpose and
+    generative) against their plain versions: bf16 compute on the same
+    bf16-rounded operands (1e-3·max|ref| + 1e-5), float32 compute on the
+    float32 operands (2e-5·max|ref|)."""
+    dev = _card()
+    cd = torch.bfloat16 if compute == "bf16" else torch.float32
+    g = _grid_2d(dev)
+    g2 = mp.ops.stride_grid(g, 2, 512)
+    s3, t2 = (mp.ops.KernelSpec(3, 2, ndim=2),
+              mp.ops.KernelSpec(2, 2, ndim=2, transpose=True))
+    grown = mp.ops.expand_grid(g2, t2.absolute_offsets(g2.stride),
+                               t2.out_stride(g2.stride), 2048)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, gi, go, spec in (("k3s1", g, g, mp.ops.KernelSpec(3, 1,
+                                                                ndim=2)),
+                               ("k3s2", g, g2, s3), ("k2s2T", g2, g, t2),
+                               ("k2s2G", g2, grown, t2)):
+        f = (torch.randn(gi.capacity, 24, device=dev, generator=gen) *
+             gi.valid[:, None]).requires_grad_()
+        k = (torch.randn(spec.volume, 24, 40, device=dev, generator=gen) /
+             np.sqrt(spec.volume * 24)).requires_grad_()
+        gout = torch.randn(go.capacity, 40, device=dev, generator=gen) * \
+            go.valid[:, None]
+        before = fused_conv.fused_sparse_conv.launches
+        out = mp.ops.fused_sparse_conv(f, k, gi, go, spec, compute_dtype=cd)
+        out.backward(gout)
+        assert fused_conv.fused_sparse_conv.launches == before + 1
+        offs, s_in, cells = fused_conv.conv_geometry(gi, spec)
+        f_offs, s_out, f_cells = fused_conv.flipped_geometry(go, offs)
+        r = (lambda t: t.bfloat16().float()) if compute == "bf16" else \
+            (lambda t: t)
+        fd, kd, gd = r(f.detach()), r(k.detach()), r(gout)
+        refs = (fused_conv._fused_sparse_conv_plain(
+                    fd, kd, gi.flat_keys(), go.coords, go.valid, offs, s_in,
+                    cells, torch.float32),
+                fused_conv._fused_sparse_conv_plain(
+                    gd, kd.transpose(1, 2), go.flat_keys(), gi.coords,
+                    gi.valid, f_offs, s_out, f_cells, torch.float32),
+                fused_conv._dkernel_plain(fd, gd, gi.flat_keys(), go.coords,
+                                          go.valid, offs, s_in, cells,
+                                          torch.float32))
+        for got, ref, kern in zip((out, f.grad, k.grad), refs,
+                                  ("B1", "B2", "B3")):
+            if compute == "bf16":
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                assert err <= 1e-3 * ref.abs().max().item() + 1e-5, (
+                    name, kern, err)
+            else:
+                _close_f32(got, ref)
+
+
+@pytest.mark.cuda
+def test_float32_compute_dtype_on_card_matches_cpu():
+    """``ops.set_default_compute_dtype(torch.float32)`` on CUDA tensors
+    (the float32 arm of ``train.check_bf16_training``): a conv layer's
+    forward and both gradients, and one small VAE train step's BCE, on the
+    card against the CPU, every conv on the fused route."""
+    dev = _card()
+    from mink_octtree_stablediffusion_tpu_torch.train import \
+        check_bf16_training as cb
+    g = _grid(dev)
+    gen = torch.Generator().manual_seed(5)
+    f = torch.randn(g.capacity, 12, generator=gen) * g.valid.cpu()[:, None]
+    conv = mp.nn.SparseConv(12, 20, kernel_size=3, device="cpu")
+    gout = torch.randn(g.capacity, 20, generator=gen)
+    res = {}
+    mp.ops.set_default_compute_dtype(torch.float32)
+    try:
+        for d in ("cpu", dev):
+            c = conv.to(d)
+            c.zero_grad()
+            fi = f.detach().to(d).requires_grad_()
+            x = mp.SparseTensor(grid=mp.SparseGrid(
+                g.coords.to(d), g.valid.to(d), g.stride, g.batch_size,
+                extent=g.extent), features=fi)
+            with mp.nn.record_routes() as routes:
+                out = c(x).features
+            out.backward(gout.to(d))
+            assert [r.branch for r in routes] == ["fused"]
+            res[str(d)] = [t.detach().cpu() for t in (out, fi.grad,
+                                                      c.kernel.grad)]
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    for got, ref in zip(res[str(dev)], res["cpu"]):
+        err = (got - ref).abs().max().item()
+        assert err <= F32_RTOL * ref.abs().max().item(), err
+    bce = {}
+    init = cb.setup(small=True, device="cpu")["vae"].state_dict()
+    eps = torch.randn(64, 4, generator=torch.Generator().manual_seed(1))
+    for d in ("cpu", "cuda"):
+        env = cb.setup(small=True, device=d)
+        env["vae"].load_state_dict(init)  # a seed draws per device
+        out = cb.run_arm(env, torch.float32, 1, 1,
+                         eps=lambda i: eps.to(env["dev"]))
+        assert not out["tf32"]
+        assert "fused" in {r.branch for r in out["routes"]}
+        bce[d] = out["curve"][0][1]
+    assert abs(bce["cuda"] - bce["cpu"]) <= 1e-4 * bce["cpu"]
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` from the checkout's root, as a module."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_2d_cases_on_card_match_cpu():
+    """`tests/test_2d.py`'s two cases on CUDA tensors (the k3 conv on a full
+    6x6 grid through the fused route, a k2 s2 down / transpose up round
+    trip) against the same layers on the CPU, as ``chip_smoke.py``'s domain
+    phase runs them (``domain_2d_cases``): B1 launches once a conv, the
+    round trip's routes fused, within 1e-3·max|ref| + 1e-5 (bf16 compute
+    on both: the card's default, its plain version on the CPU)."""
+    cases = _chip_smoke().domain_2d_cases(mp, _card())
+    assert set(cases) == {"k3_full_6x6", "down_up_round_trip"}
+    assert all(c["ok"] for c in cases.values()), cases
+
+
+@pytest.mark.cuda
+def test_k7_cube_launches_in_offset_bands_on_card():
+    """A k=7 cube (K = 343 > ``MAX_K``) on the card launches B1, B2 and B3
+    once per band of offsets (``offset_bands``: 125, 125, 93; B1/B2 summed
+    in offset order, B3's bands concatenated): forward and both gradients
+    equal the CPU's plain versions within 1e-3·max|ref| + 1e-5 (bf16
+    compute on both)."""
+    dev = _card()
+    g = _grid(dev)
+    gen = torch.Generator().manual_seed(2)
+    conv = mp.nn.SparseConv(6, 10, kernel_size=7, device="cpu")
+    f = torch.randn(g.capacity, 6, generator=gen) * g.valid.cpu()[:, None]
+    gout = torch.randn(g.capacity, 10, generator=gen)
+    wrappers = (fused_conv.fused_sparse_conv, fused_conv.fused_conv_dfeatures,
+                fused_conv.fused_conv_dkernel)
+    res = {}
+    mp.ops.set_default_compute_dtype(torch.bfloat16)
+    try:
+        for d in ("cpu", dev):
+            c = conv.to(d)
+            c.zero_grad()
+            fi = f.detach().to(d).requires_grad_()
+            x = mp.SparseTensor(grid=mp.SparseGrid(
+                g.coords.to(d), g.valid.to(d), g.stride, g.batch_size,
+                extent=g.extent), features=fi)
+            before = [w.launches for w in wrappers]
+            with mp.nn.record_routes() as routes:
+                out = c(x).features
+            out.backward(gout.to(d))
+            assert [r.branch for r in routes] == ["fused"]
+            after = [w.launches for w in wrappers]
+            if d == dev:
+                assert [a - b for a, b in zip(after, before)] == [3] * 3
+            res[str(d)] = [t.detach().cpu() for t in (out, fi.grad,
+                                                      c.kernel.grad)]
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+    for got, want in zip(res[str(dev)], res["cpu"]):
+        _close_to(got, want)
+
+
+@pytest.mark.cuda
+def test_brick_gate_sends_float32_to_the_fused_kernel():
+    """With the brick gate on, a k3 s1 conv at bf16 compute takes the
+    brick route (B5) and at float32 the fused route, launching B1's
+    float32 variant, where the brick kernels would raise."""
+    dev = _card()
+    g = _grid(dev, n=900, cap=2048, ext=16)
+    conv = mp.nn.SparseConv(32, 32, kernel_size=3, device=dev)
+    x = mp.SparseTensor(grid=g, features=torch.randn(
+        g.capacity, 32, device=dev) * g.valid[:, None])
+    mp.ops.enable_brick_conv(True)
+    try:
+        for cd, branch in ((torch.bfloat16, "brick"),
+                           (torch.float32, "fused")):
+            conv.compute_dtype = cd
+            before = (vol_conv.vol_conv_tiles.launches,
+                      fused_conv.fused_sparse_conv.launches)
+            with mp.nn.record_routes() as routes:
+                conv(x)
+            torch.cuda.synchronize()
+            assert [r.branch for r in routes] == [branch]
+            after = (vol_conv.vol_conv_tiles.launches,
+                     fused_conv.fused_sparse_conv.launches)
+            assert [a - b for a, b in zip(after, before)] == (
+                [1, 0] if branch == "brick" else [0, 1])
+    finally:
+        mp.ops.enable_brick_conv(False)

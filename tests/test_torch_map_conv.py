@@ -83,11 +83,11 @@ def test_split_terms_reproduce_float32():
 def test_map_conv_operands_layout(terms):
     """The cast pass's operands: the features' terms [TA, N, CinF] and the
     weight's [TB, K, CinW, CoutP], the split terms of each value in place,
-    zero in the padding, at ``map_tile_shape``'s tile."""
+    zero in the padding, at ``tile_shape``'s tile."""
     rng = np.random.RandomState(2)
     f = torch.as_tensor(rng.randn(50, 37).astype(np.float32))
     w = torch.as_tensor(rng.randn(8, 37, 70).astype(np.float32))
-    bn, bk = oc.map_tile_shape(37, 70, terms)
+    bn, bk = oc.tile_shape(37, 70, terms)
     fb, wb = oc.map_conv_operands(f, w, terms, bn, bk)
     assert fb.shape == (terms[0], 50, 40)
     assert wb.shape == (terms[1], 8, -(-37 // bk) * bk, 128)
@@ -100,15 +100,15 @@ def test_map_conv_operands_layout(terms):
 
 
 def test_tile_and_group_rules():
-    """``map_tile_shape``: B1's (BN, BK), the Cin chunk cut to 32 with three
+    """``tile_shape``: B1's (BN, BK), the Cin chunk cut to 32 with three
     weight terms and to 16 with three feature terms; ``map_groups``: the
     partials of a group (at most N_out pairs an offset) within
     ``MAP_PARTIAL_BYTES``, at least one offset, at most K; the terms of
     each source and dtype."""
-    assert oc.map_tile_shape(3, 32, (1, 1)) == (32, 16)
-    assert oc.map_tile_shape(512, 512, (1, 1)) == (128, 64)
-    assert oc.map_tile_shape(512, 512, (1, 3)) == (128, 32)
-    assert oc.map_tile_shape(512, 512, (3, 3)) == (128, 16)
+    assert oc.tile_shape(3, 32, (1, 1)) == (32, 16)
+    assert oc.tile_shape(512, 512, (1, 1)) == (128, 64)
+    assert oc.tile_shape(512, 512, (1, 3)) == (128, 32)
+    assert oc.tile_shape(512, 512, (3, 3)) == (128, 16)
     assert oc.map_groups(32768, 32, 27) == 27
     assert oc.map_groups(16384, 512, 27) == 27
     assert oc.map_groups(16384, 512, 343) == 32
