@@ -65,7 +65,11 @@ read just after:
   carries a gradient, B6/B3 and the dF pass/B2; each step's lr must equal
   ``warmup_cosine``'s; the denoise loss of step 10 must be below step
   1's.  Before the steps, step 1 runs with the gate off and then on
-  (``gate_compare``, with its planted fault).
+  (``gate_compare``, with its planted fault), and again at float32
+  compute, where the gate moves the convs from B1-f32 to B5-f32 (dF-f32,
+  B6-f32): the loss within 1e-5 and every gradient's relative RMS within
+  1e-4 of the gate-off run's, the planted fault outside them, and the
+  same off against on on a second (timesteps, noise) draw.
 - **canvas and conditioned training** — ``canvas_train_phase``: at the
   canvas path's widths on a batch of 4 `ProceduralShapes` (32,768
   points, ``composite_prob`` 0.25): 10 canvas VAE steps
@@ -94,8 +98,8 @@ read just after:
   in a gloo group (NCCL refuses two ranks on one device), 2 shapes a
   rank: (a) the VAE above with SyncBN, one step with the same batch on
   both ranks against one process's step within a bf16 rounding control,
-  then 3 steps on distinct batches; (b) diffusion training as above, 2
-  steps; (c) one generation request a rank from its own generator, the
+  then 3 steps on distinct batches; (b) diffusion training as above, 1
+  step; (c) one generation request a rank from its own generator, the
   shards gathered through the host, distinct, each equal to this
   process's request with that generator; (d) ``multigpu_dp``'s ResNet14
   at full width, 2 steps.  After every training step the replicas must
@@ -134,6 +138,18 @@ read just after:
   and B3 and no plain route, and each variant is held against its float32
   plain version within ``B7_F32_RTOL``·max|ref| at every launch shape;
   B4 at float32 on the library path's three workloads (``library_phase``).
+- **float32 brick** — in ``precision_phase``: the float32 arm's first
+  ``BRICK_F32_STEPS`` steps again with the brick gate on, from the same
+  weights and batches (B5-f32, dF-f32 and B6-f32 at the level-0 32→32
+  convs, 64³ × 4 cells), each step's loss within ``BRICK_F32_LOSS_RTOL``
+  of the gate-off arm's.
+- **quality and diagnosis** — ``quality_phase``: `train.e2e_quality`,
+  `train.vqvae_quality` (overfit, then ``--stream``),
+  `train.diag_eval_decode` and `train.measure_occupancy` through their
+  ``main`` at their scripts' full-width runs, steps cut (see there); their
+  JSON keys, finite values, IoUs in [0, 1], the e2e VAE loss falling,
+  launches equal to the routes, no plain route; step walls, busy share and
+  peak memory.
 - **the fused conv's domain** — ``domain_phase``: `tests/test_2d.py`'s
   two cases on the card against the CPU, a 2-D k3 conv on 4 x 256 x 256
   rows (64→64, forward and both gradients: B1, B2, B3 in 2-D against
@@ -200,7 +216,9 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # what TF32 (10-bit mantissa) or bf16 rounding of the operands gives
 B7_F32_RTOL = 2e-5
 RES, BATCH, CAP, STEPS = 128, 4, 65536, 8
-SERVE_STEPS = 2  # the serve phase's DDIM steps (its graph grows with them)
+# the serve phase's DDIM steps: its exported graph, and so its export and
+# load seconds, grow with them (2 until the quality phase needed the time)
+SERVE_STEPS = 1
 VAE_CH, UNET_CH, GROUP = (32, 128, 512, 512, 4), (4, 320, 640, 960), 32
 DEVICE = "cuda"
 # The decoder's per-level top-k clamp (`VAE.max_keep`).  Random occupancy
@@ -240,7 +258,17 @@ CANVAS_POINTS, CANVAS_TRAIN_STEPS = 32768, 10
 # VAE 6.6e-5, 0.019, 0.034; diffusion 1.9e-5, 0.078, 0.33
 GATE_TOL = {"vae": {"loss": 1e-3, "grad_median": 0.05, "grad_max": 1.0},
             "diffusion": {"loss": 1e-3, "grad_median": 0.25,
-                          "grad_max": 1.0}}
+                          "grad_max": 1.0},
+            # float32 compute: the brick route's split-term kernels against
+            # the fused route's, both float32-accurate.  Measured on the
+            # H100 (80GB HBM3, 700 W): loss 1.6e-7, gradients' relative RMS
+            # median 4.9e-5 / 5.5e-5 (two draws), worst 6.4e-4 / 2.5e-3, an
+            # instance norm's weight or bias whose gradient cancels; the
+            # float32 control (the noise moved by 2^-20 of itself) moves
+            # the median by 4.8e-5 and the worst by 2.0e-2, so the worst's
+            # bound is 1e-2; the planted fault moves them by 1.05 and 75
+            "diffusion_f32": {"loss": 1e-5, "grad_median": 1e-4,
+                              "grad_max": 1e-2}}
 # tiny_diffusion_reference's bounds (see there): the loss, card vs CPU,
 # relative; the UNet gradients' median relative RMS against a control's
 TINY_DIFF_LOSS_RTOL, TINY_DIFF_RATIO = 1e-2, 3.0
@@ -589,13 +617,25 @@ def check_brick_launch(mp, kernel, path, key, ops):
     Yardstick
     (``library_ms``): one cuDNN call on a dense, contiguous bf16 copy of
     the volume at the conv's widths, made before the timing: ``F.conv3d``
-    (B5 and the dF pass) or ``torch.nn.grad.conv3d_weight`` (B6)."""
+    (B5 and the dF pass) or ``torch.nn.grad.conv3d_weight`` (B6).
+
+    Float32 volumes (a float32 compute's launch) check the split-term
+    instantiation (the record's kernel ``B5-f32``, ``B5-dF-f32``,
+    ``B6-f32``) against the float32 plain version within
+    ``B7_F32_RTOL``·max|ref|: the bytes count 4 a value, the operations
+    each split product (``compute_args``) at the bf16 peak, and cuDNN's
+    call is float32 with TF32 off."""
     import torch
     import torch.nn.functional as F
     vc = mp.ops.vol_conv
     b, x, y, z = key[:4]
     cells = b * x * y * z
     extra, min_ref = {}, 0.0
+    f32 = ops[0].dtype == torch.float32
+    esz = ops[0].element_size()
+    ca = compute_args(mp, "f32" if f32 else "bf16",
+                      kernel != "B6" and ops[1].dtype == torch.bfloat16)
+    ca.pop("cd")
     if kernel == "B6":
         volp, gvolp, cin, cout = ops
         gvolp, extra["g_rms"] = unit_rms(gvolp)
@@ -608,7 +648,7 @@ def check_brick_launch(mp, kernel, path, key, ops):
             volp, gvolp, cin, cout)
         library = lambda: torch.nn.grad.conv3d_weight(  # noqa: E731
             xin, (cout, cin, 3, 3, 3), gout)
-        nbytes = 2 * cells * (cin + cout) + 4 * 27 * cin * cout
+        nbytes = esz * cells * (cin + cout) + 4 * 27 * cin * cout
         pairs = occupied_pairs(gvolp.ne(0).any(-1), volp.ne(0).any(-1))
         work = pairs
     else:
@@ -624,15 +664,38 @@ def check_brick_launch(mp, kernel, path, key, ops):
         run = lambda: vc._launch(volp, w, mirror)  # noqa: E731
         plain = lambda: vc._vol_conv_plain(volp, w, mirror)  # noqa: E731
         library = lambda: F.conv3d(xin, wl)  # noqa: E731
-        nbytes = 2 * cells * cin + 4 * w.numel() + 4 * cells * cout
+        nbytes = esz * cells * cin + w.element_size() * w.numel() + \
+            4 * cells * cout
         occ = volp.ne(0).any(-1)
         pairs = occupied_pairs(occ, occ)
         work = occupied_pairs(torch.ones_like(occ), occ)
-    return timed_check(kernel, path, "k3s1", run, plain, pairs, cin, cout,
-                       nbytes, min_ref=min_ref, library=library,
-                       work_pairs=work, volume=[b, x, y, z], cells=cells,
-                       forward_shape=list(key), dense_ops_ms=2.0 * 27 *
-                       cells * cin * cout / PEAK_BF16_FLOPS * 1e3, **extra)
+    products = ca["products"]
+    with contextlib.ExitStack() as stack:
+        if f32:
+            stack.enter_context(tf32_off())
+        return timed_check(
+            kernel + ("-f32" if f32 else ""), path, "k3s1", run, plain,
+            pairs, cin, cout, nbytes, min_ref=min_ref, library=library,
+            flops=2.0 * cin * cout * work * products, volume=[b, x, y, z],
+            cells=cells, forward_shape=list(key),
+            dense_ops_ms=2.0 * 27 * cells * cin * cout * products /
+            PEAK_BF16_FLOPS * 1e3, compute="f32" if f32 else "bf16",
+            **ca, **extra)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """cuDNN and cuBLAS in float32 without TF32 inside the block."""
+    import torch
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
 
 
 def extra_cases(mp, st, dev):
@@ -1492,7 +1555,22 @@ def planted_fault(mp):
         vc._launch = launch
 
 
-def gate_compare(mp, label, model, run_loss, cap, restore=None):
+@contextlib.contextmanager
+def compute_dtype(mp, dtype):
+    """The convs' compute dtype inside the block (``None``: the device's
+    default)."""
+    mp.ops.set_default_compute_dtype(dtype)
+    try:
+        yield
+    finally:
+        mp.ops.set_default_compute_dtype(None)
+
+
+GATE_ARMS = ("off", "control", "on", "fault")
+
+
+def gate_compare(mp, label, model, run_loss, cap, restore=None,
+                 compute=None, arms=GATE_ARMS, tol=None):
     """Step 1 of a path with the brick gate off, then off again on an input
     rounded to bf16 (the control), then on, then on with a fault planted
     in the dF pass (``planted_fault``), from the same weights, batch and
@@ -1517,19 +1595,30 @@ def gate_compare(mp, label, model, run_loss, cap, restore=None):
     rounding more than the VAE (its instance norms over the few voxels of
     the coarse levels), so its median bound is wider.  The planted fault
     must fail the same bounds (``fault_detected``), or they are too wide
-    to see a layout fault in the brick route's backward."""
+    to see a layout fault in the brick route's backward.
+
+    With ``compute`` (float32) every arm runs at that compute dtype: the
+    gate then moves the convs from B1-f32 to B5-f32 (and the backward to
+    dF-f32 and B6-f32), float32-accurate on both routes, under the tighter
+    bounds of ``GATE_TOL["diffusion_f32"]``.  ``arms`` runs a subset (the
+    comparison's ``off`` and ``on`` alone on a further draw); ``tol``
+    overrides ``GATE_TOL[label]``."""
     import torch
     got = {}
     for name, gate, perturb in (("off", False, False),
                                 ("control", False, True),
                                 ("on", True, False),
                                 ("fault", True, False)):
+        if name not in arms:
+            continue
         mp.ops.enable_brick_conv(gate)
         if name in ("off", "on"):
             cap.at(f"{label}_gate_{name}", BRICK if gate else ("B1",))
         model.zero_grad(set_to_none=True)
         try:
             with contextlib.ExitStack() as stack:
+                if compute is not None:
+                    stack.enter_context(compute_dtype(mp, compute))
                 if name == "fault":
                     stack.enter_context(planted_fault(mp))
                 routes = stack.enter_context(mp.nn.record_routes())
@@ -1546,8 +1635,7 @@ def gate_compare(mp, label, model, run_loss, cap, restore=None):
             restore()
     model.zero_grad(set_to_none=True)
     (l0, g0, r0), (l1, g1, r1) = got["off"], got["on"]
-    lc, gc, _ = got["control"]
-    tol = GATE_TOL[label]
+    tol = tol or GATE_TOL[label]
 
     def against_off(loss, grads):
         return against(loss, grads, l0, g0)
@@ -1556,20 +1644,21 @@ def gate_compare(mp, label, model, run_loss, cap, restore=None):
         return (d["loss_rel_err"] <= tol["loss"] and
                 d["grad_rel_rms_median"] <= tol["grad_median"] and
                 d["grad_rel_rms_max"] <= tol["grad_max"])
-    on, control = against_off(l1, g1), against_off(lc, gc)
-    fault = against_off(*got["fault"][:2])
+    on = against_off(l1, g1)
+    extra = {name + "_" + k: v for name in ("control", "fault")
+             if name in got for k, v in against_off(*got[name][:2]).items()}
+    fault = against_off(*got["fault"][:2]) if "fault" in got else None
     brick = [r for r in r1 if r.branch == "brick"]
     rec = {"gate_compare": label, "loss_gate_off": l0, "loss_gate_on": l1,
-           **on, **{"control_" + k: v for k, v in control.items()},
-           **{"fault_" + k: v for k, v in fault.items()},
-           "fault_detected": not holds(fault),
+           "compute": str(compute or "default"), **on, **extra,
+           "fault_detected": None if fault is None else not holds(fault),
            "params_with_grad": len(g0),
            "branches_gate_off": dict(Counter(r.branch for r in r0)),
            "branches_gate_on": dict(Counter(r.branch for r in r1)),
            "tol": tol,
            "ok": bool(brick and len(g0) == sum(
                1 for _ in model.parameters() if _.requires_grad) and
-               holds(on) and not holds(fault))}
+               holds(on) and (fault is None or not holds(fault)))}
     emit(rec)
     del got
     return rec, r0, r1
@@ -1594,9 +1683,12 @@ def diffusion_phase(mp, dev, cap) -> dict:
     ``train.diffusion.setup`` with the brick gate on, for ``DIFF_STEPS``
     steps on one fixed batch with one (timesteps, noise) draw and the
     warmup cut to 1 step (``DIFF_FLAGS``).  Before them, step 1 with the
-    gate off and on (``gate_compare``).  ``cap`` keeps step 1's operands of
-    every kernel.  Returns the step records, step 1's routes, the path's
-    launches, the gate comparison, the peak memory and the run."""
+    gate off and on (``gate_compare``), and the same at float32 compute,
+    also on a second draw (``compare_f32``: B5-f32, dF-f32 and B6-f32
+    against the fused route's float32 kernels).  ``cap`` keeps step 1's
+    operands of every kernel.  Returns the step records, step 1's routes,
+    the path's launches, the gate comparisons, the peak memory and the
+    run."""
     import torch
     from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
     cfg = td.parse_args(DIFF_FLAGS)
@@ -1613,6 +1705,9 @@ def diffusion_phase(mp, dev, cap) -> dict:
                       device=dev, dtype=torch.int32)
     noise = torch.randn((mp.serve.capacities(cfg.input_capacity)[0][2],
                          cfg.unet_channel[0]), generator=g, device=dev)
+    t2 = torch.randint(0, cfg.ddpm_num_steps, (cfg.batch_size,), generator=g,
+                       device=dev, dtype=torch.int32)
+    noise2 = torch.randn(noise.shape, generator=g, device=dev)
     model, opt = run.model, run.state.optimizer
     emit({"diffusion_model_built_s": time.perf_counter() - t0,
           "unet_params": sum(p.numel() for p in run.unet.parameters()),
@@ -1624,6 +1719,20 @@ def diffusion_phase(mp, dev, cap) -> dict:
         mp, "diffusion", model, lambda perturb: run.loss_fn(
             model, batch, timesteps=t,
             noise=noise.bfloat16().float() if perturb else noise), cap)
+    # at float32 compute (B1-f32 against B5-f32, dF-f32, B6-f32): step 1's
+    # draw with the planted fault and a float32 control (the noise moved by
+    # 2^-20 of itself, about the split-term kernels' own error), then gate
+    # off against on alone on a second (timesteps, noise) draw
+    compare_f32 = [gate_compare(
+        mp, "diffusion_f32", model, lambda perturb: run.loss_fn(
+            model, batch, timesteps=t,
+            noise=noise * (1.0 + 2.0 ** -20) if perturb else noise), cap,
+        compute=torch.float32)[0], gate_compare(
+        mp, "diffusion_f32_step2", model, lambda perturb: run.loss_fn(
+            model, batch, timesteps=t2, noise=noise2), cap,
+        compute=torch.float32, arms=("off", "on"),
+        tol=GATE_TOL["diffusion_f32"])[0]]
+    torch.cuda.empty_cache()
     schedule = mp.train.warmup_cosine(cfg.lr, cfg.warmup, cfg.total_steps)
     count = counters(mp)
     steps, first_routes, ok = [], None, True
@@ -1684,8 +1793,8 @@ def diffusion_phase(mp, dev, cap) -> dict:
 
     return {"ok": ok and den[-1] < den[0] and all(totals.values()),
             "steps": steps, "routes": first_routes, "launches": totals,
-            "compare": compare, "peak_memory_bytes": peak,
-            "one_more_step": one_more_step}
+            "compare": compare, "compare_f32": compare_f32,
+            "peak_memory_bytes": peak, "one_more_step": one_more_step}
 
 
 def grads_of(model) -> dict:
@@ -3387,7 +3496,9 @@ def tiny_zoo_reference(mp, dev) -> dict:
 # single-process paths.  A rank that stops answering fails the phase after
 # DP_TIMEOUT_S.
 DP_RANKS, DP_BATCH, DP_TIMEOUT_S = 2, 2, 300
-DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 3, 2, 2
+# (DP_DIFF_STEPS 2 until the quality phase needed the time: a step takes
+# 6-8 s of host all-reduce)
+DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 3, 1, 2
 # the earlier paths whose operands main() checks at every launch shape, and
 # their kernels: the DP ranks send back only the shapes not among them
 # the data phase (``data_phase``): a ModelNet40-layout tree of tori of
@@ -3765,15 +3876,239 @@ def _plain_collate(mp, clouds):
     return mp.ops.pad_to_capacity(mp.ops.batched_coordinates_np(vox), CAP)
 
 
+# -- the quality and diagnosis entry points --------------------------------
+# path: (module of train/, argv): each at its script's full-width run, its
+# steps cut (``quality_phase``)
+_VQ_WIDE = ["--resolution", "64", "--points", "32768", "--input_capacity",
+            "65536", "--vae_channel", "32", "128", "512", "512", "4"]
+QUALITY_RUNS = {
+    "quality_e2e": ("e2e_quality", ["--steps_vae", "40", "--steps_diff",
+                                    "40"]),
+    "quality_vqvae": ("vqvae_quality", _VQ_WIDE + ["--steps", "20"]),
+    "quality_vqvae_stream": ("vqvae_quality",
+                             _VQ_WIDE + ["--stream", "--steps", "5"]),
+    "quality_diag": ("diag_eval_decode", ["--steps_vae", "20"]),
+    "quality_occupancy": ("measure_occupancy", []),
+}
+# each phase's step profiled for the busy share: the one after this step
+QUALITY_PROFILE_AFTER = 2
+
+
+class StepProfile:
+    """The device time of one training step inside an entry point's own
+    loop, read between two of its ``on_step`` calls: after step
+    ``QUALITY_PROFILE_AFTER`` of a phase a ``torch.profiler`` session
+    opens (with ``bench_conv.profiled``'s opening markers) and after the
+    next step it closes (its closing markers); a session whose records are
+    not whole, as ``bench_conv.profiled`` judges, is dropped and the next
+    step profiled, up to ``PROFILE_TRIES`` times.  ``busy[phase]`` is the
+    profiled step's device seconds, ``profiled[phase]`` its step."""
+
+    def __init__(self):
+        self.prof = self.phase = None
+        self.busy, self.profiled, self.tries = {}, {}, Counter()
+        self.sessions = []  # (phase, markers opened, closed, rows, busy s)
+
+    def _close(self):
+        import torch
+        from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+        torch.cuda.synchronize()
+        for _ in range(bc.PROFILE_CLOSE):
+            self.closing.fill_(1.0)
+        torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        rows, opened, closed = bc.session_rows(self.prof)
+        self.prof = None
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        self.sessions.append((self.phase, opened, closed, len(rows), busy))
+        return busy if opened and closed == bc.PROFILE_CLOSE else None
+
+    def __call__(self, phase, step):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from mink_octtree_stablediffusion_tpu_torch import bench_conv as bc
+        if self.prof is not None:
+            busy = self._close()
+            if busy is not None and self.phase == phase:
+                self.busy[phase], self.profiled[phase] = busy, step
+            else:
+                self.tries[self.phase] += 1
+        if (phase not in self.busy and step >= QUALITY_PROFILE_AFTER and
+                self.tries[phase] < bc.PROFILE_TRIES):
+            # made before the session: its zero fill is a closing marker
+            self.closing = torch.zeros(1, dtype=torch.complex64,
+                                       device="cuda")
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            for _ in range(bc.PROFILE_OPEN):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            self.phase = phase
+
+    def close(self):
+        if self.prof is not None:
+            self._close()
+
+
+def quality_checks(path, res, walls, losses) -> list:
+    """What an entry point's result must show: its script's JSON keys,
+    finite values, IoUs (and the diag tables' shares) in [0, 1]; for
+    e2e_quality a VAE loss at its last step below step 1's."""
+    keys = {"quality_e2e": {"bce", "reconstruction_iou", "generation_iou"},
+            "quality_vqvae": {"reconstruction_iou", "bce", "vq_loss",
+                              "codebook_perplexity", "active_code_fraction",
+                              "generalize"},
+            "quality_diag": {"eval_table", "train_table", "eval_iou",
+                             "train_iou"},
+            "quality_occupancy": {"mean_voxels_by_stride", "input_capacity",
+                                  "encoder_capacities",
+                                  "decoder_capacities"}}
+    keys["quality_vqvae_stream"] = keys["quality_vqvae"]
+    bad = []
+    if set(res) != keys[path]:
+        bad.append(f"{path}: keys {sorted(res)}")
+    nums = [v for v in res.values() if isinstance(v, float)]
+    shares = [res[k] for k in ("reconstruction_iou", "generation_iou",
+                               "eval_iou", "train_iou",
+                               "active_code_fraction") if k in res]
+    for table in (res[k] for k in ("eval_table", "train_table") if k in res):
+        shares += [r[k] for r in table for k in ("recall", "precision")]
+        if len(table) != 4:
+            bad.append(f"{path}: a table of {len(table)} levels")
+    if not all(math.isfinite(v) for v in nums + shares):
+        bad.append(f"{path}: a value not finite")
+    if not all(0.0 <= v <= 1.0 for v in shares):
+        bad.append(f"{path}: an IoU or share outside [0, 1]")
+    if path == "quality_e2e" and not losses["vae"][-1] < losses["vae"][0]:
+        bad.append(f"{path}: VAE loss of the last step not below step 1's")
+    if path.startswith("quality_vqvae") and not (
+            1.0 <= res["codebook_perplexity"] <= 512.0):
+        bad.append(f"{path}: perplexity outside [1, 512]")
+    if path != "quality_occupancy" and not walls:
+        bad.append(f"{path}: no training step")
+    return bad
+
+
+def quality_phase(mp, dev, cap, power) -> dict:
+    """The four quality and diagnosis entry points through their ``main``
+    (``QUALITY_RUNS``), each with the kernels' counts at 0:
+
+    a. ``train.e2e_quality`` at its defaults, its script's "TPU run"
+       (resolution 32, batch 4, 4,096 points, 8,192 rows, VAE (16, 32, 64,
+       64, 4), UNet (4, 64, 128, 192), 50 DDPM sampling steps), cut to 40
+       VAE and 40 diffusion steps;
+    b. ``train.vqvae_quality`` at its docstring's overfit run (resolution
+       64, 32,768 points, 65,536 rows, VAE (32, 128, 512, 512, 4), 512
+       codes) cut to 20 steps, then ``--stream`` at the same widths, 5
+       steps (batches made on the card);
+    c. ``train.diag_eval_decode`` at its defaults (the same widths), cut
+       to 20 VAE steps: the per-level tables in eval and train mode;
+    d. ``train.measure_occupancy`` at its defaults (resolution 128, batch
+       4, 250,000 points, 16 shells), on the host.
+
+    Each result must hold ``quality_checks``; the launches of each run
+    must equal its routes' (``expected_launches``, the eval passes
+    included), no conv may take the plain route, and d must launch
+    nothing.  ``cap`` keeps the operands of every launch shape (paths
+    ``quality_*``) for the kernel checks.  Prints each run's step walls,
+    each training phase's busy share (one step profiled inside its loop,
+    ``StepProfile``, against the median unprofiled step wall) and the peak
+    memory (beside what the earlier paths still held when it started)."""
+    import importlib
+    import torch
+    failures, out = [], {"routes": {}, "launches": {}, "results": {}}
+    count = counters(mp)
+    t_phase = time.perf_counter()
+    for path, (module, argv) in QUALITY_RUNS.items():
+        mod = importlib.import_module(
+            f"mink_octtree_stablediffusion_tpu_torch.train.{module}")
+        for c in count.values():
+            c.launches = 0
+        walls, losses, prof = {}, {}, StepProfile()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)  # by the earlier paths
+        last = [time.perf_counter()]
+        t0 = last[0]
+
+        def on_step(phase, step, loss, aux):
+            torch.cuda.synchronize()
+            walls.setdefault(phase, []).append(time.perf_counter() - last[0])
+            losses.setdefault(phase, []).append(float(loss))
+            prof(phase, step)
+            last[0] = time.perf_counter()
+        kw = {} if module == "measure_occupancy" else {"on_step": on_step}
+        cap.at(path, FUSED)
+        try:
+            with mp.nn.record_routes() as routes:
+                res = mod.main(argv + ["--device", str(dev)], **kw)
+            torch.cuda.synchronize()
+        finally:
+            cap.at(None)
+            prof.close()
+        run_s = time.perf_counter() - t0
+        launched = {n: c.launches for n, c in count.items()}
+        want = expected_launches(routes)
+        branches = dict(Counter(r.branch for r in routes))
+        busy = {}
+        for phase, ws in walls.items():
+            unprofiled = [w for i, w in enumerate(ws[1:], 2)
+                          if i != prof.profiled.get(phase)]
+            if phase in prof.busy and unprofiled:
+                busy[phase] = prof.busy[phase] / statistics.median(
+                    unprofiled)
+        rec = {"quality_path": path, "argv": argv, "result": res,
+               "run_s": run_s, "step_walls_s": walls,
+               "wall_s_median": {p: statistics.median(ws[1:])
+                                 for p, ws in walls.items() if ws[1:]},
+               "losses_first_last": {p: [ls[0], ls[-1]]
+                                     for p, ls in losses.items()},
+               "device_busy_s": prof.busy, "profiled_step": prof.profiled,
+               "profile_sessions": prof.sessions,
+               "device_busy_share": busy,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+               "memory_held_before_bytes": held,
+               "launches": launched, "expected_launches": want,
+               "branches": branches, "card": power}
+        emit(rec)
+        bad = quality_checks(path, res, walls, losses)
+        if launched != want:
+            bad.append(f"{path}: launches")
+        if "plain" in branches:
+            bad.append(f"{path}: a plain route on the card")
+        if module == "measure_occupancy" and any(launched.values()):
+            bad.append(f"{path}: a launch on the host path")
+        if module != "measure_occupancy" and not launched["B1"]:
+            bad.append(f"{path}: no B1 launch")
+        if set(walls) != set(busy):
+            bad.append(f"{path}: a training phase without a busy share")
+        failures += bad
+        out["routes"][path], out["launches"][path] = routes, launched
+        out["results"][path] = res
+        torch.cuda.empty_cache()
+    emit({"quality_phase_s": time.perf_counter() - t_phase,
+          "failures": failures})
+    out.update(ok=not failures, failures=failures)
+    return out
+
+
 # -- the fused conv's whole domain (float32 compute, 2-D grids, K > 125) --
 # train.check_bf16_training's steps an arm here: cut from its --steps
 # default of 200 so that the script keeps its time limit (at 200 the phase
-# took 102 s and the whole script 1,120 s on the H100); the curves fall
-# from 0.82 to ~0.13 BCE by step 50 in both arms
-PRECISION_STEPS = 50
-# the fused kernels' variants: (module in ops/, wrapper, source, the TPU
-# kernel it replaces), as KERNELS
-VARIANTS = {f"{k}-{v}": KERNELS[k] for v in ("f32", "2d") for k in FUSED}
+# took 102 s and the whole script 1,120 s on the H100; 50 until the
+# quality phase needed the time); the curves fall from 0.82 to ~0.22 BCE
+# by step 30 in both arms (~0.13 by step 50)
+PRECISION_STEPS = 30
+# the fused kernels' variants and the brick kernels' float32 ones: (module
+# in ops/, wrapper, source, the TPU kernel it replaces), as KERNELS
+VARIANTS = {**{f"{k}-{v}": KERNELS[k] for v in ("f32", "2d") for k in FUSED},
+            **{f"{k}-f32": KERNELS[k] for k in BRICK}}
+BRICK_F32 = tuple(f"{k}-f32" for k in BRICK)
+# the float32 arm's steps run again with the brick gate on, each loss
+# within BRICK_F32_LOSS_RTOL (relative) of the gate-off arm's
+BRICK_F32_STEPS, BRICK_F32_LOSS_RTOL = 3, 1e-5
 # the 2-D conv at a real size: 4 instances of a full 256 x 256 grid, 64->64
 DOMAIN_2D = dict(batch=4, side=256, cin=64, cout=64)
 # the k=7 cube: 2 instances of 3,000 random points in a 32^3 extent, 16->16
@@ -3811,6 +4146,14 @@ def precision_phase(mp, dev, cap, power) -> dict:
       (``B1-f32``, ``B2-f32``, ``B3-f32``), the bf16 arm's at bf16 (B1, B2,
       B3, 1e-3·max|ref| + 1e-5), each timed beside its bound and its plain
       version, and summed per step.
+    - The float32 arm's first ``BRICK_F32_STEPS`` steps again from the same
+      weights and batches with the brick gate on (path
+      ``precision_fp32_brick``): the level-0 32→32 convs at 64³ × 4 launch
+      B5-f32, dF-f32 and B6-f32, each step's loss within
+      ``BRICK_F32_LOSS_RTOL`` of the gate-off arm's, and each brick launch
+      shape held against its float32 plain version within
+      ``B7_F32_RTOL``·max|ref|, timed beside its bound, its plain version
+      and cuDNN's float32 call (TF32 off).
 
     Returns ok, the failures, the kernel records by (kernel, path), the
     f32 variants' launches and their times per float32 step."""
@@ -3855,7 +4198,8 @@ def precision_phase(mp, dev, cap, power) -> dict:
                       "wall_s_quartiles": [q[0], q[2]],
                       "device_busy_share": prof["device_busy_share"],
                       "branches_per_step": branches, "launches": launched,
-                      "expected_launches": want, "tf32": out["tf32"]}
+                      "expected_launches": want, "tf32": out["tf32"],
+                      "losses": out["losses"]}
         emit({"precision_arm": name, "card": power, **arms[name]})
         if launched != want:
             failures.append(f"{name} arm launches")
@@ -3871,6 +4215,40 @@ def precision_phase(mp, dev, cap, power) -> dict:
           "tol": 0.15, "curves": curves})
     failures += fails
 
+    # the float32 arm's first steps again with the brick gate on: its k3 s1
+    # convs of <= 128 channels launch B5-f32, dF-f32 and B6-f32
+    path = "precision_fp32_brick"
+    for c in count.values():
+        c.launches = 0
+    cap.at(path, KERNELS)
+    mp.ops.enable_brick_conv(True)
+    try:
+        out = cb.run_arm(env, torch.float32, BRICK_F32_STEPS, 1)
+        torch.cuda.synchronize()
+    finally:
+        mp.ops.enable_brick_conv(False)
+        cap.at(None)
+    launched = {n: count[n].launches for n in KERNELS}
+    want = {n: v * BRICK_F32_STEPS for n, v in
+            expected_launches(out["routes"]).items()}
+    off = arms["fp32"]["losses"][:BRICK_F32_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["losses"], off)]
+    kinds.update({(r.n_out, r.cin, r.cout, r.k): r.layer
+                  for r in out["routes"]})
+    brick_arm = {"losses_gate_on": out["losses"], "losses_gate_off": off,
+                 "loss_rel_err": rel, "wall_s": out["walls"],
+                 "branches_per_step": dict(Counter(
+                     r.branch for r in out["routes"])),
+                 "launches": launched, "expected_launches": want,
+                 "tf32": out["tf32"]}
+    emit({"precision_fp32_brick": BRICK_F32_STEPS, "card": power,
+          **brick_arm, "tol": BRICK_F32_LOSS_RTOL})
+    if launched != want or not all(launched[n] for n in BRICK):
+        failures.append("fp32 brick arm launches")
+    if not max(rel) <= BRICK_F32_LOSS_RTOL or out["tf32"]:
+        failures.append("fp32 brick arm against the gate-off arm")
+    del out
+
     for name, dtype in cb.ARMS:
         path = f"precision_{name}"
         compute = name.replace("fp32", "f32")
@@ -3883,6 +4261,21 @@ def precision_phase(mp, dev, cap, power) -> dict:
             if set(got) != set(cap.counts.get(path, {}).get(base, {})):
                 failures.append(f"{kernel} checked at every launch shape "
                                 f"of {path}")
+    path = "precision_fp32_brick"
+    for base in BRICK:
+        got = recs.setdefault((f"{base}-f32", path), {})
+        for key, ops in sorted(cap.case(path, base).items()):
+            got[key] = check_brick_launch(mp, base, path, key, ops)
+        if set(got) != set(cap.counts.get(path, {}).get(base, {})):
+            failures.append(f"{base}-f32 checked at every launch shape of "
+                            f"{path}")
+    for base in FUSED:  # the fused route's float32 launches of that run
+        got = recs.setdefault((f"{base}-f32", path), {})
+        known = set(recs[(f"{base}-f32", "precision_fp32")])
+        for key, ops in sorted(cap.case(path, base).items()):
+            if key not in known:
+                got[key] = check_variant(mp, f"{base}-f32", path, key, ops,
+                                         "f32", kinds.get(key, "?"))
     if not all(r["ok"] for got in recs.values() for r in got.values()):
         failures.append("precision kernel checks")
     per_step = {}
@@ -3895,14 +4288,22 @@ def precision_phase(mp, dev, cap, power) -> dict:
         per_step[base + " (bf16 arm)"] = {
             "launches": sum(bf.values()),
             **totals(bf, recs[(base, "precision_bf16")])}
+    for base in BRICK:  # per float32 gate-on step
+        kernel = f"{base}-f32"
+        per = cap.per_step("precision_fp32_brick", base, BRICK_F32_STEPS)
+        per_step[kernel] = {
+            "launches": sum(per.values()),
+            **totals(per, recs[(kernel, "precision_fp32_brick")])}
     emit({"precision_step_kernel_account": per_step, "card": power})
     emit({"precision_phase_s": time.perf_counter() - t_phase,
           "failures": failures})
     del env
     torch.cuda.empty_cache()
     return {"ok": not failures, "failures": failures, "recs": recs,
-            "launches": {f"{b}-f32": arms["fp32"]["launches"][b]
-                         for b in FUSED},
+            "launches": {**{f"{b}-f32": arms["fp32"]["launches"][b]
+                            for b in FUSED},
+                         **{f"{b}-f32": brick_arm["launches"][b]
+                            for b in BRICK}},
             "per_step": per_step}
 
 
@@ -4755,6 +5156,8 @@ def main(argv) -> int:
     diff_cmp, diff_off, diff_on = diff["compare"]
     need(diff["ok"], "diffusion training path")
     need(diff_cmp["ok"], "diffusion gate comparison")
+    need(all(c["ok"] for c in diff["compare_f32"]),
+         "diffusion gate comparison at float32")
     droutes = diff["routes"]
     emit_histogram("diffusion_fused_launch_shapes_per_step", histogram(
         droutes, lambda r: r.branch == "fused"))
@@ -4825,6 +5228,17 @@ def main(argv) -> int:
     need(data["ok"], "data path: " + ", ".join(data["failures"]))
     torch.cuda.empty_cache()
 
+    # -- path 10: the quality and diagnosis entry points -------------------
+    try:
+        with cap:
+            qual = quality_phase(mp, dev, cap, power)
+    except Exception:
+        traceback.print_exc()
+        qual = {"ok": False, "failures": ["quality phase raised"],
+                "routes": {}, "launches": {}}
+    need(qual["ok"], "quality path: " + ", ".join(qual["failures"]))
+    torch.cuda.empty_cache()
+
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -4852,7 +5266,8 @@ def main(argv) -> int:
              for rs in (per_request_routes[0], canv["all_routes"],
                         train_routes, droutes, vae_off, diff_off,
                         unb["routes"], *ctrain["routes"].values(),
-                        *zoo["routes"].values(), *data["routes"].values())
+                        *zoo["routes"].values(), *data["routes"].values(),
+                        *qual["routes"].values())
              for r in rs}
     for key, layer in dp["kinds"].items():
         kinds.setdefault(key, layer)
@@ -4908,8 +5323,9 @@ def main(argv) -> int:
             for key, ops in sorted(cap.case(path, kernel).items()):
                 if key not in known:
                     got[key] = check(key, ops, kinds.get(key[:4], "?"))
-    # the data phase's launch shapes that no earlier path launched
-    for path in sorted(data["launches"]):
+    # the data and quality phases' launch shapes that no earlier path
+    # launched
+    for path in sorted(data["launches"]) + sorted(qual["launches"]):
         for kernel in FUSED:
             known = {key for (k, _), got in recs.items() if k == kernel
                      for key in got}
@@ -4947,7 +5363,7 @@ def main(argv) -> int:
         for kernel in FUSED:
             need(shapes(path, kernel) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
-    for path in data["launches"]:
+    for path in list(data["launches"]) + list(qual["launches"]):
         for kernel in FUSED:
             need(shapes(path, kernel) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
@@ -5125,6 +5541,36 @@ def main(argv) -> int:
         map(str, prec["failures"])))
     recs.update(prec["recs"])
     torch.cuda.empty_cache()
+
+    # the float32 diffusion comparisons' launch shapes that the precision
+    # phase did not give: B5-f32, dF-f32 and B6-f32 with the gate on, B1-f32
+    # with it off
+    f32_diff = []
+    try:
+        for label in ("diffusion_f32", "diffusion_f32_step2"):
+            for gate, bases in (("on", BRICK), ("off", ("B1",))):
+                path = f"{label}_gate_{gate}"
+                for base in bases:
+                    kernel = f"{base}-f32"
+                    known = {key for (k, _), got in recs.items()
+                             if k == kernel for key in got}
+                    got = recs.setdefault((kernel, path), {})
+                    for key, ops in sorted(cap.case(path, base).items()):
+                        if key in known:
+                            continue
+                        got[key] = (check_brick_launch(
+                            mp, base, path, key, ops) if gate == "on" else
+                            check_variant(mp, kernel, path, key, ops, "f32",
+                                          kinds.get(key, "?")))
+                        f32_diff.append(got[key])
+                    need(shapes(path, base) <= known | set(got),
+                         f"{kernel} checked at every launch shape of "
+                         f"{path}")
+    except Exception:
+        traceback.print_exc()
+        need(False, "float32 diffusion kernel checks")
+    need(all(r["ok"] for r in f32_diff), "float32 diffusion kernel checks")
+    torch.cuda.empty_cache()
     try:
         with cap:
             dom = domain_phase(mp, dev, cap, power)
@@ -5231,8 +5677,13 @@ def main(argv) -> int:
             e["bound_fp32_ms"] = sum(r.get("bound_fp32_ms", r["bound_ms"])
                                      for r in got.values())
         kernels.append(e)
-    for name in VARIANTS:  # the fused kernels' float32 and 2-D variants
-        if name.endswith("-f32"):
+    for name in VARIANTS:  # the float32 and 2-D variants
+        if name in BRICK_F32:
+            e = entry(name, prec["launches"][name], prec["per_step"][name],
+                      "one float32 brick-gate-on step of "
+                      "check_bf16_training")
+            e["path"] = "precision_fp32_brick"
+        elif name.endswith("-f32"):
             e = entry(name, prec["launches"][name], prec["per_step"][name],
                       "one float32 step of check_bf16_training")
             e["path"] = "precision_fp32"

@@ -298,6 +298,21 @@ PROFILE_OPEN, PROFILE_CLOSE, PROFILE_TRIES = 1024, 64, 4
 OPEN_MARKER, CLOSE_MARKER = "spin_kernel", "FillFunctor<c10::complex<float>"
 
 
+def session_rows(prof) -> tuple:
+    """(the device kernels' key averages of a finished profiler session,
+    markers and user annotations left out; the opening markers and the
+    closing markers it recorded)."""
+    from torch.autograd import DeviceType
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and
+            not getattr(e, "is_user_annotation", False)]
+    opened = sum(e.count for e in rows if OPEN_MARKER in e.key)
+    closed = sum(e.count for e in rows if CLOSE_MARKER in e.key)
+    return ([e for e in rows
+             if OPEN_MARKER not in e.key and CLOSE_MARKER not in e.key],
+            opened, closed)
+
+
 def profiled(fn: Callable, iters: int = 1) -> list:
     """The key averages of the kernels that ``iters`` calls of ``fn`` ran
     on the device (``torch.profiler``, CPU and CUDA activities), from the
@@ -305,7 +320,6 @@ def profiled(fn: Callable, iters: int = 1) -> list:
     markers left out.  ``profiled.lost`` holds the opening markers that
     session lost and ``profiled.refused`` the sessions refused before it;
     raises after ``PROFILE_TRIES`` refused sessions."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     closing = torch.zeros(1, dtype=torch.complex64, device="cuda")
     for tries in range(PROFILE_TRIES):
@@ -321,13 +335,7 @@ def profiled(fn: Callable, iters: int = 1) -> list:
             for _ in range(PROFILE_CLOSE):
                 closing.fill_(1.0)
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and
-                not getattr(e, "is_user_annotation", False)]
-        opened = sum(e.count for e in rows if OPEN_MARKER in e.key)
-        closed = sum(e.count for e in rows if CLOSE_MARKER in e.key)
-        rows = [e for e in rows
-                if OPEN_MARKER not in e.key and CLOSE_MARKER not in e.key]
+        rows, opened, closed = session_rows(prof)
         if opened and closed == PROFILE_CLOSE and all(
                 e.count % iters == 0 for e in rows):
             profiled.lost, profiled.refused = PROFILE_OPEN - opened, tries

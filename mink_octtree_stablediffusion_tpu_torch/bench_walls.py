@@ -19,10 +19,13 @@ its kernels, and times, each call ending in ``torch.cuda.synchronize()``:
   200 calls enqueued with no synchronisation, their host clock over 200,
   the median of 5 rounds;
 - with ``--kernels``, the device time of B1, B2 and B3 in one request and
-  one VAE step: every launch of the first timed request and step is
-  recorded at ``ops.fused_conv._launch`` / ``_launch_dkernel`` (the
-  launchers the operators call by module-global name), then run again
-  alone, CUDA events, the median of 25 after 3, summed per kernel.
+  one VAE step, and of B1–B3 and the brick kernels (B5, its dF pass, B6)
+  in one VAE step with the brick gate on (``ops.enable_brick_conv``):
+  every launch of the first timed request and steps is recorded at
+  ``ops.fused_conv._launch`` / ``_launch_dkernel`` and
+  ``ops.vol_conv._launch`` / ``_launch_dw`` (the launchers the operators
+  call by module-global name), then run again alone, CUDA events, the
+  median of 25 after 3, summed per kernel.
 
 It uses only entry points that every checkout of the port since PR 6
 has, so that a parent commit and a change run the same measurement.
@@ -122,6 +125,12 @@ def main(argv=None) -> dict:
     if args.kernels:
         kernels["vae_step"] = kernel_ms(
             mp, lambda: step(state, (cpad, valid, feats), gen))
+        mp.ops.enable_brick_conv(True)
+        try:
+            kernels["vae_step_gate_on"] = kernel_ms(
+                mp, lambda: step(state, (cpad, valid, feats), gen))
+        finally:
+            mp.ops.enable_brick_conv(False)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -158,12 +167,14 @@ def event_ms(fn, warmup: int = 3, iters: int = 25) -> float:
 
 def kernel_ms(mp, run) -> dict:
     """{kernel: {"launches", "ms"}} of one call of ``run``: each launch of
-    B1 (``_launch``), B2 (``_launch`` with ``transpose_weight``) and B3
-    (``_launch_dkernel``) recorded with its operands, then timed alone
-    (``event_ms``) and summed per kernel."""
+    B1 (``fused_conv._launch``), B2 (the same with ``transpose_weight``),
+    B3 (``_launch_dkernel``), B5 (``vol_conv._launch``), its dF pass (the
+    same with ``mirror``) and B6 (``_launch_dw``) recorded with its
+    operands, then timed alone (``event_ms``) and summed per kernel."""
     import torch
-    fc = mp.ops.fused_conv
+    fc, vc = mp.ops.fused_conv, mp.ops.vol_conv
     launch, launch_dk = fc._launch, fc._launch_dkernel
+    vlaunch, vlaunch_dw = vc._launch, vc._launch_dw
     calls = []
 
     def rec_launch(*a, **kw):
@@ -174,12 +185,23 @@ def kernel_ms(mp, run) -> dict:
     def rec_launch_dk(*a, **kw):
         calls.append(("B3", launch_dk, a, kw))
         return launch_dk(*a, **kw)
+
+    def rec_vlaunch(volp, kernel, mirror):
+        calls.append(("B5-dF" if mirror else "B5", vlaunch,
+                      (volp, kernel, mirror), {}))
+        return vlaunch(volp, kernel, mirror)
+
+    def rec_vlaunch_dw(*a):
+        calls.append(("B6", vlaunch_dw, a, {}))
+        return vlaunch_dw(*a)
     fc._launch, fc._launch_dkernel = rec_launch, rec_launch_dk
+    vc._launch, vc._launch_dw = rec_vlaunch, rec_vlaunch_dw
     try:
         run()
         torch.cuda.synchronize()
     finally:
         fc._launch, fc._launch_dkernel = launch, launch_dk
+        vc._launch, vc._launch_dw = vlaunch, vlaunch_dw
     out = {}
     for name, fn, a, kw in calls:
         got = out.setdefault(name, {"launches": 0, "ms": 0.0})

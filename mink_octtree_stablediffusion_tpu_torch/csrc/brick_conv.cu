@@ -50,6 +50,20 @@
 // multiply (no TMA producer warp); the wrapper's host path (checks, the
 // launch) is longer than the kernel at 4 -> 4.
 //
+// Float32 compute (B5-f32 and its dF pass, `brick_conv_forward_f32`): a
+// cast pass (`brick_common.cuh::split_volume`) writes the float32 volume as
+// three bf16 volumes, the pack writes three bf16 terms of the weight (one
+// of a weight stored in bf16), and the conv walks each live chunk once per
+// product of terms whose indices add up to at most 2 (6, or 3): the same
+// ring, halo and weight stages as at bf16, so the shared memory is the
+// same, but the tile is at most 64 Cout wide (a second set of fp32 sums,
+// `part`, sums each step from zero, so that the tensor cores' truncating
+// accumulation never runs over more than one step's 9 products).  The
+// split runs as a pass of its own, not in shared memory after a float32
+// load: the halo path (16-byte `cp.async` of bf16, the swizzle, `ldmatrix`)
+// stays the one the bf16 instantiation runs, and B6's TMA copies need bf16
+// volumes anyway.
+//
 // Blocks: one 256-thread block (two warpgroups) per (4 x 4 x 16-cell
 // tile, NT-wide Cout tile), NT in {16, 32, 64, 128} after Cout
 // (`ops/vol_conv.py::tile_cout`).  Warp w owns z-runs 2w and 2w + 1 (16
@@ -90,14 +104,23 @@ __device__ __forceinline__ int halo_off(int cell, int h) {
   return (cell * 2 + (h ^ ((cell >> 2) & 1))) * 8;
 }
 
-template <int NT>
-__global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
-    brick_conv_kernel(const __nv_bfloat16* __restrict__ vol,
-                      const __nv_bfloat16* __restrict__ wp,
+// Volume terms TV and weight terms TW: (1, 1) at bf16 compute; (3, 3) at
+// float32 compute, or (3, 1) where the weight is stored in bf16 (which its
+// one term holds exactly).  A step is (live chunk, term pair, dx plane):
+// the halo of volume term i at the pair's first plane, the weights of
+// weight term j at the plane; each float32 step's 9 products are summed
+// from zero (`part`) and then added to the accumulators, so that no sum
+// on the tensor cores, which truncate as they accumulate, runs over more
+// than 9 k16 products.
+template <int NT, int TV, int TW>
+__global__ void __launch_bounds__(NTHREADS, NT >= 128 || TV > 1 ? 1 : 2)
+    brick_conv_kernel(const __nv_bfloat16* __restrict__ vol, size_t vterm,
+                      const __nv_bfloat16* __restrict__ wp, size_t wterm,
                       float* __restrict__ out, int x, int y, int z, int cs,
                       int nch, int cout) {
   using L = Layout<NT>;
   constexpr int NF = NT / 8;  // n8 tiles of a warp
+  constexpr int NP = n_pairs<TV, TW>();
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sH = sW + STAGES * L::W_STAGE;
@@ -106,7 +129,8 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
   const Tile o = tile_origin(blockIdx.x, x, y, z);
   const int ct = blockIdx.y;
 
-  // 1. the chunks of the conv's channels that hold a nonzero value
+  // 1. the chunks of the conv's channels that hold a nonzero value (in
+  // term 0: a value whose first term is zero has no other term)
   for (int c = tid; c < nch; c += NTHREADS) sLive[c] = 0;
   __syncthreads();
   const int segs = 2 * nch;  // 16-byte segments of a cell
@@ -128,15 +152,20 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
     sLive[MAX_CHUNKS] = n;
   }
   __syncthreads();
-  const int steps = 3 * sLive[MAX_CHUNKS];  // (live chunk, dx plane)
+  const int steps = 3 * NP * sLive[MAX_CHUNKS];  // (chunk, pair, dx plane)
 
-  // step s: the halo of chunk s / 3 (at its first plane) and the weights
-  // of plane s % 3, as one cp.async group (empty past the last step)
+  // step s: the halo of chunk s / (3 NP) of the pair's volume term (at its
+  // first plane) and the pair's weights of plane s % 3, as one cp.async
+  // group (empty past the last step)
   auto load_step = [&](int s) {
     if (s < steps) {
-      const int li = s / 3, g = s - 3 * li, c = sLive[li];
+      const int v = s / 3, g = s - 3 * v, li = v / NP;
+      int ti = 0, tj = 0;
+      pair<TV, TW>(v - li * NP, ti, tj);
+      const int c = sLive[li];
       if (g == 0) {
-        __nv_bfloat16* hb = sH + (li & 1) * L::H_BUF;
+        const __nv_bfloat16* vt = vol + ti * vterm;
+        __nv_bfloat16* hb = sH + (v & 1) * L::H_BUF;
         for (int e = tid; e < HALO * 2; e += NTHREADS) {
           const int cell = e >> 1, h = e & 1;
           const int hz = cell % HZ, hy = (cell / HZ) % HY,
@@ -144,14 +173,15 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
           const int px = o.x0 + hx, py = o.y0 + hy, pz = o.z0 + hz;
           const bool in = px < x + 2 && py < y + 2 && pz < z + 2;
           const __nv_bfloat16* src =
-              in ? vol + padded_cell(o.b, px, py, pz, x, y, z) * cs +
+              in ? vt + padded_cell(o.b, px, py, pz, x, y, z) * cs +
                        c * CK + h * 8
-                 : vol;
+                 : vt;
           cp_async16(smem_u32(hb + halo_off(cell, h)), src, in ? 16 : 0);
         }
       }
       const __nv_bfloat16* slab =
-          wp + (((size_t)ct * nch + c) * 27 + g * TAPS) * L::W_TAP;
+          wp + tj * wterm + (((size_t)ct * nch + c) * 27 + g * TAPS) *
+                                L::W_TAP;
       __nv_bfloat16* sw = sW + (s % STAGES) * L::W_STAGE;
       for (int e = tid; e < L::W_STAGE / 8; e += NTHREADS)
         cp_async16(smem_u32(sw + e * 8), slab + e * 8, 16);
@@ -160,10 +190,16 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
   };
 
   float acc[RPW][NT / 2];  // m16n8 fragments: acc[r][4j + i] is n8 tile j
+  float part[RPW][NT / 2];  // a float32 step's products (unused at bf16)
 #pragma unroll
   for (int r = 0; r < RPW; ++r)
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) acc[r][i] = 0.0f;
+  // where a step's products go
+  auto dst = [&](int r) -> float(&)[NT / 2] {
+    if constexpr (TV > 1) return part[r];
+    else return acc[r];
+  };
 
   load_step(0);
   load_step(1);
@@ -172,19 +208,25 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
     fence_async_shared();  // ... visible to the tensor cores' reads
     __syncthreads();       // ... for every thread; stage (s + 2) % 3 is free
     load_step(s + 2);
-    const int li = s / 3, dx = s - 3 * li;
-    const __nv_bfloat16* hb = sH + (li & 1) * L::H_BUF;
+    const int v = s / 3, dx = s - 3 * v;
+    const __nv_bfloat16* hb = sH + (v & 1) * L::H_BUF;
     const __nv_bfloat16* sw = sW + (s % STAGES) * L::W_STAGE;
+    if constexpr (TV > 1) {
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) part[r][i] = 0.0f;
+    }
     // A of tap t for this warp's z-runs: 16 consecutive halo cells along
     // z, shifted by the tap, one row address per lane
     uint32_t a[2][RPW][4];
-    auto load_a = [&](uint32_t(&dst)[RPW][4], int t) {
+    auto load_a = [&](uint32_t(&da)[RPW][4], int t) {
       const int dy = t / 3, dz = t % 3;
 #pragma unroll
       for (int r = 0; r < RPW; ++r) {
         const int run = warp * RPW + r, rx = run / TY, ry = run % TY;
         const int cell = ((rx + dx) * HY + ry + dy) * HZ + dz + (lane & 15);
-        ldmatrix_x4(dst[r], smem_u32(hb + halo_off(cell, lane >> 4)));
+        ldmatrix_x4(da[r], smem_u32(hb + halo_off(cell, lane >> 4)));
       }
     };
     load_a(a[0], 0);
@@ -194,10 +236,10 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
       // ((n / 8) * 2 + k / 8) * 128 bytes
       const uint64_t desc = smem_desc(smem_u32(sw + t * L::W_TAP), 128, 256);
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) fence_operands(acc[r]);
+      for (int r = 0; r < RPW; ++r) fence_operands(dst(r));
       wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) Wgmma<NT>::mma(acc[r], a[t & 1][r], desc);
+      for (int r = 0; r < RPW; ++r) Wgmma<NT>::mma(dst(r), a[t & 1][r], desc);
       wgmma_commit();
       if (t + 1 < TAPS) {
         wgmma_wait<1>();  // tap t - 1 is done with a[(t + 1) & 1]
@@ -206,7 +248,13 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
     }
     wgmma_wait<0>();  // the stage is free once the barrier above passes
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) fence_operands(acc[r]);
+    for (int r = 0; r < RPW; ++r) fence_operands(dst(r));
+    if constexpr (TV > 1) {
+#pragma unroll
+      for (int r = 0; r < RPW; ++r)
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[r][i] += part[r][i];
+    }
   }
 
   // every cell of the tile inside the volume is written, zeros included
@@ -232,9 +280,10 @@ __global__ void __launch_bounds__(NTHREADS, NT >= 128 ? 1 : 2)
 // The weight pack (`ops/vol_conv.py::pack_weight` is its plain version):
 // W [27, Cin, Cout], fp32 or (parameters stored in bf16) bf16 (for dF,
 // `mirror`, the forward's [27, Cout, Cin] read as W'[k] = W[26 - k]^T) ->
-// bf16 [Cout tiles][Cin chunks][27][nt/8][2][8][8], element (t, c, k, nb,
-// kb, ni, ki) = W[k][16c + 8kb + ki][nt t + 8nb + ni], zero past Cin and
-// Cout; one thread per element.
+// `terms` bf16 terms (`hopper::split`; 1 at bf16 compute or for a bf16
+// weight), each [Cout tiles][Cin chunks][27][nt/8][2][8][8], element (t,
+// c, k, nb, kb, ni, ki) = W[k][16c + 8kb + ki][nt t + 8nb + ni], zero past
+// Cin and Cout, term u at u * total; one thread per element.
 __device__ __forceinline__ float load_weight(const float* w, size_t i) {
   return w[i];
 }
@@ -247,7 +296,7 @@ template <typename W>
 __global__ void pack_weight_kernel(const W* __restrict__ w,
                                    __nv_bfloat16* __restrict__ wp, int cin,
                                    int cout, int nch, int nct, int nt,
-                                   int mirror) {
+                                   int mirror, int terms) {
   const int total = nct * nch * 27 * CK * nt;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += gridDim.x * blockDim.x) {
@@ -264,77 +313,141 @@ __global__ void pack_weight_kernel(const W* __restrict__ w,
     if (i < cin && j < cout)
       v = load_weight(w, mirror ? ((size_t)(26 - k) * cout + j) * cin + i
                                 : ((size_t)k * cin + i) * cout + j);
-    wp[e] = __float2bfloat16(v);
+    for (int u = 0; u < terms; ++u) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(v);
+      wp[(size_t)u * total + e] = h;
+      v -= __bfloat162float(h);
+    }
   }
 }
 
 int pack(const void* w, void* wp, int cin, int cout, int nt, int mirror,
-         int w_bf16, cudaStream_t stream) {
+         int w_bf16, int terms, cudaStream_t stream) {
   const int nch = (cin + CK - 1) / CK, nct = (cout + nt - 1) / nt;
   const int total = nct * nch * 27 * CK * nt;
   const int blocks = total / 256 + 1 < 1024 ? total / 256 + 1 : 1024;
   if (w_bf16)
     pack_weight_kernel<<<blocks, 256, 0, stream>>>(
         (const __nv_bfloat16*)w, (__nv_bfloat16*)wp, cin, cout, nch, nct, nt,
-        mirror);
+        mirror, terms);
   else
     pack_weight_kernel<<<blocks, 256, 0, stream>>>(
         (const float*)w, (__nv_bfloat16*)wp, cin, cout, nch, nct, nt,
-        mirror);
+        mirror, terms);
   return (int)cudaGetLastError();
 }
 
-template <int NT>
-int launch(const void* vol, const void* wp, void* out, int b, int x, int y,
-           int z, int cs, int nch, int cout, cudaStream_t stream) {
+template <int NT, int TV, int TW>
+int launch(const __nv_bfloat16* vol, size_t vterm, const void* wp,
+           void* out, int b, int x, int y, int z, int cs, int nch, int cout,
+           cudaStream_t stream) {
   const size_t smem = Layout<NT>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      brick_conv_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      brick_conv_kernel<NT, TV, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(n_tiles(b, x, y, z), (cout + NT - 1) / NT);
-  brick_conv_kernel<NT><<<grid, NTHREADS, smem, stream>>>(
-      (const __nv_bfloat16*)vol, (const __nv_bfloat16*)wp, (float*)out, x, y,
-      z, cs, nch, cout);
+  const int nct = (cout + NT - 1) / NT;
+  const dim3 grid(n_tiles(b, x, y, z), nct);
+  brick_conv_kernel<NT, TV, TW><<<grid, NTHREADS, smem, stream>>>(
+      vol, vterm, (const __nv_bfloat16*)wp, (size_t)nct * nch * 27 * CK * NT,
+      (float*)out, x, y, z, cs, nch, cout);
   return (int)cudaGetLastError();
+}
+
+// The float32 instantiations, by Cout tile and weight terms.
+template <int TW>
+int launch_f32(const __nv_bfloat16* vt, size_t n, const void* wp, void* out,
+               int b, int x, int y, int z, int cs, int nch, int cout, int nt,
+               cudaStream_t s) {
+  switch (nt) {
+    case 16:
+      return launch<16, 3, TW>(vt, n, wp, out, b, x, y, z, cs, nch, cout, s);
+    case 32:
+      return launch<32, 3, TW>(vt, n, wp, out, b, x, y, z, cs, nch, cout, s);
+    default:
+      return launch<64, 3, TW>(vt, n, wp, out, b, x, y, z, cs, nch, cout, s);
+  }
 }
 
 bool valid_tile(int nt) { return nt == 16 || nt == 32 || nt == 64 || nt == 128; }
+
+bool valid_args(int b, int x, int y, int z, int cs, int cin, int cout,
+                int nt) {
+  const int nch = (cin + CK - 1) / CK;
+  return b >= 1 && x >= 1 && y >= 1 && z >= 1 && cin >= 1 && cout >= 1 &&
+         cs % CK == 0 && nch * CK <= cs && nch <= MAX_CHUNKS && valid_tile(nt);
+}
 
 }  // namespace
 
 // Packs the weight alone (the pass `brick_conv_forward` runs first): w
 // fp32, or bf16 with w_bf16, [27, cin, cout] ([27, cout, cin], the
-// forward's, with mirror), wp bf16 [ceil(cout / nt) * ceil(cin / 16) * 27 *
-// 16 * nt].
+// forward's, with mirror), wp bf16 [terms][ceil(cout / nt) * ceil(cin /
+// 16) * 27 * 16 * nt], terms 1 or 3.
 extern "C" int brick_conv_pack(const void* w, void* wp, int cin, int cout,
-                               int nt, int mirror, int w_bf16, void* stream) {
-  if (cin < 1 || cout < 1 || !valid_tile(nt)) return (int)cudaErrorInvalidValue;
-  return pack(w, wp, cin, cout, nt, mirror, w_bf16, (cudaStream_t)stream);
+                               int nt, int mirror, int w_bf16, int terms,
+                               void* stream) {
+  if (cin < 1 || cout < 1 || !valid_tile(nt) || (terms != 1 && terms != 3))
+    return (int)cudaErrorInvalidValue;
+  return pack(w, wp, cin, cout, nt, mirror, w_bf16, terms,
+              (cudaStream_t)stream);
+}
+
+// The volume split alone (the pass `brick_conv_forward_f32` runs first):
+// x fp32 [n] -> out bf16 [3][n], n a multiple of 4.
+extern "C" int brick_conv_split(const void* x, void* out, long long n,
+                                void* stream) {
+  return split_volume((const float*)x, (__nv_bfloat16*)out, n,
+                      (cudaStream_t)stream);
 }
 
 // Launch on `stream`: the weight pack into `wp`, then the conv; returns
 // cudaGetLastError() right after the launches.  vol bf16 [b, x + 2, y + 2,
 // z + 2, cs] (cs a multiple of 16, at most 1024; 16-byte aligned); w, wp
-// as `brick_conv_pack`; out fp32 [b, x, y, z, cout].  nt is the Cout tile:
-// 16, 32, 64 or 128.
+// as `brick_conv_pack` with one term; out fp32 [b, x, y, z, cout].  nt is
+// the Cout tile: 16, 32, 64 or 128.
 extern "C" int brick_conv_forward(const void* vol, const void* w, void* wp,
                                   void* out, int b, int x, int y, int z,
                                   int cs, int cin, int cout, int nt,
                                   int mirror, int w_bf16, void* stream) {
-  const int nch = (cin + CK - 1) / CK;
-  if (b < 1 || x < 1 || y < 1 || z < 1 || cin < 1 || cout < 1 ||
-      cs % CK != 0 || nch * CK > cs || nch > MAX_CHUNKS || !valid_tile(nt))
+  if (!valid_args(b, x, y, z, cs, cin, cout, nt))
     return (int)cudaErrorInvalidValue;
+  const int nch = (cin + CK - 1) / CK;
   cudaStream_t s = (cudaStream_t)stream;
-  const int rc = pack(w, wp, cin, cout, nt, mirror, w_bf16, s);
+  const int rc = pack(w, wp, cin, cout, nt, mirror, w_bf16, 1, s);
   if (rc != 0) return rc;
+  const __nv_bfloat16* v = (const __nv_bfloat16*)vol;
   switch (nt) {
-    case 16: return launch<16>(vol, wp, out, b, x, y, z, cs, nch, cout, s);
-    case 32: return launch<32>(vol, wp, out, b, x, y, z, cs, nch, cout, s);
-    case 64: return launch<64>(vol, wp, out, b, x, y, z, cs, nch, cout, s);
-    default: return launch<128>(vol, wp, out, b, x, y, z, cs, nch, cout, s);
+    case 16: return launch<16, 1, 1>(v, 0, wp, out, b, x, y, z, cs, nch, cout, s);
+    case 32: return launch<32, 1, 1>(v, 0, wp, out, b, x, y, z, cs, nch, cout, s);
+    case 64: return launch<64, 1, 1>(v, 0, wp, out, b, x, y, z, cs, nch, cout, s);
+    default: return launch<128, 1, 1>(v, 0, wp, out, b, x, y, z, cs, nch, cout, s);
   }
+}
+
+// The float32 instantiation (B5-f32, its dF pass with mirror): the volume
+// split into `vterms` (bf16 [3][b, x + 2, y + 2, z + 2, cs]), the weight
+// packed into `wp` as 3 terms (1 with w_bf16), then the conv; vol fp32
+// [b, x + 2, y + 2, z + 2, cs], the rest as `brick_conv_forward`, nt 16,
+// 32 or 64.
+extern "C" int brick_conv_forward_f32(const void* vol, void* vterms,
+                                      const void* w, void* wp, void* out,
+                                      int b, int x, int y, int z, int cs,
+                                      int cin, int cout, int nt, int mirror,
+                                      int w_bf16, void* stream) {
+  if (!valid_args(b, x, y, z, cs, cin, cout, nt) || nt > 64)
+    return (int)cudaErrorInvalidValue;
+  const int nch = (cin + CK - 1) / CK;
+  const long long n = (long long)b * (x + 2) * (y + 2) * (z + 2) * cs;
+  cudaStream_t s = (cudaStream_t)stream;
+  __nv_bfloat16* vt = (__nv_bfloat16*)vterms;
+  int rc = split_volume((const float*)vol, vt, n, s);
+  if (rc != 0) return rc;
+  rc = pack(w, wp, cin, cout, nt, mirror, w_bf16, w_bf16 ? 1 : 3, s);
+  if (rc != 0) return rc;
+  if (w_bf16)
+    return launch_f32<1>(vt, n, wp, out, b, x, y, z, cs, nch, cout, nt, s);
+  return launch_f32<3>(vt, n, wp, out, b, x, y, z, cs, nch, cout, nt, s);
 }
 
 extern "C" const char* brick_conv_error_string(int code) {

@@ -78,6 +78,17 @@
 // What is left: a warp-specialised producer and a deeper ring (a stage is
 // 86 KB); the 12-byte spill at 168 registers.
 //
+// Float32 compute (B6-f32, `brick_conv_dkernel_f32`): both volumes are
+// split into three bf16 terms (`brick_common.cuh::split_volume`), and the
+// GEMM walks each live tile once per product of terms with indices adding
+// up to at most 2 (6 stages a tile, the ring and its TMA copies as at
+// bf16).  A second set of fp32 sums per stage (`part`) would not fit
+// beside 96 accumulators in 384 threads' registers, so a float32 block
+// owns one dz tap of its dx plane (a block per (dx, dz, Cin tile, Cout
+// tile, split): 32 + 32 sums a thread) and reads the plane's halo part
+// for its one tap.  The ordered split reduce and the absence of atomics
+// are those of the bf16 instantiation.
+//
 // Stages (`stage`): kFull runs every pass; kLive stops after the live
 // pass, so that a card test can hold the flags against their plain
 // version.
@@ -226,24 +237,34 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Block (dx plane x Cin tile x Cout tile, split s): dst = dW (one split)
-// or partial s, over the block's 9 x 64 x 64 slab = the sum over the
-// split's live tiles of halo^T . g.  The live tiles, in ascending order,
-// are shared out to the splits in contiguous runs.  Warpgroup dy owns the
-// taps (dx, dy, dz), dz in 0..2; warp w of it the Cout rows 16 (w % 4) +
-// [0, 16).  Thread 0 issues each stage's two copies.
+// Block (dx plane [x dz tap] x Cin tile x Cout tile, split s): dst = dW
+// (one split) or partial s, over the block's 9 (or 3) x 64 x 64 slab = the
+// sum over the split's live tiles of halo^T . g.  The live tiles, in
+// ascending order, are shared out to the splits in contiguous runs.
+// Warpgroup dy owns the taps (dx, dy, dz) of the block's ND dz (3 at bf16,
+// the whole plane; 1 at float32); warp w of it the Cout rows 16 (w % 4) +
+// [0, 16).  Thread 0 issues each stage's two copies.  TV is the operands'
+// terms: 1 at bf16; 3 at float32, where a stage is (tile, term pair), the
+// halo part of volume term i and the cotangent rows of term j, i + j <= 2
+// (the terms stacked as 3b instances of each volume, `nb` = b), and each
+// stage's products are summed from zero (`part`) and then added to the
+// accumulators, so that no sum on the tensor cores, which truncate as they
+// accumulate, runs over more than one tile's 16 k16 products.
+template <int TV, int ND>
 __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
     const __grid_constant__ CUtensorMap halo_map,
     const __grid_constant__ CUtensorMap grad_map,
     const unsigned char* __restrict__ flag, float* __restrict__ out, int x,
-    int y, int z, int tiles, int cin, int cout) {
+    int y, int z, int nb, int tiles, int cin, int cout) {
+  constexpr int NP = n_pairs<TV, TV>();
   extern __shared__ unsigned char smem[];
   __shared__ __align__(8) uint64_t full[STAGES];
   const uint32_t ring = (smem_u32(smem) + 1023) & ~1023u;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_ci = (cin + BI - 1) / BI, n_co = (cout + BO - 1) / BO;
-  const int dx = blockIdx.x / (n_ci * n_co);
+  const int plane = blockIdx.x / (n_ci * n_co);  // dx (x dz block)
+  const int dx = plane / (3 / ND), dz0 = plane % (3 / ND) * ND;
   const int ci0 = (blockIdx.x / n_co) % n_ci * BI;
   const int co0 = (blockIdx.x % n_co) * BO;
   const int s = blockIdx.y, splits = gridDim.y;
@@ -280,7 +301,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
   const int n_live = warp_sum[NWARPS - 1];
   const int per = (n_live + splits - 1) / splits;
   const int i0 = min(n_live, s * per);
-  const int steps = min(n_live, i0 + per) - i0;
+  const int steps = (min(n_live, i0 + per) - i0) * NP;  // (tile, pair)
   if (steps > 0 && before <= i0 && i0 < before + cnt) {
     int r = before, i = f0;
     for (;; ++i)
@@ -291,18 +312,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
   int cursor = first;  // thread 0: the tile of the last stage issued
 
   // stage st: the tile's halo part (padded cells from its origin, x from
-  // x0 + dx) and its cotangent rows (padded cells from the origin + 1)
+  // x0 + dx) and its cotangent rows (padded cells from the origin + 1), of
+  // the stage's pair's terms
   auto issue = [&](int st) {
-    if (st > 0)
+    const int p = st % NP;
+    if (st > 0 && p == 0)
       do ++cursor;
       while (!__ldg(flag + cursor));
+    int ti = 0, tj = 0;
+    pair<TV, TV>(p, ti, tj);
     const Tile o = tile_origin(cursor, x, y, z);
     const uint32_t dst = ring + (st % STAGES) * STAGE_BYTES;
     const uint32_t bar = smem_u32(&full[st % STAGES]);
     mbar_expect(bar, STAGE_BYTES);
-    tma_load(dst, &halo_map, ci0, o.z0, o.y0, o.x0 + dx, o.b, bar);
+    tma_load(dst, &halo_map, ci0, o.z0, o.y0, o.x0 + dx, o.b + ti * nb, bar);
     tma_load(dst + H_BYTES, &grad_map, co0, o.z0 + 1, o.y0 + 1, o.x0 + 1,
-             o.b, bar);
+             o.b + tj * nb, bar);
   };
   if (tid == 0) {
     for (int i = 0; i < STAGES; ++i) mbar_init(smem_u32(&full[i]), 1);
@@ -320,11 +345,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
     ldmatrix_x4_trans(
         a, g0 + ka * ROW + (((w4 * 2 + ((lane >> 3) & 1)) ^ (ka & 7)) << 4));
   };
-  float acc[3][32];  // tap (dx, dy, dz): m64n64 fragments
+  float acc[ND][32];  // tap (dx, dy, dz0 + d): m64n64 fragments
+  float part[ND][32];  // a float32 stage's products (unused at bf16)
 #pragma unroll
-  for (int d = 0; d < 3; ++d)
+  for (int d = 0; d < ND; ++d)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[d][i] = 0.0f;
+  // where a stage's products go
+  auto dst = [&](int d) -> float(&)[32] {
+    if constexpr (TV > 1) return part[d];
+    else return acc[d];
+  };
 
   for (int st = 0; st < steps; ++st) {
     const uint32_t h0 = ring + (st % STAGES) * STAGE_BYTES;
@@ -341,6 +372,12 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
     const bool part_live = __syncthreads_or(nz);
     if (tid == 0 && st + 1 < steps) issue(st + 1);
     if (!part_live) continue;  // an all-zero halo part adds nothing
+    if constexpr (TV > 1) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) part[d][i] = 0.0f;
+    }
     const uint32_t g0 = h0 + H_BYTES;
     uint32_t a[2][4];  // unrolled: a[cur] stays in its registers while
     load_a(g0, 0, a[0]);  // the asynchronous products read it
@@ -349,13 +386,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
       const int cur = run & 1, rx = run / TY, ry = run % TY;
       // B of tap (dx, dy, dz): the halo part's rows from (rx * HY + ry +
       // dy) * HZ + dz on
-      const uint32_t c0 = (rx * HY + ry + dy) * HZ;
+      const uint32_t c0 = (rx * HY + ry + dy) * HZ + dz0;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) fence_operands(acc[d]);
+      for (int d = 0; d < ND; ++d) fence_operands(dst(d));
       wgmma_fence();
 #pragma unroll
-      for (int d = 0; d < 3; ++d)
-        wgmma_m64n64_bmn(acc[d], a[cur], b_desc(h0 + (c0 + d) * ROW));
+      for (int d = 0; d < ND; ++d)
+        wgmma_m64n64_bmn(dst(d), a[cur], b_desc(h0 + (c0 + d) * ROW));
       wgmma_commit();
       if (run + 1 < RUNS) {
         wgmma_wait<1>();  // run - 1 is done with a[cur ^ 1]
@@ -364,17 +401,23 @@ __global__ void __launch_bounds__(NTHREADS, 1) gemm_kernel(
     }
     wgmma_wait<0>();  // the stage is free once the next barrier passes
 #pragma unroll
-    for (int d = 0; d < 3; ++d) fence_operands(acc[d]);
+    for (int d = 0; d < ND; ++d) fence_operands(dst(d));
+    if constexpr (TV > 1) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[d][i] += part[d][i];
+    }
   }
 
   // the accumulators straight from registers: dW[k][ci][co] = D[co][ci]
   // of tap k = (3 dx + dy) 3 + dz, rows (Cout) co0 + 16 w4 + g4 (+ 8),
   // columns (Cin) ci0 + 8j + t2 (+ 1)
-  float* dst = out + (size_t)s * 27 * cin * cout;
+  float* res = out + (size_t)s * 27 * cin * cout;
   const int g4 = lane >> 2, t2 = (lane & 3) * 2;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    float* tap = dst + (size_t)((dx * 3 + dy) * 3 + d) * cin * cout;
+  for (int d = 0; d < ND; ++d) {
+    float* tap = res + (size_t)((dx * 3 + dy) * 3 + dz0 + d) * cin * cout;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int co = co0 + w4 * 16 + g4 + ((i >> 1) & 1) * 8;
@@ -479,7 +522,9 @@ bool volume_map(CUtensorMap* map, const void* vol, int b, int x, int y, int z,
   return true;
 }
 
-// The dynamic shared memory attribute, set once per device.
+// The dynamic shared memory attribute of an instantiation, set once per
+// device.
+template <int TV, int ND>
 cudaError_t smem_attribute() {
   static bool set[MAX_DEVICES] = {};
   int dev = 0;
@@ -487,13 +532,48 @@ cudaError_t smem_attribute() {
   if (e != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
     return e != cudaSuccess ? e : cudaErrorInvalidDevice;
   if (!set[dev]) {
-    e = cudaFuncSetAttribute(gemm_kernel,
+    e = cudaFuncSetAttribute(gemm_kernel<TV, ND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              RING_BYTES);
     if (e != cudaSuccess) return e;
     set[dev] = true;
   }
   return cudaSuccess;
+}
+
+// The GEMM (and, with S > 1 splits, the reduce) of an instantiation over
+// volumes of tv * b instances.
+template <int TV, int ND>
+int run_gemm(const void* vol, const void* gvol, void* dw, const void* flag,
+             void* partial, int b, int x, int y, int z, int cs, int gs,
+             int cin, int cout, int splits, cudaStream_t s) {
+  CUtensorMap halo_map, grad_map;
+  if (!volume_map(&halo_map, vol, TV * b, x, y, z, cs, HZ, HY, TX) ||
+      !volume_map(&grad_map, gvol, TV * b, x, y, z, gs, TZ, TY, TX))
+    return (int)cudaErrorInvalidValue;
+  int rc = (int)smem_attribute<TV, ND>();
+  if (rc != 0) return rc;
+  gemm_kernel<TV, ND>
+      <<<dim3(3 / ND * 3 * ((cin + BI - 1) / BI) * ((cout + BO - 1) / BO),
+              splits),
+         NTHREADS, RING_BYTES, s>>>(
+          halo_map, grad_map, (const unsigned char*)flag,
+          (float*)(splits > 1 ? partial : dw), x, y, z, b,
+          n_tiles(b, x, y, z), cin, cout);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || splits == 1) return rc;
+  const long long n = 27LL * cin * cout;
+  reduce_kernel<<<grid_1d(n, 256), 256, 0, s>>>((const float*)partial,
+                                                (float*)dw, n, splits);
+  return (int)cudaGetLastError();
+}
+
+bool valid_args(int b, int x, int y, int z, int cs, int gs, int cin,
+                int cout, int splits, int stage, const void* partial) {
+  return b >= 1 && x >= 1 && y >= 1 && z >= 1 && cin >= 1 && cout >= 1 &&
+         cs % CK == 0 && gs % CK == 0 && cin <= cs && cout <= gs &&
+         splits >= 1 && splits <= 65535 && stage >= kFull &&
+         stage <= kLive && (splits == 1 || partial != nullptr);
 }
 
 }  // namespace brick_conv_dw
@@ -514,35 +594,44 @@ extern "C" int brick_conv_dkernel(const void* vol, const void* gvol, void* dw,
                                   int b, int x, int y, int z, int cs, int gs,
                                   int cin, int cout, int splits,
                                   int stage, void* stream) {
-  if (b < 1 || x < 1 || y < 1 || z < 1 || cin < 1 || cout < 1 ||
-      cs % CK != 0 || gs % CK != 0 || cin > cs || cout > gs || splits < 1 ||
-      splits > 65535 || stage < kFull || stage > kLive ||
-      (splits > 1 && partial == nullptr))
+  if (!valid_args(b, x, y, z, cs, gs, cin, cout, splits, stage, partial))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = n_tiles(b, x, y, z);
-  live_kernel<<<tiles, CELLS, 0, s>>>((const __nv_bfloat16*)gvol,
-                                      (unsigned char*)flag, x, y, z, gs, cout);
-  int rc = (int)cudaGetLastError();
+  live_kernel<<<n_tiles(b, x, y, z), CELLS, 0, s>>>(
+      (const __nv_bfloat16*)gvol, (unsigned char*)flag, x, y, z, gs, cout);
+  const int rc = (int)cudaGetLastError();
   if (rc != 0 || stage == kLive) return rc;
+  return run_gemm<1, 3>(vol, gvol, dw, flag, partial, b, x, y, z, cs, gs,
+                        cin, cout, splits, s);
+}
 
-  CUtensorMap halo_map, grad_map;
-  if (!volume_map(&halo_map, vol, b, x, y, z, cs, HZ, HY, TX) ||
-      !volume_map(&grad_map, gvol, b, x, y, z, gs, TZ, TY, TX))
+// The float32 instantiation (B6-f32): vol and gvol fp32 (shaped as above)
+// are split into three bf16 terms each, vterms bf16 [3][b, x + 2, y + 2,
+// z + 2, cs] and gterms [3][..., gs]; the live pass reads the cotangent's
+// first term (a value whose first term is zero has no other term); then
+// the GEMM over the six products of terms, a block per (dx plane, dz tap,
+// Cin tile, Cout tile, split).  The rest as `brick_conv_dkernel`.
+extern "C" int brick_conv_dkernel_f32(const void* vol, const void* gvol,
+                                      void* vterms, void* gterms, void* dw,
+                                      void* flag, void* partial, int b,
+                                      int x, int y, int z, int cs, int gs,
+                                      int cin, int cout, int splits,
+                                      int stage, void* stream) {
+  if (!valid_args(b, x, y, z, cs, gs, cin, cout, splits, stage, partial))
     return (int)cudaErrorInvalidValue;
-  rc = (int)smem_attribute();
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long cells = (long long)b * (x + 2) * (y + 2) * (z + 2);
+  __nv_bfloat16* gt = (__nv_bfloat16*)gterms;
+  int rc = split_volume((const float*)gvol, gt, cells * gs, s);
   if (rc != 0) return rc;
-  gemm_kernel<<<dim3(3 * ((cin + BI - 1) / BI) * ((cout + BO - 1) / BO),
-                     splits),
-                NTHREADS, RING_BYTES, s>>>(
-      halo_map, grad_map, (const unsigned char*)flag,
-      (float*)(splits > 1 ? partial : dw), x, y, z, tiles, cin, cout);
+  live_kernel<<<n_tiles(b, x, y, z), CELLS, 0, s>>>(
+      gt, (unsigned char*)flag, x, y, z, gs, cout);
   rc = (int)cudaGetLastError();
-  if (rc != 0 || splits == 1) return rc;
-  const long long n = 27LL * cin * cout;
-  reduce_kernel<<<grid_1d(n, 256), 256, 0, s>>>((const float*)partial,
-                                                (float*)dw, n, splits);
-  return (int)cudaGetLastError();
+  if (rc != 0 || stage == kLive) return rc;
+  rc = split_volume((const float*)vol, (__nv_bfloat16*)vterms, cells * cs, s);
+  if (rc != 0) return rc;
+  return run_gemm<3, 1>(vterms, gterms, dw, flag, partial, b, x, y, z, cs,
+                        gs, cin, cout, splits, s);
 }
 
 extern "C" const char* brick_conv_dw_error_string(int code) {

@@ -4,8 +4,9 @@ Port of `SparseConv`, `SparseConvTranspose`, `GenerativeConvTranspose`,
 `UpsampleInterpolate` and `ChannelwiseConv` from
 `mink_octtree_stablediffusion_tpu/nn/conv.py`, the convs with the same branch
 order: identity (k1 s1) → dense no-growth → brick dense volume (behind
-``ops.enable_brick_conv``, off by default, never for CPU tensors, bf16
-compute only) → fused kernel (bounded grids, unless
+``ops.enable_brick_conv``, off by default, never for CPU tensors; at bf16
+compute the brick kernels B5, its dF pass and B6, at float32 their
+split-term instantiations B5-f32, dF-f32 and B6-f32) → fused kernel (bounded grids, unless
 ``ops.use_onehot_conv(False)``) → the opt-in dense route
 (``ops.enable_dense_conv``, off by default) → plain gather-GEMM over a kernel map (unbounded grids always: the JAX package
 has no kernel for them either).  Kernel
@@ -138,7 +139,7 @@ class _ConvBase(nn.Module):
                                            self.bias, compute_dtype=cd)
         elif (allow_same_grid_dense and out_grid is x.grid and
               brick_preferred(spec, x.grid, cin, self.out_channels,
-                              x.features.device, cd)):
+                              x.features.device)):
             branch = "brick"
             out = brick_pallas_conv(*args, x.grid, compute_dtype=cd)
             if self.bias is not None:

@@ -19,6 +19,17 @@ back.  Replaces the TPU kernels of that module:
   in order (plain versions of its passes: ``live_tiles``,
   ``_vol_conv_dw_splits_plain``; its plan: ``dw_splits``).
 
+Each kernel computes at bf16 or at float32, the dtype of the volume it is
+given (the compute dtype, as in JAX, where nothing on the brick route
+depends on it).  At float32 a cast pass splits each float32 volume into
+three bf16 volumes and the pack pass writes three bf16 terms of the
+weight (one of a weight stored in bf16: ``fused_conv.operand_terms``), and
+the kernels sum the products of the terms whose indices add up to at most
+2 on the bf16 tensor cores, each step's products from zero into a second
+float32 sum: the float32-accurate instantiations B5-f32, its dF pass and
+B6-f32 (plain versions of the passes: ``fused_conv.split_terms`` and
+``pack_weight(..., terms=3)``).
+
 The TPU layout (128-lane channel padding, z padded by 8, brick-order
 output) is Mosaic mechanics.  Here a volume is ``[B, X+2, Y+2, Z+2, CP]``
 in the compute dtype, with a 1-cell zero shell and the channels padded to
@@ -49,6 +60,7 @@ import numpy as np
 import torch
 
 from .conv import mm_f32
+from .fused_conv import operand_terms, split_terms
 from .coords import SparseGrid, _cells
 from .kernels import KernelSpec, RegionType
 from ..utils.device import stream_guard
@@ -131,13 +143,16 @@ def n_tiles(b: int, x: int, y: int, z: int) -> int:
     return b * math.prod(-(-n // t) for n, t in zip((x, y, z), TILE))
 
 
-def dw_splits(b: int, x: int, y: int, z: int, cin: int, cout: int) -> int:
+def dw_splits(b: int, x: int, y: int, z: int, cin: int, cout: int,
+              terms: int = 1) -> int:
     """B6's splits S of the live tiles: as many as one wave of GEMM blocks
     (one on each of ``DW_SMS`` SMs) holds beside the (dx plane, 64-channel
-    Cin tile, 64-channel Cout tile) columns, at most one a tile and float32
+    Cin tile, 64-channel Cout tile) columns -- at float32 (``terms`` 3) a
+    column per (dx plane, dz tap) --, at most one a tile and float32
     partials [S, 27, Cin, Cout] of ``DW_PARTIAL_BYTES``, at least 1: a pure
     function of the shape."""
-    cols = 3 * -(-cin // DW_CIN_TILE) * -(-cout // DW_COUT_TILE)
+    cols = (3 if terms == 1 else 9) * -(-cin // DW_CIN_TILE) * \
+        -(-cout // DW_COUT_TILE)
     return max(1, min(DW_SMS // cols, n_tiles(b, x, y, z),
                       DW_PARTIAL_BYTES // (4 * 27 * cin * cout)))
 
@@ -203,12 +218,22 @@ _ENTRIES = {
     "brick_conv_forward": (SOURCE,
                            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 +
                            [ctypes.c_void_p], "brick_conv_error_string"),
+    "brick_conv_forward_f32": (SOURCE,
+                               [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 +
+                               [ctypes.c_void_p], "brick_conv_error_string"),
     "brick_conv_pack": (SOURCE,
-                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 +
+                        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 +
                         [ctypes.c_void_p], "brick_conv_error_string"),
+    "brick_conv_split": (SOURCE,
+                         [ctypes.c_void_p] * 2 + [ctypes.c_longlong] +
+                         [ctypes.c_void_p], "brick_conv_error_string"),
     "brick_conv_dkernel": (DW_SOURCE,
                            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 +
                            [ctypes.c_void_p], "brick_conv_dw_error_string"),
+    "brick_conv_dkernel_f32": (DW_SOURCE,
+                               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 +
+                               [ctypes.c_void_p],
+                               "brick_conv_dw_error_string"),
 }
 
 
@@ -220,9 +245,10 @@ def _lib(entry: str):
 
 
 def _check_volume(name: str, t: torch.Tensor, dev, shape4=None):
-    if t.dtype != torch.bfloat16:
+    if t.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"the CUDA brick conv computes in bfloat16, not {t.dtype}")
+            f"the CUDA brick conv computes in bfloat16 or float32, not "
+            f"{t.dtype}")
     if (t.device != dev or t.dim() != 5 or not t.is_contiguous() or
             t.shape[-1] % CK or min(t.shape[1:4]) < 3):
         raise ValueError(f"{name}: need a contiguous [B, X+2, Y+2, Z+2, C] "
@@ -233,35 +259,40 @@ def _check_volume(name: str, t: torch.Tensor, dev, shape4=None):
                          f"{shape4}")
 
 
-def tile_cout(cout: int) -> int:
+def tile_cout(cout: int, terms: int = 1) -> int:
     """B5's Cout tile NT (16, 32, 64 or 128): one block covers Cout ≤ 128
-    whole, so a halo chunk is loaded once per tile."""
+    whole, so a halo chunk is loaded once per tile.  The float32
+    instantiation (``terms`` 3) keeps a second float32 sum beside its
+    accumulators and takes at most 64."""
     for nt in (16, 32, 64):
         if cout <= nt:
             return nt
-    return 128
+    return 128 if terms == 1 else 64
 
 
-def pack_weight(kernel: torch.Tensor, mirror: bool = False) -> torch.Tensor:
+def pack_weight(kernel: torch.Tensor, mirror: bool = False,
+                terms: int = 1) -> torch.Tensor:
     """B5's weight as its kernel reads it, the plain version of the pack
     pass that ``brick_conv.cu`` runs before the conv: ``W[27, Cin, Cout]``
     (``W'[k] = W[26-k]ᵀ`` of the forward's kernel for the dF pass,
     ``mirror``) zero-padded to whole 16-channel chunks and NT-wide Cout
-    tiles, as bf16 [Cout tiles, Cin chunks, 27, NT/8, 2, 8, 8]:
-    ``packed[t, c, k, nb, kb, ni, ki] = W[k, 16c + 8kb + ki, NT·t + 8nb +
-    ni]``.  Each tap's 16 × NT slab is in the K-major order of 8 × 8 core
-    matrices that the tensor cores read from shared memory, and one ring
-    stage of the kernel (9 taps of a chunk and tile) is one contiguous
-    slab."""
+    tiles (``tile_cout(Cout, terms)``), as bf16 [Cout tiles, Cin chunks,
+    27, NT/8, 2, 8, 8]: ``packed[t, c, k, nb, kb, ni, ki] = W[k, 16c + 8kb
+    + ki, NT·t + 8nb + ni]``.  Each tap's 16 × NT slab is in the K-major
+    order of 8 × 8 core matrices that the tensor cores read from shared
+    memory, and one ring stage of the kernel (9 taps of a chunk and tile)
+    is one contiguous slab.  With ``terms`` 3 (float32 compute) the three
+    bf16 terms of each value (``split_terms``), [3, ...] in that layout."""
     w = _mirror_transpose(kernel) if mirror else kernel
     k, cin, cout = w.shape
-    nt = tile_cout(cout)
+    nt = tile_cout(cout, terms)
     nch, nct = -(-cin // CK), -(-cout // nt)
     if (nch * CK, nct * nt) != (cin, cout):
         w = torch.nn.functional.pad(w, (0, nct * nt - cout,
                                         0, nch * CK - cin))
     w = w.reshape(k, nch, 2, 8, nct, nt // 8, 8).permute(4, 1, 0, 5, 2, 6, 3)
-    return w.to(torch.bfloat16, memory_format=torch.contiguous_format)
+    out = split_terms(w, terms)
+    return out[0] if terms == 1 else out
 
 
 def _packed_shape(cin: int, cout: int, nt: int) -> tuple:
@@ -280,25 +311,47 @@ def _check_kernel(kernel: torch.Tensor, dev) -> None:
                          f"{tuple(kernel.shape)} on {kernel.device}")
 
 
-def _launch_pack(kernel: torch.Tensor, mirror: bool = False) -> torch.Tensor:
+def _launch_pack(kernel: torch.Tensor, mirror: bool = False,
+                 terms: int = 1) -> torch.Tensor:
     """The pack pass alone on the card (``pack_weight``'s counterpart; B5's
     launch runs it itself), for the card test that holds the two equal."""
     _check_kernel(kernel, kernel.device)
     _, cin, cout = kernel.shape
     if mirror:
         cin, cout = cout, cin
-    nt = tile_cout(cout)
+    nt = tile_cout(cout, terms)
     wp = torch.empty(_packed_shape(cin, cout, nt), dtype=torch.bfloat16,
                      device=kernel.device)
+    if terms > 1:
+        wp = torch.empty((terms,) + wp.shape, dtype=torch.bfloat16,
+                         device=kernel.device)
     fn, err = _lib("brick_conv_pack")
     stream, guard = stream_guard(kernel.device)
     with guard:
         rc = fn(kernel.data_ptr(), wp.data_ptr(), cin, cout, nt, int(mirror),
-                int(kernel.dtype == torch.bfloat16), stream)
+                int(kernel.dtype == torch.bfloat16), terms, stream)
     if rc != 0:
         raise RuntimeError("brick_conv_pack launch failed: " +
                            err(rc).decode())
     return wp
+
+
+def _launch_split(x: torch.Tensor) -> torch.Tensor:
+    """The float32 instantiations' cast pass alone on the card: a float32
+    volume as bf16 [3, *x.shape] (``split_terms``' counterpart), for the
+    card test that holds the two equal."""
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() % 4:
+        raise ValueError("need a contiguous float32 tensor of 4k values")
+    out = torch.empty((3,) + tuple(x.shape), dtype=torch.bfloat16,
+                      device=x.device)
+    fn, err = _lib("brick_conv_split")
+    stream, guard = stream_guard(x.device)
+    with guard:
+        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
+    if rc != 0:
+        raise RuntimeError("brick_conv_split launch failed: " +
+                           err(rc).decode())
+    return out
 
 
 def _launch(volp: torch.Tensor, kernel: torch.Tensor,
@@ -307,7 +360,10 @@ def _launch(volp: torch.Tensor, kernel: torch.Tensor,
     X, Y, Z, Co] output, and launch ``brick_conv.cu`` on PyTorch's current
     stream: its weight pack, then the conv (B5; its dF pass with
     ``mirror``, where ``kernel`` is the forward's [27, Cin, Cout] and the
-    pack applies W'[k] = W[26-k]ᵀ).  Counts nothing: the wrappers do."""
+    pack applies W'[k] = W[26-k]ᵀ).  A float32 volume launches the float32
+    instantiation, which first splits the volume into three bf16 terms (a
+    workspace allocated here) and packs the weight's terms.  Counts
+    nothing: the wrappers do."""
     dev = volp.device
     _check_volume("volume", volp, dev)
     _check_kernel(kernel, dev)
@@ -322,24 +378,37 @@ def _launch(volp: torch.Tensor, kernel: torch.Tensor,
                       device=dev)
     if out.numel() == 0:
         return out
-    nt = tile_cout(cout)
-    wp = torch.empty(_packed_shape(cin, cout, nt), dtype=torch.bfloat16,
-                     device=dev)
-    fn, err = _lib("brick_conv_forward")
+    w_bf16 = kernel.dtype == torch.bfloat16
+    f32 = volp.dtype == torch.float32
+    tw = operand_terms(volp.dtype, w_bf16)[1]
+    nt = tile_cout(cout, 3 if f32 else 1)
+    wp = torch.empty((tw,) + _packed_shape(cin, cout, nt),
+                     dtype=torch.bfloat16, device=dev)
+    geometry = (b, xp - 2, yp - 2, zp - 2, cs, cin, cout, nt, int(mirror),
+                int(w_bf16))
     stream, guard = stream_guard(dev)
-    with guard:
-        rc = fn(volp.data_ptr(), kernel.data_ptr(), wp.data_ptr(),
-                out.data_ptr(), b, xp - 2, yp - 2, zp - 2, cs, cin, cout, nt,
-                int(mirror), int(kernel.dtype == torch.bfloat16), stream)
+    if f32:
+        vterms = torch.empty((3,) + tuple(volp.shape), dtype=torch.bfloat16,
+                             device=dev)
+        fn, err = _lib("brick_conv_forward_f32")
+        with guard:
+            rc = fn(volp.data_ptr(), vterms.data_ptr(), kernel.data_ptr(),
+                    wp.data_ptr(), out.data_ptr(), *geometry, stream)
+    else:
+        fn, err = _lib("brick_conv_forward")
+        with guard:
+            rc = fn(volp.data_ptr(), kernel.data_ptr(), wp.data_ptr(),
+                    out.data_ptr(), *geometry, stream)
     if rc != 0:
         raise RuntimeError("brick_conv launch failed: " + err(rc).decode())
     return out
 
 
 @functools.lru_cache(maxsize=256)
-def _dw_plan(b: int, x: int, y: int, z: int, cin: int, cout: int) -> tuple:
+def _dw_plan(b: int, x: int, y: int, z: int, cin: int, cout: int,
+             terms: int = 1) -> tuple:
     """B6's plan for a shape: (tiles, splits)."""
-    return n_tiles(b, x, y, z), dw_splits(b, x, y, z, cin, cout)
+    return n_tiles(b, x, y, z), dw_splits(b, x, y, z, cin, cout, terms)
 
 
 def _run_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int, cout: int,
@@ -350,29 +419,44 @@ def _run_dw(volp: torch.Tensor, gvolp: torch.Tensor, cin: int, cout: int,
     stream with the plan's splits (``_dw_plan``, or ``splits``), writing dW
     into ``out`` (``full``).  The workspace, returned: the live tiles'
     flags uint8 [tiles], then (256-byte aligned, where S > 1) the float32
-    partials [S, 27, Cin, Cout]."""
+    partials [S, 27, Cin, Cout].  Float32 volumes launch the float32
+    instantiation, whose cast pass writes both volumes' three bf16 terms
+    into buffers allocated here."""
     dev = volp.device
     _check_volume("volume", volp, dev)
     _check_volume("cotangent volume", gvolp, dev, tuple(volp.shape[:4]))
+    if gvolp.dtype != volp.dtype:
+        raise ValueError(f"volumes of {volp.dtype} and {gvolp.dtype}")
     b, xp, yp, zp, cs = volp.shape
     if not (1 <= cin <= cs and 1 <= cout <= gvolp.shape[-1]):
         raise ValueError(f"{cin}→{cout} channels in volumes of {cs} and "
                          f"{gvolp.shape[-1]}")
-    tiles, plan = _dw_plan(b, xp - 2, yp - 2, zp - 2, cin, cout)
+    f32 = volp.dtype == torch.float32
+    tiles, plan = _dw_plan(b, xp - 2, yp - 2, zp - 2, cin, cout,
+                           3 if f32 else 1)
     splits = splits or plan
     at_part = -(-tiles // 256) * 256
     ws = torch.empty(at_part + (4 * splits * 27 * cin * cout
                                 if splits > 1 else 0),
                      dtype=torch.uint8, device=dev)
     base = ws.data_ptr()
-    fn, err = _lib("brick_conv_dkernel")
+    args = (None if out is None else out.data_ptr(), base,
+            base + at_part if splits > 1 else None, b, xp - 2, yp - 2,
+            zp - 2, cs, gvolp.shape[-1], cin, cout, splits,
+            DW_STAGES.index(stage))
     stream, guard = stream_guard(dev)
-    with guard:
-        rc = fn(volp.data_ptr(), gvolp.data_ptr(),
-                None if out is None else out.data_ptr(), base,
-                base + at_part if splits > 1 else None, b,
-                xp - 2, yp - 2, zp - 2, cs, gvolp.shape[-1], cin, cout,
-                splits, DW_STAGES.index(stage), stream)
+    if f32:
+        vterms, gterms = (torch.empty((3,) + tuple(t.shape),
+                                      dtype=torch.bfloat16, device=dev)
+                          for t in (volp, gvolp))
+        fn, err = _lib("brick_conv_dkernel_f32")
+        with guard:
+            rc = fn(volp.data_ptr(), gvolp.data_ptr(), vterms.data_ptr(),
+                    gterms.data_ptr(), *args, stream)
+    else:
+        fn, err = _lib("brick_conv_dkernel")
+        with guard:
+            rc = fn(volp.data_ptr(), gvolp.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError("brick_conv_dkernel launch failed: " +
                            err(rc).decode())
@@ -526,14 +610,13 @@ def enable_brick_conv(flag: bool) -> None:
 
 
 def brick_preferred(spec: KernelSpec, grid: SparseGrid, cin: int, cout: int,
-                    device, compute_dtype=torch.bfloat16) -> bool:
-    """Whether a conv of tensors on ``device`` at ``compute_dtype`` takes
-    the brick route: the gate is on, the tensors are not on the CPU, the
-    compute dtype is bf16 (the brick kernels' only one; a float32 conv
-    takes the fused route, whose kernels compute float32 too), both widths
-    are ≤ 128 and the conv is ``brick_pallas_applicable``."""
-    if (not _BRICK_ENABLED or torch.device(device).type == "cpu" or
-            compute_dtype != torch.bfloat16):
+                    device) -> bool:
+    """Whether a conv of tensors on ``device`` takes the brick route: the
+    gate is on, the tensors are not on the CPU, both widths are ≤ 128 and
+    the conv is ``brick_pallas_applicable`` -- JAX's rule, with no clause
+    on the compute dtype (the brick kernels compute bf16 or, through their
+    split-term instantiations, float32)."""
+    if not _BRICK_ENABLED or torch.device(device).type == "cpu":
         return False
     if cin > 128 or cout > 128:
         return False

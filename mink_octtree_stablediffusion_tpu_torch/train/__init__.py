@@ -3,7 +3,9 @@ entry points are the modules ``train.vae``, ``train.diffusion``,
 ``train.generalize``, ``train.cond``, ``train.diffusion_cross`` and the
 model zoo's ``train.classification``, ``train.segmentation``,
 ``train.reconstruction``, ``train.vqvae`` and ``train.diffusion_dense``,
-and the bf16-vs-float32 check ``train.check_bf16_training`` (imported on
+the bf16-vs-float32 check ``train.check_bf16_training``, and the quality
+and diagnosis scripts ``train.e2e_quality``, ``train.vqvae_quality``,
+``train.diag_eval_decode`` and ``train.measure_occupancy`` (imported on
 demand, so that ``python -m
 mink_octtree_stablediffusion_tpu_torch.train.vae`` runs them)."""
 

@@ -23,7 +23,10 @@ OK``; exits non-zero when a check fails.
 On the card both runs go through the fused conv's kernels: the float32 run
 through B1/B2/B3's float32-accurate split-term instantiations, with TF32
 off (``utils.device.resolve_device``), so that the dense routes compute
-float32 too.
+float32 too.  With the brick gate on (``ops.enable_brick_conv``), its
+k3 s1 convs of ≤ 128 channels (the level-0 32→32 convs at 64³ × 4) take
+the brick kernels, at float32 their split-term instantiations (B5-f32,
+dF-f32, B6-f32).
 """
 
 from __future__ import annotations
@@ -116,7 +119,8 @@ def run_arm(env: dict, dtype, steps: int, log_every: int,
             eps=None) -> dict:
     """Train a copy of ``env``'s VAE for ``steps`` steps with the convs
     computing in ``dtype``: the BCE curve ``[(step, bce)]`` every
-    ``log_every`` steps and at the last, each step's wall seconds (to a
+    ``log_every`` steps and at the last, every step's loss, each step's
+    wall seconds (to a
     device sync), the first step's conv routes (``nn.record_routes``),
     whether TF32 was on, and ``one_more_step``, which runs a further step
     of the same run.  ``eps(i)``, where given, is step i's
@@ -137,21 +141,22 @@ def run_arm(env: dict, dtype, steps: int, log_every: int,
         finally:
             set_default_compute_dtype(None)
 
-    curve, walls, first = [], [], []
+    curve, losses, walls, first = [], [], [], []
     for i in range(steps):
         _sync(dev)
         t0 = time.perf_counter()
         with record_routes() as routes:
-            _, aux = step(i)
+            loss, aux = step(i)
         _sync(dev)
         walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
         first = first or routes
         if i % log_every == 0 or i == steps - 1:
             curve.append((i, float(aux["bce"])))
     tf32 = dev.type == "cuda" and bool(torch.backends.cuda.matmul.allow_tf32
                                        or torch.backends.cudnn.allow_tf32)
-    return dict(curve=curve, walls=walls, routes=first, tf32=tf32,
-                one_more_step=lambda: step(steps))
+    return dict(curve=curve, losses=losses, walls=walls, routes=first,
+                tf32=tf32, one_more_step=lambda: step(steps))
 
 
 def verdict(curves: dict, tol: float) -> tuple:

@@ -80,8 +80,7 @@ def build_loss_fn(*, input_capacity: int, batch_size: int, resolution: int,
     feature, decoded against its own grid."""
 
     def loss_fn(model, batch, generator=None):
-        cpad, valid = (torch.as_tensor(np.asarray(a), device=device)
-                       for a in batch[:2])
+        cpad, valid = (torch.as_tensor(a, device=device) for a in batch[:2])
         st = sparse_tensor(cpad, valid[:, None].float(),
                            capacity=input_capacity, batch_size=batch_size,
                            valid=valid, extent=(resolution,) * 3)

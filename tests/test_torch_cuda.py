@@ -529,17 +529,18 @@ def test_brick_conv_ragged_dense_and_empty_volumes():
     assert torch.all(vol_conv.vol_conv_tiles(zero, k) == 0)
     assert torch.all(vol_conv.vol_conv_dw(zero, gvolp, 24, 40) == 0)
     with pytest.raises(NotImplementedError):
-        vol_conv.vol_conv_tiles(volp.float(), k)
+        vol_conv.vol_conv_tiles(volp.half(), k)
 
 
-def _b6_volumes(dev, shape, cin, cout, occupancy, seed):
-    """Padded bf16 input and cotangent volumes whose cells are occupied
-    with probability ``occupancy`` (the same cells in both)."""
+def _b6_volumes(dev, shape, cin, cout, occupancy, seed,
+                dtype=torch.bfloat16):
+    """Padded input and cotangent volumes in ``dtype`` whose cells are
+    occupied with probability ``occupancy`` (the same cells in both)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     occ = torch.rand(shape, device=dev, generator=gen) < occupancy
     f = torch.randn(*shape, cin, device=dev, generator=gen) * occ[..., None]
     g = torch.randn(*shape, cout, device=dev, generator=gen) * occ[..., None]
-    return vol_conv.pad_volume(f), vol_conv.pad_volume(g)
+    return vol_conv.pad_volume(f, dtype), vol_conv.pad_volume(g, dtype)
 
 
 @pytest.mark.cuda
@@ -643,6 +644,150 @@ def test_brick_pack_pass_matches_plain(cin, cout):
         got = vol_conv._launch_pack(k, mirror)
         torch.cuda.synchronize()
         assert torch.equal(got, vol_conv.pack_weight(k, mirror)), mirror
+
+
+def _close_f32(got, ref):
+    """A float32 instantiation against its float32 plain version:
+    2e-5·max|ref| (above float32 summation-order error, below what bf16 or
+    TF32 rounding of the operands gives)."""
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    assert err <= 2e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (32, 32), (128, 128),
+                                      (5, 70), (96, 17)])
+def test_brick_f32_kernels_match_plain(cin, cout):
+    """B5-f32, its dF pass and B6-f32 through ``brick_pallas_conv`` at
+    float32 compute and its backward, each launched once, against their
+    float32 plain versions on the same float32 volumes (the cotangent kept
+    float32, as JAX's ``_brick_bwd`` at float32)."""
+    dev = _card()
+    g = _grid(dev, n=900, cap=2048, ext=16, bsz=2)
+    f = (torch.randn(g.capacity, cin, device=dev) *
+         g.valid[:, None]).requires_grad_()
+    k = (torch.randn(27, cin, cout, device=dev) * 0.1).requires_grad_()
+    gout = torch.randn(g.capacity, cout, device=dev) * g.valid[:, None]
+    before = _brick_counts()
+    out = mp.ops.brick_pallas_conv(f, k, g, compute_dtype=torch.float32)
+    out.backward(gout)
+    assert [a - b for a, b in zip(_brick_counts(), before)] == [1, 1, 1]
+    cells = [16, 16, 16]
+    volp = vol_conv._scatter(f.detach(), g, cells, torch.float32)
+    gvolp = vol_conv._scatter(gout, g, cells, torch.float32)
+    _close_f32(out, vol_conv._gather(vol_conv._vol_conv_plain(
+        volp, k.detach()), g, cells))
+    _close_f32(f.grad, vol_conv._gather(vol_conv._vol_conv_plain(
+        gvolp, k.detach(), mirror=True), g, cells))
+    _close_f32(k.grad, vol_conv._vol_conv_dw_plain(volp, gvolp, cin, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (4, 128), (128, 4),
+                                      (128, 128)])
+def test_brick_f32_tile_edges(cin, cout):
+    """B5-f32 and its dF pass (and B6-f32) at ``test_brick_conv_tile_edges``'
+    shapes: dense ragged volumes, a partly zero halo, an all-zero volume;
+    B5-f32 also on a bf16 weight (one weight term)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    vol = torch.randn(2, 6, 5, 21, cin, device=dev, generator=gen)
+    volp = vol_conv.pad_volume(vol, torch.float32)
+    k = torch.randn(27, cin, cout, device=dev,
+                    generator=gen) / np.sqrt(27 * cin)
+    _close_f32(vol_conv.vol_conv_tiles(volp, k),
+               vol_conv._vol_conv_plain(volp, k))
+    kb = k.bfloat16()
+    _close_f32(vol_conv.vol_conv_tiles(volp, kb),
+               vol_conv._vol_conv_plain(volp, kb.float()))
+    gvolp = vol_conv.pad_volume(torch.randn(2, 6, 5, 21, cout, device=dev,
+                                            generator=gen), torch.float32)
+    _close_f32(vol_conv.vol_conv_dfeatures(gvolp, k),
+               vol_conv._vol_conv_plain(gvolp, k, mirror=True))
+    _close_f32(vol_conv.vol_conv_dw(volp, gvolp, cin, cout),
+               vol_conv._vol_conv_dw_plain(volp, gvolp, cin, cout))
+    part = volp.clone()
+    part[..., 16:] = 0
+    part[:, :, :, 9:] = 0
+    _close_f32(vol_conv.vol_conv_tiles(part, k),
+               vol_conv._vol_conv_plain(part, k))
+    zero = torch.zeros_like(volp)
+    assert torch.all(vol_conv.vol_conv_tiles(zero, k) == 0)
+    assert torch.all(vol_conv.vol_conv_dfeatures(torch.zeros_like(gvolp),
+                                                 k) == 0)
+
+
+@pytest.mark.cuda
+def test_brick_f32_ragged_dense_and_empty_volumes():
+    """B5-f32, dF-f32 and B6-f32 at ``test_brick_conv_ragged_dense_and_
+    empty_volumes``' shapes, and on all-zero volumes."""
+    dev = _card()
+    volp = vol_conv.pad_volume(torch.randn(2, 5, 7, 19, 24, device=dev),
+                               torch.float32)
+    k = torch.randn(27, 24, 40, device=dev) * 0.1
+    _close_f32(vol_conv.vol_conv_tiles(volp, k),
+               vol_conv._vol_conv_plain(volp, k))
+    gvolp = vol_conv.pad_volume(torch.randn(2, 5, 7, 19, 40, device=dev),
+                                torch.float32)
+    _close_f32(vol_conv.vol_conv_dw(volp, gvolp, 24, 40),
+               vol_conv._vol_conv_dw_plain(volp, gvolp, 24, 40))
+    _close_f32(vol_conv.vol_conv_dfeatures(gvolp, k),
+               vol_conv._vol_conv_plain(gvolp, k, mirror=True))
+    zero = torch.zeros_like(volp)
+    assert torch.all(vol_conv.vol_conv_tiles(zero, k) == 0)
+    assert torch.all(vol_conv.vol_conv_dw(zero, gvolp, 24, 40) == 0)
+    assert torch.all(vol_conv.vol_conv_dw(volp, torch.zeros_like(gvolp), 24,
+                                          40) == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("occupancy", [1.0, 0.01])
+@pytest.mark.parametrize("cin,cout", [(4, 4), (128, 128), (24, 40)])
+def test_b6_f32_launches_are_bit_identical(cin, cout, occupancy):
+    """B6-f32 twice at the plan's split count and twice at 1 and 3 splits:
+    each pair equal bit for bit, each within 2e-5·max|ref| of the float32
+    plain version."""
+    dev = _card()
+    shape = (2, 8, 12, 32)
+    volp, gvolp = _b6_volumes(dev, shape, cin, cout, occupancy, cin + cout,
+                              torch.float32)
+    ref = vol_conv._vol_conv_dw_plain(volp, gvolp, cin, cout)
+    plan = vol_conv.dw_splits(*shape, cin, cout, 3)
+    for splits in sorted({plan, 1, 3}):
+        def run():
+            out = torch.empty(27, cin, cout, device=dev)
+            vol_conv._run_dw(volp, gvolp, cin, cout, out, "full", splits)
+            return out
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), splits
+        _close_f32(a, ref)
+    assert torch.equal(vol_conv._launch_dw(volp, gvolp, cin, cout),
+                       vol_conv._launch_dw(volp, gvolp, cin, cout))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 4), (5, 70), (96, 17), (128, 128),
+                                      (24, 200)])
+def test_brick_f32_passes_match_plain(cin, cout):
+    """The float32 instantiations' passes equal their plain versions
+    exactly: the cast pass (``_launch_split`` against ``split_terms``) and
+    the three-term pack (``_launch_pack(..., terms=3)`` against
+    ``pack_weight(..., terms=3)``, forward and mirrored)."""
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    k = torch.randn(27, cin, cout, device=dev, generator=gen)
+    for mirror in (False, True):
+        got = vol_conv._launch_pack(k, mirror, terms=3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, vol_conv.pack_weight(k, mirror, terms=3))
+    vol = torch.randn(2, 7, 6, 5, 16 * (1 + cin // 16), device=dev,
+                      generator=gen) * 10.0 ** torch.randint(
+        -30, 30, (2, 7, 6, 5, 1), device=dev, generator=gen)
+    assert torch.equal(vol_conv._launch_split(vol),
+                       fused_conv.split_terms(vol, 3))
 
 
 @pytest.mark.cuda
@@ -1340,10 +1485,11 @@ def test_k7_cube_launches_in_offset_bands_on_card():
 
 
 @pytest.mark.cuda
-def test_brick_gate_sends_float32_to_the_fused_kernel():
-    """With the brick gate on, a k3 s1 conv at bf16 compute takes the
-    brick route (B5) and at float32 the fused route, launching B1's
-    float32 variant, where the brick kernels would raise."""
+def test_brick_gate_sends_float32_to_the_brick_kernel():
+    """With the brick gate on, a k3 s1 conv takes the brick route at bf16
+    and at float32 compute, launching B5 once and no fused kernel; at
+    float32 (B5-f32) its output lies within 2e-5·max|ref| of the same conv
+    on the CPU (the fused route's plain version in float32)."""
     dev = _card()
     g = _grid(dev, n=900, cap=2048, ext=16)
     conv = mp.nn.SparseConv(32, 32, kernel_size=3, device=dev)
@@ -1351,18 +1497,20 @@ def test_brick_gate_sends_float32_to_the_fused_kernel():
         g.capacity, 32, device=dev) * g.valid[:, None])
     mp.ops.enable_brick_conv(True)
     try:
-        for cd, branch in ((torch.bfloat16, "brick"),
-                           (torch.float32, "fused")):
+        for cd in (torch.bfloat16, torch.float32):
             conv.compute_dtype = cd
             before = (vol_conv.vol_conv_tiles.launches,
                       fused_conv.fused_sparse_conv.launches)
             with mp.nn.record_routes() as routes:
-                conv(x)
+                out = conv(x)
             torch.cuda.synchronize()
-            assert [r.branch for r in routes] == [branch]
+            assert [r.branch for r in routes] == ["brick"]
             after = (vol_conv.vol_conv_tiles.launches,
                      fused_conv.fused_sparse_conv.launches)
-            assert [a - b for a, b in zip(after, before)] == (
-                [1, 0] if branch == "brick" else [0, 1])
+            assert [a - b for a, b in zip(after, before)] == [1, 0]
     finally:
         mp.ops.enable_brick_conv(False)
+    conv.to("cpu")
+    ref = conv(mp.SparseTensor(grid=_grid("cpu", n=900, cap=2048, ext=16),
+                               features=x.features.cpu()))
+    _close_f32(out.features.cpu(), ref.features)

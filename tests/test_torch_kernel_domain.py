@@ -254,22 +254,93 @@ def test_b1_float32_2d_matches_jax_interpret(rng):
     np.testing.assert_allclose(_np(split), ref, rtol=2e-5, atol=2e-5)
 
 
-def test_brick_gate_declines_float32(rng):
-    """With the brick gate on, ``brick_preferred`` takes a CUDA conv at
-    bf16 compute and declines it at float32 (the brick kernels compute
-    bf16 only; the fused route has a float32 kernel), as on the CPU."""
-    from mink_octtree_stablediffusion_tpu_torch.ops import vol_conv
-    grid = _grid(rng, ext=16, cap=1024)
-    spec = mp.ops.KernelSpec(3, 1, ndim=3)
-    mp.ops.enable_brick_conv(True)
-    try:
-        assert vol_conv.brick_pallas_applicable(spec, grid)
-        assert vol_conv.brick_preferred(spec, grid, 32, 32, "cuda",
-                                        torch.bfloat16)
-        assert vol_conv.brick_preferred(spec, grid, 32, 32, "cuda")
-        assert not vol_conv.brick_preferred(spec, grid, 32, 32, "cuda",
-                                            torch.float32)
-        assert not vol_conv.brick_preferred(spec, grid, 32, 32, "cpu",
-                                            torch.bfloat16)
-    finally:
-        mp.ops.enable_brick_conv(False)
+def test_brick_gate_takes_float32(monkeypatch):
+    """With the brick gate on, ``brick_preferred`` is JAX's rule: it has
+    no compute-dtype clause (JAX's has none; the brick kernels compute
+    float32 through their split-term instantiations), so a float32 conv
+    takes the route as a bf16 one does, and it equals JAX's
+    ``brick_preferred`` over `test_torch_brick.py`'s routing table at the
+    widths the float32 paths give it, never taking a CPU conv."""
+    import inspect
+    import test_torch_brick as tb
+    from mink_octtree_stablediffusion_tpu.ops import vol_conv as jvc
+    from mink_octtree_stablediffusion_tpu_torch.ops import vol_conv as pvc
+    assert list(inspect.signature(pvc.brick_preferred).parameters) == [
+        "spec", "grid", "cin", "cout", "device"]
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    rows, taken = 4, set()
+    for kw, (extent, stride, bsz) in tb._routing_table():
+        jg = mt.ops.SparseGrid(coords=jnp.zeros((rows, 4), jnp.int32),
+                               valid=jnp.ones(rows, bool),
+                               stride=(stride,) * 3, batch_size=bsz,
+                               extent=extent)
+        pg = mp.ops.SparseGrid(coords=torch.zeros(rows, 4, dtype=torch.int32),
+                               valid=torch.ones(rows, dtype=torch.bool),
+                               stride=(stride,) * 3, batch_size=bsz,
+                               extent=extent)
+        js, ps = tb._spec(mt, kw), tb._spec(mp, kw)
+        for cin, cout in ((4, 4), (32, 32), (128, 128), (129, 4)):
+            jvc.enable_brick_conv(True)
+            pvc.enable_brick_conv(True)
+            try:
+                want = jvc.brick_preferred(js, jg, cin, cout)
+                got = pvc.brick_preferred(ps, pg, cin, cout, "cuda")
+                on_cpu = pvc.brick_preferred(ps, pg, cin, cout, "cpu")
+            finally:
+                jvc.enable_brick_conv(False)
+                pvc.enable_brick_conv(False)
+            assert got == want, (kw, extent, cin, cout)
+            assert not on_cpu
+            taken.add(want)
+    assert taken == {True, False}
+
+
+def test_brick_f32_terms_rebuild_float32(rng):
+    """The float32 brick instantiations' operands: the three-term weight
+    pack (``vol_conv.pack_weight(..., terms=3)``, forward and mirrored)
+    and the volume's terms (``split_terms`` of a float32 padded volume,
+    the cast pass's plain version) sum back to the float32 values within
+    2⁻²⁴ of each; term 0 of the pack is the bf16 pack; the Cout tile is at
+    most 64; and the six products of terms, each a float32 sum of exact
+    bf16 products as on the tensor cores, give B5's float32 function and
+    B6's within 2e-5·max|ref|."""
+    from mink_octtree_stablediffusion_tpu_torch.ops import vol_conv as pvc
+    cin, cout = 20, 90
+    k = _t((rng.randn(27, cin, cout) * 10.0 ** rng.uniform(
+        -3, 1, (27, cin, cout))).astype(np.float32))
+    assert pvc.tile_cout(cout, 3) == 64 and pvc.tile_cout(cout) == 128
+    kt = fc.split_terms(k, 3)
+    assert torch.all((kt.double().sum(0) - k.double()).abs() <=
+                     2.0 ** -24 * k.double().abs())
+    for mirror in (False, True):
+        w3 = pvc.pack_weight(k, mirror, terms=3)
+        assert w3.dtype == torch.bfloat16 and w3.shape[0] == 3
+        # term u of the pack is the pack of term u (exact in bf16), laid
+        # out in the 64-wide Cout tiles of the float32 instantiation
+        for u in range(3):
+            wu = kt[u].float()
+            assert torch.equal(w3[u], pvc.pack_weight(wu, mirror, terms=3)[0])
+            ref = pvc._mirror_transpose(wu) if mirror else wu
+            got = w3[u].float().permute(2, 1, 4, 6, 0, 3, 5).reshape(
+                27, w3.shape[2] * 16, -1)
+            assert torch.equal(got[:, :ref.shape[1], :ref.shape[2]], ref)
+            assert torch.all(got[:, ref.shape[1]:] == 0)
+            assert torch.all(got[:, :, ref.shape[2]:] == 0)
+    vol = _t(rng.randn(2, 8, 8, 16, cin).astype(np.float32))
+    volp = pvc.pad_volume(vol, torch.float32)
+    assert volp.dtype == torch.float32
+    vt = fc.split_terms(volp, 3)
+    assert torch.all((vt.double().sum(0) - volp.double()).abs() <=
+                     2.0 ** -24 * volp.double().abs())
+    got = sum(pvc._vol_conv_plain(vt[i].float(), kt[j].float())
+              for i in range(3) for j in range(3) if i + j <= 2)
+    ref = pvc._vol_conv_plain(volp.double(), k.double())
+    assert (got.double() - ref).abs().max() <= 2e-5 * ref.abs().max()
+    gvolp = pvc.pad_volume(_t(rng.randn(2, 8, 8, 16, cout).astype(
+        np.float32)), torch.float32)
+    gt = fc.split_terms(gvolp, 3)
+    got = sum(pvc._vol_conv_dw_plain(vt[i].float(), gt[j].float(), cin,
+                                     cout)
+              for i in range(3) for j in range(3) if i + j <= 2)
+    ref = pvc._vol_conv_dw_plain(volp.double(), gvolp.double(), cin, cout)
+    assert (got.double() - ref).abs().max() <= 2e-5 * ref.abs().max()
