@@ -26,8 +26,8 @@ read just after:
   be finite with > 0 voxels per instance, take the window, full and
   cross-attention paths, and launch B1 once per fused-route conv; a
   second condition must move the latent.  It prints the requests' wall
-  times, the device's busy share (one profiled request) and the peak
-  memory.
+  times, the device's busy share (one profiled request, cut to
+  ``CANVAS_PROFILE_STEPS`` DDIM steps) and the peak memory.
 - **serving** — ``serve_phase``: the exported generation artifact
   (`serve.py`'s ``export_program``, ``save_artifact``, ``load_artifact``)
   of the generation configuration cut to ``SERVE_STEPS`` DDIM steps,
@@ -108,6 +108,23 @@ read just after:
   earlier path launched.  It prints step walls, the all-reduce's host
   seconds and bytes, and each rank's peak memory.  No fallback: a failed
   rank fails the run.
+- **tensor parallelism** — ``tp_phase``: four spawned ranks share the
+  card in one gloo group as a 2 x 2 ``(data, model)`` mesh
+  (``parallel.dp_tp_mesh``): diffusion training at the diffusion path's
+  widths with the brick gate on, ``TP_BATCH`` shapes a data row, the
+  UNet's conv and dense kernels sharded on Cout over the model axis
+  (``parallel.shard_model_params``: B1-B3, B5, dF and B6 at Cout/2), the
+  gradients averaged over the data axis: (a) both data rows on the same
+  batch and draws, held by rank 0 against one process's step within
+  ``TP_CONTROL_FACTOR`` times the larger of two rounding controls; (b)
+  ``TP_STEPS`` step(s) on a batch of its own a row.  After each step the
+  replicated parameters must be equal bit for bit across the model axis,
+  every parameter across the data axis, every slice of its Cout/2 shape,
+  and each rank's launches those of its routes; rank 0 sends back the
+  operands of its new launch shapes.  It prints the step walls, each
+  rank's data-axis and model-axis (activation gathers, dF sums)
+  collective bytes and host seconds, its peak memory and the sharded and
+  full parameter counts.  No fallback.
 - **unbounded grids and the tensor API** — ``unbounded_phase``: the
   library path's room (a ``TensorField`` with no extent) and finest
   level (``make_grid`` with no extent) as unbounded grids, each beside
@@ -237,6 +254,10 @@ CANVAS_FLAGS = dict(attn_max_len=512, attn_window=64, with_cross_attn=True,
                     cross_attention_dim=768, cond_into_time=True,
                     with_window_attn=True, latent_canvas=True)
 COND_TOKENS, COND_DIM, GUIDANCE = 77, 768, 3.0  # CLIP text; cond_control's top
+# the DDIM steps of the canvas path's profiled request (STEPS until the
+# tensor-parallel phase needed the time: torch.profiler's processing of an
+# 8-step request's ~288,000 kernels took most of the phase's 221-283 s)
+CANVAS_PROFILE_STEPS = 2
 # tiny_train_reference's bounds on the relative RMS, card vs CPU, of each
 # gradient and of each running-statistic update (see there)
 TINY_GRAD_RTOL, TINY_STAT_RTOL = 0.075, 0.02
@@ -872,9 +893,10 @@ def canvas_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
     window, full and cross-attention paths (``nn.record_attention``) and
     launch B1 once per fused-route conv; the path launches no other
     kernel.  After the counts are read: a second condition on request 0's
-    seed must give another latent, and one more request is profiled for
-    the device's busy share.  ``cap`` keeps B1's operands at every launch
-    shape of the path."""
+    seed must give another latent, and one more request, cut to
+    ``CANVAS_PROFILE_STEPS`` DDIM steps, is profiled for the device's busy
+    share (against its own unprofiled wall).  ``cap`` keeps B1's operands
+    at every launch shape of the path."""
     import torch
     failures = []
 
@@ -903,10 +925,10 @@ def canvas_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
           "unet_params": sum(p.numel() for p in unet.parameters())})
 
     @torch.no_grad()
-    def generate(cond, seed):
+    def generate(cond, seed, steps=STEPS):
         gen = torch.Generator(device=dev).manual_seed(seed)
         z = mp.diffusion.sample_latent(
-            unet, sched, template, num_inference_steps=STEPS,
+            unet, sched, template, num_inference_steps=steps,
             encoder_hidden_state=cond, guidance_scale=GUIDANCE,
             generator=gen)
         out_clss, _, sout = vae.decode(
@@ -998,8 +1020,17 @@ def canvas_phase(mp, dev, cap, cpad, valid, max_keep, power) -> dict:
     dz = float((zb.features - z0).abs().max() / z0.abs().max())
     need(dz > 1e-3, "two conditions give the same latent")
     wall_request = statistics.median(r["wall_s"] for r in requests[1:])
-    prof = profile_run("one canvas request",
-                       lambda: generate(conds[0], 9), wall_request)
+
+    def short_request():
+        return generate(conds[0], 9, CANVAS_PROFILE_STEPS)
+    short_request()  # warm, then its unprofiled wall
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short_request()
+    torch.cuda.synchronize()
+    prof = profile_run(
+        f"one canvas request cut to {CANVAS_PROFILE_STEPS} DDIM steps",
+        short_request, time.perf_counter() - t0)
     rec = {"canvas_path_launches": launches, "card": power,
            "fused_route_convs": fused_total,
            "wall_s_requests_2_3": [r["wall_s"] for r in requests[1:]],
@@ -3497,8 +3528,27 @@ def tiny_zoo_reference(mp, dev) -> dict:
 # DP_TIMEOUT_S.
 DP_RANKS, DP_BATCH, DP_TIMEOUT_S = 2, 2, 300
 # (DP_DIFF_STEPS 2 until the quality phase needed the time: a step takes
-# 6-8 s of host all-reduce)
-DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 3, 1, 2
+# 6-8 s of host all-reduce; DP_VAE_STEPS 3 until the tensor-parallel phase)
+DP_VAE_STEPS, DP_DIFF_STEPS, DP_RESNET_STEPS = 2, 1, 2
+# -- the tensor-parallel phase ----------------------------------------------
+# Four ranks share the card over gloo as a 2 x 2 (data, model) mesh,
+# TP_BATCH shapes a data row; TP_STEPS steps on distinct batches after the
+# same-batch step.  The warmup is 0 (lr 1e-4 from the first update), so
+# that every step moves the parameters whose replicas are compared.
+TP_RANKS, TP_BATCH, TP_STEPS = 4, 2, 1
+TP_FLAGS = ["--warmup", "0"]
+# The same-batch step's bound: each of its distances from one process's
+# step (the loss's relative difference, the gradients' relative RMS at the
+# median and the worst tensor) within TP_CONTROL_FACTOR times the larger of
+# two rounding controls' (the noise rounded to bf16; the noise moved by
+# 2^-20 of itself).  On the H100 (80GB HBM3, 700 W) the dp x tp step read
+# 6.1e-4, 0.068, 0.65 against 9.4e-5, 0.071, 0.53 and 4.2e-4, 0.070,
+# 0.69: the bf16 UNet answers any change of a sum's order with bf16
+# rounding flips (the dense route's cuDNN convs round their outputs to
+# bf16 and choose other algorithms at Cout/2; with that route off the step
+# read 4.0e-4 against controls of 1.4e-3 and 8.9e-4), and a loss is one
+# draw of that answer.  A wrong transpose moves the gradients by O(1).
+TP_CONTROL_FACTOR = 2.0
 # the earlier paths whose operands main() checks at every launch shape, and
 # their kernels: the DP ranks send back only the shapes not among them
 # the data phase (``data_phase``): a ModelNet40-layout tree of tori of
@@ -3882,8 +3932,9 @@ def _plain_collate(mp, clouds):
 _VQ_WIDE = ["--resolution", "64", "--points", "32768", "--input_capacity",
             "65536", "--vae_channel", "32", "128", "512", "512", "4"]
 QUALITY_RUNS = {
-    "quality_e2e": ("e2e_quality", ["--steps_vae", "40", "--steps_diff",
-                                    "40"]),
+    # (40 + 40 steps until the tensor-parallel phase needed the time)
+    "quality_e2e": ("e2e_quality", ["--steps_vae", "20", "--steps_diff",
+                                    "20"]),
     "quality_vqvae": ("vqvae_quality", _VQ_WIDE + ["--steps", "20"]),
     "quality_vqvae_stream": ("vqvae_quality",
                              _VQ_WIDE + ["--stream", "--steps", "5"]),
@@ -4530,7 +4581,8 @@ def dp_config() -> dict:
     so a caller's changes to them reach it only through here."""
     names = ("RES", "CAP", "STEPS", "VAE_CH", "UNET_CH", "GROUP", "MAX_KEEP",
              "VAE_SCALE", "TRAIN_LR", "TRAIN_KLD", "DIFF_FLAGS", "DEVICE",
-             "DP_BATCH", "DP_VAE_STEPS", "DP_DIFF_STEPS", "DP_RESNET_STEPS")
+             "DP_BATCH", "DP_VAE_STEPS", "DP_DIFF_STEPS", "DP_RESNET_STEPS",
+             "TP_BATCH", "TP_STEPS", "TP_FLAGS", "TP_CONTROL_FACTOR")
     return {n: globals()[n] for n in names}
 
 
@@ -4985,6 +5037,307 @@ def dp_phase(mp, dev, cap, power) -> dict:
             "launches": launches, "kinds": ranks[0]["kinds"]}
 
 
+def tp_digest(module, sharded: bool) -> str:
+    """SHA-1 of the bytes of ``module``'s replicated parameters, or with
+    ``sharded`` of every parameter (slices included) and buffer."""
+    import hashlib
+    import torch
+    h = hashlib.sha1()
+    ts = [p for p in module.parameters()
+          if sharded or not hasattr(p, "model_shard")]
+    if sharded:
+        ts += list(module.buffers())
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def tp_replicas(module, mesh) -> dict:
+    """Across the model axis the replicated parameters, across the data
+    axis every parameter and buffer (the slices too), equal bit for bit."""
+    import torch.distributed as dist
+    out = {}
+    for axis, sharded in (("model", False), ("data", True)):
+        every = [None] * mesh[axis].size()
+        dist.all_gather_object(every, tp_digest(module, sharded),
+                               group=mesh.get_group(axis))
+        out[axis] = len(set(every)) == 1
+    return out
+
+
+def tp_model_comm(mp) -> dict:
+    """The model-axis collectives since the last ``reset_comm``, by kind."""
+    return {k: dict(v) for k, v in mp.parallel.tp.COMM.items()}
+
+
+def tp_steps(mp, dev, cap, rank, mesh, out) -> None:
+    """One rank's tensor-parallel diffusion training: `examples/
+    train_diffusion.py`'s defaults (``DIFF_FLAGS``, ``TP_FLAGS``: the frozen
+    VAE left whole, the UNet (4, 320, 640, 960), group 32, the brick gate
+    on), the UNet's conv and dense kernels sharded on Cout over the model
+    axis, the gradients averaged over the data axis.  (a) Both data rows
+    take the same batch and draws; rank 0 holds the loss and the gathered
+    (clipped) gradients against one process's step on that batch, within
+    ``TP_CONTROL_FACTOR`` times the larger of two rounding controls (the
+    noise rounded to bf16; moved by 2^-20), as ``dp_vae``.  (b)
+    ``TP_STEPS`` steps on a batch of its own a data row, each row's own
+    draws: finite, the launches those of the routes, the replicas equal
+    bit for bit on each axis, every slice of its local shape."""
+    import torch
+    from mink_octtree_stablediffusion_tpu_torch.train import diffusion as td
+    from mink_octtree_stablediffusion_tpu_torch.train.optim import (
+        clip_by_global_norm_)
+    cfg = td.parse_args(DIFF_FLAGS + TP_FLAGS +
+                        ["--batch_size", str(TP_BATCH)])
+    run = td.setup(cfg, dev)  # seed 0 on every rank: the same weights
+    model = run.model
+    run.state = run.step_fn = None  # their optimizer holds the whole weights
+    full = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    row = mesh.get_local_rank("data")
+    ds = mp.data.SyntheticShapes(resolution=cfg.resolution, num_samples=256)
+
+    def batch(i, r):  # data row r's shapes of global batch i
+        return mp.data.collate_pointclouds(
+            [ds[(i * 2 + r) * TP_BATCH + j]["coords"]
+             for j in range(TP_BATCH)], cfg.input_capacity,
+            cfg.max_batch_len)[:2]
+
+    same = batch(0, 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = torch.randint(0, cfg.ddpm_num_steps, (TP_BATCH,), generator=g,
+                      device=dev, dtype=torch.int32)
+    noise = torch.randn((mp.serve.capacities(cfg.input_capacity)[0][2],
+                         cfg.unet_channel[0]), generator=g, device=dev)
+    mp.ops.enable_brick_conv(True)
+    try:
+        single, controls = None, {}
+        if rank == 0:  # one process's step on the same batch, and controls
+            model.train()
+            for name, n in (("single", noise),
+                            ("control", noise.bfloat16().float()),
+                            ("control_f32", noise * (1.0 + 2.0 ** -20))):
+                model.zero_grad(set_to_none=True)
+                loss, _ = run.loss_fn(model, same, timesteps=t, noise=n)
+                loss.backward()
+                grads = grads_of(model)
+                clip_by_global_norm_(list(grads.values()), 0.5)
+                # on the host: four ranks share the card
+                got = (loss.item(), {n: g.cpu() for n, g in grads.items()})
+                del grads
+                if single is None:
+                    single = got
+                else:
+                    controls[name] = against(*got, *single)
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+        dp_sync(dev)
+        out["reference_peak_bytes"] = dp_peak(dev)
+        mp.parallel.shard_model_params(run.unet, mesh)
+        local = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        sharded = {n for n, p in model.named_parameters()
+                   if hasattr(p, "model_shard")}
+        out["params"] = {"full": sum(math.prod(s) for s in full.values()),
+                         "local": sum(math.prod(s) for s in local.values()),
+                         "sharded_tensors": len(sharded)}
+        n_model = mesh["model"].size()
+
+        def shape_ok(n):  # a slice: 1/n_model of the one sharded axis
+            if n not in sharded:
+                return local[n] == full[n]
+            axes = [i for i, (a, b) in enumerate(zip(local[n], full[n]))
+                    if a != b]
+            return (len(axes) == 1 and
+                    n_model * local[n][axes[0]] == full[n][axes[0]])
+        out["local_shapes_ok"] = bool(sharded) and all(map(shape_ok, full))
+        state = mp.train.TrainState(model, mp.train.diffusion_optimizer(
+            model.parameters(), cfg.lr, cfg.warmup, cfg.total_steps))
+        step = mp.train.make_dp_train_step(run.loss_fn,
+                                           mesh.get_group("data"))
+        mp.parallel.tp.reset_comm()
+        cap.at("tp_same_batch", KERNELS)
+        rec = dp_step(mp, dev, out, "tp_same_batch", -1,
+                      lambda: step(state, same, timesteps=t, noise=noise))
+        cap.at(None)
+        rec["comm"] = dict(step.comm)
+        rec["model_comm"] = tp_model_comm(mp)
+        grads = mp.parallel.gather_model_params(model, mesh, grads=True,
+                                                device="cpu")
+        rec["replicas"] = tp_replicas(model, mesh)
+        if rank == 0:
+            d = against(rec["loss"], grads, *single)
+            keys = ("loss_rel_err", "grad_rel_rms_median", "grad_rel_rms_max")
+            rec.update({**d, **{f"{name}_{k}": v
+                                for name, got in controls.items()
+                                for k, v in got.items()},
+                        "within_controls": all(
+                            d[k] <= max(c[k] for c in controls.values())
+                            for k in keys),
+                        "within_bound": all(
+                            d[k] <= TP_CONTROL_FACTOR *
+                            max(c[k] for c in controls.values())
+                            for k in keys)})
+        del single, grads
+        dp_emit(rank, rec)
+        out["same_batch"] = rec
+        gen = mp.train.split_device_rngs(1, 2, dev)[row]
+        steps = []
+        for i in range(TP_STEPS):
+            mp.parallel.tp.reset_comm()
+            rec = dp_step(mp, dev, out, "tp_diffusion", i, lambda: step(
+                state, batch(i + 1, row), generator=gen))
+            rec["comm"] = dict(step.comm)
+            rec["model_comm"] = tp_model_comm(mp)
+            rec["replicas"] = tp_replicas(model, mesh)
+            rec["local_shapes_ok"] = all(
+                tuple(p.shape) == local[n]
+                for n, p in model.named_parameters())
+            dp_emit(rank, rec)
+            steps.append(rec)
+        out["steps"] = steps
+    finally:
+        mp.ops.enable_brick_conv(False)
+    out["peak_bytes"] = dp_peak(dev)
+
+
+def tp_rank(rank: int, world: int, port: int, tmp: str, cfg: dict) -> None:
+    """One rank of the tensor-parallel phase (a spawned process): joins the
+    gloo group with the other three ranks on the same card, forms the 2 x 2
+    mesh, runs ``tp_steps`` under its own ``LaunchCapture`` and saves its
+    records (rank 0 also the operands of every launch shape not in
+    ``cfg["known"]``)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    globals().update({k: v for k, v in cfg.items() if k != "known"})
+    sys.path.insert(0, str(HERE))
+    import mink_octtree_stablediffusion_tpu_torch as mp
+    dev = mp.parallel.rank_device(DEVICE, rank, world)
+    mp.parallel.initialize_distributed(
+        f"127.0.0.1:{port}", world, rank, backend="gloo",
+        timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    out = {"rank": rank}
+    try:
+        t0 = time.perf_counter()
+        mesh = mp.parallel.dp_tp_mesh(2, world // 2, dev.type)
+        out["mesh_s"] = time.perf_counter() - t0
+        out["groups"] = {a: dist.get_process_group_ranks(mesh.get_group(a))
+                         for a in ("data", "model")}
+        cap = LaunchCapture(mp)
+        if rank:  # only rank 0's operands are checked: keep none here
+            cap.at = lambda path, on=(): LaunchCapture.at(cap, path)
+        with cap:
+            tp_steps(mp, dev, cap, rank, mesh, out)
+        out["counts"] = cap.counts
+        if rank == 0:
+            known = cfg["known"]
+            out["cases"] = {
+                path: {k: {key: tuple(o.cpu() if torch.is_tensor(o) else o
+                                      for o in ops)
+                           for key, ops in got.items()
+                           if key not in known.get(k, ())}
+                       for k, got in kernels.items()}
+                for path, kernels in cap.cases.items()}
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(mp, dev, cap, power, known) -> dict:
+    """Tensor parallelism on one card: ``TP_RANKS`` spawned ranks
+    (``tp_rank``) in one gloo group, a 2 x 2 ``(data, model)`` mesh, run
+    ``tp_steps``.  The kernels are built before (``main``), so the ranks
+    only load them.  No fallback: a rank that fails, a mesh that does not
+    form, or a collective that gloo refuses raises here.  Prints the step
+    walls, each rank's data-axis and model-axis collective bytes and host
+    seconds, its peak memory and the sharded and full parameter counts.
+    Returns the verdict, rank 0's launch counts and the operands of its
+    launch shapes not seen on the paths of ``known`` (kernel → launch
+    shapes), for the kernel checks."""
+    import gc
+    import tempfile
+    import torch
+    failures = []
+
+    def need(cond, what):
+        if not cond:
+            failures.append(what)
+    cfg = dp_config()
+    cfg["known"] = known
+
+    def move_cases(to):  # the earlier paths' kept operands
+        for per in cap.cases.values():
+            for got in per.values():
+                for key, ops in got.items():
+                    got[key] = tuple(o.to(to) if torch.is_tensor(o) else o
+                                     for o in ops)
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    move_cases("cpu")
+    gc.collect()  # what earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    emit({"tp_phase_parent_bytes": held, "kept": kept})
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.multiprocessing.start_processes(
+                tp_rank, args=(TP_RANKS, mp.parallel.free_port(), tmp, cfg),
+                nprocs=TP_RANKS, join=True, start_method="spawn")
+            ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                     for r in range(TP_RANKS)]
+    finally:
+        move_cases(dev)
+    ranks_wall = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        need(rec["groups"] == {"data": [r % 2, r % 2 + 2],
+                               "model": [r - r % 2, r - r % 2 + 1]},
+             f"rank {r}: the mesh's groups")
+        need(rec["local_shapes_ok"], f"rank {r}: the local Cout/2 shapes")
+        same = rec["same_batch"]
+        need(same["finite"] and same["launches_ok"] and
+             all(same["replicas"].values()),
+             f"rank {r}: the same-batch tp step")
+        if r == 0:
+            need(same["within_bound"],
+                 "the same-batch dp x tp step vs one process's")
+        for s in rec["steps"]:
+            need(s["finite"] and s["launches_ok"] and s["local_shapes_ok"]
+                 and all(s["replicas"].values()),
+                 f"rank {r}: tp step {s['step']}")
+    launches = {n: ranks[0]["launches"][n] for n in KERNELS}
+    need(all(launches[n] for n in KERNELS),
+         "every kernel launched on the tp path")
+
+    def comm(rec):
+        return {"data_allreduce_s": rec["comm"]["seconds"],
+                "data_allreduce_bytes": rec["comm"]["bytes"],
+                "model_axis": rec["model_comm"]}
+    rec = {"tp_phase": "gloo, 4 ranks on one card, 2 x 2 (data, model)",
+           "card": power, "ranks_wall_s": ranks_wall,
+           "parent_bytes_moved_off": held - kept, "parent_bytes_kept": kept,
+           "rank0_launches": launches,
+           "params": ranks[0]["params"],
+           "per_rank": [{
+               "rank": r, "mesh_s": x["mesh_s"],
+               "same_batch_wall_s": x["same_batch"]["wall_s"],
+               "step_wall_s": [s["wall_s"] for s in x["steps"]],
+               "same_batch_comm": comm(x["same_batch"]),
+               "step_comm": [comm(s) for s in x["steps"]],
+               "loss": [x["same_batch"]["loss"]] +
+                       [s["loss"] for s in x["steps"]],
+               "reference_peak_bytes": x["reference_peak_bytes"],
+               "peak_bytes": x["peak_bytes"]}
+               for r, x in enumerate(ranks)],
+           "same_batch_vs_one_process": {
+               k: v for k, v in ranks[0]["same_batch"].items()
+               if k not in ("launches", "dp_path", "step", "model_comm",
+                            "comm")},
+           "failures": failures, "ok": not failures}
+    emit(rec)
+    return {"ok": not failures, "failures": failures,
+            "counts": ranks[0]["counts"], "cases": ranks[0]["cases"],
+            "launches": launches, "kinds": ranks[0]["kinds"]}
+
+
 def main(argv) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile", action="store_true")
@@ -5011,6 +5364,12 @@ def main(argv) -> int:
         if not cond:
             failed.append(what)
 
+    t_main = time.perf_counter()
+
+    def mark(done: str) -> None:  # the script's seconds so far
+        emit({"phase_done": done,
+              "elapsed_s": time.perf_counter() - t_main})
+
     # -- build ---------------------------------------------------------
     t0 = time.perf_counter()
     logs = mp.utils.cuda_build.build()
@@ -5019,6 +5378,7 @@ def main(argv) -> int:
                           if "Used" in ln or "spill" in ln]
                     for src, log in logs.items()}})
 
+    mark("before path 1")
     # -- path 1: 3 requests of full-width generation --------------------
     t0 = time.perf_counter()
     vae, unet = mp.serve.generation_models(
@@ -5100,6 +5460,7 @@ def main(argv) -> int:
     del vae, unet, fn, hooks, decoded
     torch.cuda.empty_cache()
 
+    mark("before path 1b")
     # -- path 1b: conditioned, template-free generation on the canvas ----
     try:
         with cap:
@@ -5116,6 +5477,7 @@ def main(argv) -> int:
         canv["routes"], lambda r: r.branch == "dense"))
     torch.cuda.empty_cache()
 
+    mark("before path 1c")
     # -- path 1c: the serving artifact, and the generation entry point ----
     try:
         with cap:
@@ -5134,6 +5496,7 @@ def main(argv) -> int:
         need(False, "generate entry point")
     torch.cuda.empty_cache()
 
+    mark("before path 2")
     # -- path 2: 10 steps of full-width VAE training --------------------
     with cap:
         (train_ok, steps, train_routes, train_launches, one_more_step,
@@ -5150,6 +5513,7 @@ def main(argv) -> int:
     del one_more_step
     torch.cuda.empty_cache()
 
+    mark("before path 3")
     # -- path 3: 10 steps of full-width diffusion training --------------
     with cap:
         diff = diffusion_phase(mp, dev, cap)
@@ -5169,6 +5533,7 @@ def main(argv) -> int:
     del diff["one_more_step"]
     torch.cuda.empty_cache()
 
+    mark("before path 3b")
     # -- path 3b: training of the canvas and conditioned models ---------
     try:
         with cap:
@@ -5184,6 +5549,7 @@ def main(argv) -> int:
             rs, lambda r: r.branch == "fused"))
     torch.cuda.empty_cache()
 
+    mark("before path 5")
     # -- path 5: data parallelism, two ranks on the card over gloo --------
     try:
         dp = dp_phase(mp, dev, cap, power)
@@ -5195,6 +5561,23 @@ def main(argv) -> int:
     need(dp["ok"], "data-parallel path: " + ", ".join(dp["failures"]))
     torch.cuda.empty_cache()
 
+    mark("before path 5b")
+    # -- path 5b: tensor parallelism, a 2 x 2 mesh of four ranks on the card
+    known = {k: {key for path, kernels in CHECKED_PATHS if k in kernels
+                 for key in cap.case(path, k)} |
+             {key for per in dp["cases"].values() for key in per.get(k, {})}
+             for k in KERNELS}
+    try:
+        tp_ = tp_phase(mp, dev, cap, power, known)
+    except Exception:
+        traceback.print_exc()
+        tp_ = {"ok": False, "failures": ["tensor-parallel phase raised"],
+               "counts": {}, "cases": {}, "kinds": {},
+               "launches": dict.fromkeys(KERNELS, 0)}
+    need(tp_["ok"], "tensor-parallel path: " + ", ".join(tp_["failures"]))
+    torch.cuda.empty_cache()
+
+    mark("before path 6")
     # -- path 6: unbounded grids and the tensor API ------------------------
     try:
         with cap:
@@ -5206,6 +5589,7 @@ def main(argv) -> int:
     need(unb["ok"], "unbounded path: " + ", ".join(unb["failures"]))
     torch.cuda.empty_cache()
 
+    mark("before path 7")
     # -- path 7: the model zoo's training entry points ----------------------
     try:
         with cap:
@@ -5217,6 +5601,7 @@ def main(argv) -> int:
     need(zoo["ok"], "zoo path: " + ", ".join(zoo["failures"]))
     torch.cuda.empty_cache()
 
+    mark("before path 8")
     # -- path 8: the data path and the utilities ----------------------------
     try:
         with cap:
@@ -5228,6 +5613,7 @@ def main(argv) -> int:
     need(data["ok"], "data path: " + ", ".join(data["failures"]))
     torch.cuda.empty_cache()
 
+    mark("before path 10")
     # -- path 10: the quality and diagnosis entry points -------------------
     try:
         with cap:
@@ -5239,6 +5625,7 @@ def main(argv) -> int:
     need(qual["ok"], "quality path: " + ", ".join(qual["failures"]))
     torch.cuda.empty_cache()
 
+    mark("before kernels vs plain")
     # -- kernels vs plain at their paths' shapes (and B1's extra cases) --
     recs = {}  # (kernel, path) -> {launch shape: record}
 
@@ -5269,7 +5656,7 @@ def main(argv) -> int:
                         *zoo["routes"].values(), *data["routes"].values(),
                         *qual["routes"].values())
              for r in rs}
-    for key, layer in dp["kinds"].items():
+    for key, layer in {**tp_["kinds"], **dp["kinds"]}.items():
         kinds.setdefault(key, layer)
     check_all("B1", "generation", fused_check("B1", "main_path"), kinds)
     check_all("B1", "canvas", fused_check("B1", "canvas_path"), kinds)
@@ -5301,9 +5688,9 @@ def main(argv) -> int:
     for kernel in BRICK:
         check_all(kernel, "noise_points", brick_check(kernel,
                                                       "noise_points"), kinds)
-    # the DP paths' launch shapes that no earlier path launched (rank 0's
-    # operands, sent back to the card here)
-    for path, per in dp["cases"].items():
+    # the DP and TP paths' launch shapes that no earlier path launched
+    # (rank 0's operands, sent back to the card here)
+    for path, per in list(dp["cases"].items()) + list(tp_["cases"].items()):
         for kernel, got in per.items():
             check = (brick_check if kernel in BRICK else fused_check)(
                 kernel, path)
@@ -5355,7 +5742,8 @@ def main(argv) -> int:
                  f"{kernel} checked at every launch shape of {path}")
     checked = {k: {key for (kk, _), got in recs.items() if kk == k
                    for key in got} for k in KERNELS}
-    for path, per in dp["counts"].items():
+    for path, per in list(dp["counts"].items()) + list(
+            tp_["counts"].items()):
         for kernel, launched in per.items():
             need(set(launched) <= checked[kernel],
                  f"{kernel} checked at every launch shape of {path}")
@@ -5389,6 +5777,14 @@ def main(argv) -> int:
                 **totals(per[k], {key: first_rec(k, key) for key in per[k]})}
             for k in FUSED}
     emit({"zoo_step_kernel_account": zoo_account, "card": power})
+    # per dp x tp step on rank 0 (its same-batch step's launches)
+    tp_account = {}
+    for k in KERNELS:
+        per = Counter(tp_["counts"].get("tp_same_batch", {}).get(k, {}))
+        tp_account[k] = {"launches": sum(per.values()),
+                         **totals(per, {key: first_rec(k, key)
+                                        for key in per})}
+    emit({"tp_step_kernel_account": tp_account, "card": power})
 
     # per request / step: each launch shape's time x its launches
     per_request = {"B1": by_shape(hist)}
@@ -5518,6 +5914,7 @@ def main(argv) -> int:
                          "cudnn_ms": r5["library_ms"]})
         emit({"b5_vs_b1": label, "convs": rows})
 
+    mark("before path 4")
     # -- path 4: the library path (bench_conv) ----------------------------
     try:
         lib = library_phase(mp, dev, power)
@@ -5529,6 +5926,7 @@ def main(argv) -> int:
     recs.update(lib["recs"])
     torch.cuda.empty_cache()
 
+    mark("before path 9")
     # -- path 9: the fused conv's whole domain -----------------------------
     try:
         with cap:
@@ -5581,6 +5979,7 @@ def main(argv) -> int:
     recs.update(dom["recs"])
     torch.cuda.empty_cache()
 
+    mark("before end-to-end references")
     # -- end-to-end references on a small input --------------------------
     for ref in (tiny_reference, tiny_canvas_reference, tiny_train_reference,
                 tiny_diffusion_reference, tiny_zoo_reference):
@@ -5590,6 +5989,7 @@ def main(argv) -> int:
             traceback.print_exc()
             need(False, ref.__name__)
 
+    mark("end")
     emit({"card": power, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     print(power, flush=True)
@@ -5631,6 +6031,8 @@ def main(argv) -> int:
                           tot_canvas["bound_ms"]})
         e.update({"path": main_path,
                   "launches_dp_path_rank0": dp["launches"][name],
+                  "launches_tp_path_rank0": tp_["launches"][name],
+                  "ms_per_tp_step_rank0": tp_account[name]["ms"],
                   "ms_per_vae_step": tot_vae[name]["ms"],
                   "bound_ms_per_vae_step": tot_vae[name]["bound_ms"],
                   "launches_library_path": lib["launches"].get(name, 0),
@@ -5658,6 +6060,8 @@ def main(argv) -> int:
         e["path"] = "diffusion"
         e["launches_canvas_train_path"] = ctrain["launches"][name]
         e["launches_dp_path_rank0"] = dp["launches"][name]
+        e["launches_tp_path_rank0"] = tp_["launches"][name]
+        e["ms_per_tp_step_rank0"] = tp_account[name]["ms"]
         if name == "B6":
             e["ms_per_vae_gate_on_step"] = tot_gate_on["ms"]
             e["bound_ms_per_vae_gate_on_step"] = tot_gate_on["bound_ms"]

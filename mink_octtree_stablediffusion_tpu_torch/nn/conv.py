@@ -43,6 +43,7 @@ from ..ops.kernels import KernelSpec, RegionType
 from ..ops.onehot_conv import enabled as onehot_enabled
 from ..ops.vol_conv import brick_pallas_conv, brick_preferred
 from ..ops.neighbors import kernel_map
+from ..parallel.tp import copy_to_model, gather_from_model
 from ..tensor import SparseTensor
 
 
@@ -94,6 +95,10 @@ class _ConvBase(nn.Module):
     shared by the three conv layers."""
 
     tag = ""
+    # tensor parallelism (``parallel.shard_model_params``): the parameter
+    # a column-parallel layer shards, and its shard once sharded
+    tp_weight = "kernel"
+    model_shard = None
 
     def __init__(self, in_channels: int, out_channels: int,
                  spec: KernelSpec, use_bias: bool, dtype, device):
@@ -124,44 +129,55 @@ class _ConvBase(nn.Module):
 
     def _conv(self, x: SparseTensor, out_grid: SparseGrid,
               allow_same_grid_dense: bool) -> SparseTensor:
+        """Route the conv.  Tensor-parallel (``model_shard``, set by
+        ``parallel.shard_model_params``): the same routing on
+        ``copy_to_model(x)`` with this rank's ``[K, Cin, Cout/n]`` kernel
+        and no bias, then ``gather_from_model`` and the whole bias."""
         spec, cin = self.spec, x.num_channels
         cd = self.compute_dtype or default_compute_dtype(x.features.device)
-        args = (x.features, self.kernel)
+        tp = self.model_shard
+        feats = x.features if tp is None else copy_to_model(x.features, tp)
+        bias = self.bias if tp is None else None
+        cout = self.kernel.shape[2]  # this rank's slice under tp
+        args = (feats, self.kernel)
         if (allow_same_grid_dense and out_grid is x.grid and
                 dense_no_growth_preferred(spec, x.grid)):
             branch = "dense"
-            out = dense_conv_apply(*args, x.grid, spec, self.bias,
+            out = dense_conv_apply(*args, x.grid, spec, bias,
                                    compute_dtype=cd)
         elif (out_grid is not x.grid and
               dense_no_growth_preferred2(spec, x.grid, out_grid)):
             branch = "dense"
             out = dense_conv_general_apply(*args, x.grid, out_grid, spec,
-                                           self.bias, compute_dtype=cd)
+                                           bias, compute_dtype=cd)
         elif (allow_same_grid_dense and out_grid is x.grid and
-              brick_preferred(spec, x.grid, cin, self.out_channels,
-                              x.features.device)):
+              brick_preferred(spec, x.grid, cin, cout, x.features.device)):
             branch = "brick"
             out = brick_pallas_conv(*args, x.grid, compute_dtype=cd)
-            if self.bias is not None:
-                out = out + self.bias
+            if bias is not None:
+                out = out + bias
         elif onehot_enabled(x.grid):
             branch = "fused"
-            out = fused_sparse_conv(*args, x.grid, out_grid, spec, self.bias,
+            out = fused_sparse_conv(*args, x.grid, out_grid, spec, bias,
                                     compute_dtype=cd)
         elif (allow_same_grid_dense and out_grid is x.grid and
-              dense_conv_applicable(spec, x.grid, cin, self.out_channels)):
+              dense_conv_applicable(spec, x.grid, cin, cout)):
             branch = "dense"
-            out = dense_conv_apply(*args, x.grid, spec, self.bias,
+            out = dense_conv_apply(*args, x.grid, spec, bias,
                                    compute_dtype=cd)
         else:
             branch = "plain"
             out = sparse_conv_apply(*args, kernel_map(x.grid, out_grid, spec),
-                                    self.bias, compute_dtype=cd)
+                                    bias, compute_dtype=cd)
         if _ROUTES is not None:
             _ROUTES.append(Route(self._layer_name(), branch, out_grid.capacity,
-                                 cin, self.out_channels, spec.volume,
+                                 cin, cout, spec.volume,
                                  x.features.requires_grad, self._grad_w(),
                                  _RECOMPUTE))
+        if tp is not None:
+            out = gather_from_model(out, tp)
+            if self.bias is not None:
+                out = out + self.bias
         return SparseTensor(grid=out_grid, features=out).mask_features()
 
 

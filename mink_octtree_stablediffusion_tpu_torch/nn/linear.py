@@ -18,8 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.tp import copy_to_model, gather_from_model
+
 
 class Dense(nn.Linear):
+    """Tensor-parallel once ``parallel.shard_model_params`` has sharded
+    its ``weight`` (``model_shard``): this rank's ``[out/n, in]`` rows on
+    ``copy_to_model(x)``, ``gather_from_model``, then the whole bias."""
+
+    tp_weight = "weight"
+    model_shard = None
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         with torch.no_grad():
@@ -30,8 +38,13 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = self.bias
-        return F.linear(x, self.weight.to(x.dtype),
-                        None if b is None else b.to(x.dtype))
+        tp = self.model_shard
+        if tp is None:
+            return F.linear(x, self.weight.to(x.dtype),
+                            None if b is None else b.to(x.dtype))
+        y = gather_from_model(F.linear(copy_to_model(x, tp),
+                                       self.weight.to(x.dtype)), tp)
+        return y if b is None else y + b.to(x.dtype)
 
 
 class Linear(nn.Module):

@@ -10,6 +10,11 @@ ranks and runs JAX's phases at JAX's tiny sizes:
 1. one data-parallel diffusion step: UNet (4, 8, 16, 16) on a random
    stride-8 latent per rank, DDPM with 100 steps, AdamW at 1e-4, the
    coordinate NLL; finite, the parameters moved;
+2. with ``world_size >= 4`` and even, one dp × tp step on the ``(2,
+   world_size // 2)`` mesh (``tp_phase``): the same UNet with its conv
+   and dense kernels sharded on Cout over the model axis, a random latent
+   per data row, SGD at 1e-3; finite, and the conv kernels keep their
+   local Cout slices;
 3. one data-parallel step of the full VAE with SyncBN (growth,
    membership, top-k, pruning, the dense canvas latent): VAE (4, 8, 8, 8,
    2) at resolution 16 on a different random batch per rank, Adam at
@@ -21,10 +26,8 @@ ranks and runs JAX's phases at JAX's tiny sizes:
    is finite with > 0 voxels, the shards differ, and each equals the
    sample a single process draws with that rank's generator.
 
-JAX's phase 2 (dp × tp) is only its placement rule here
-(``parallel.param_spec``).  Each rank's generator is
-``train.split_device_rngs``'s.  Returns rank 0's record; raises if a check
-fails.
+Each rank's generator is ``train.split_device_rngs``'s (phase 2: each
+data row's).  Returns rank 0's record; raises if a check fails.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..train import (TrainState, broadcast_module, make_dp_train_step,
                      split_device_rngs, vae_optimizer)
 from .mesh import (check_backend, data_parallel_mesh, free_port,
                    gather_to_host, initialize_distributed, rank_device)
+from .tp import dp_tp_mesh, shard_model_params
 
 B, CAP, C, STRIDE, RES = 2, 64, 4, 8, 4  # phase 1's latent batch
 VRES, VCAP, VB = 16, 256, 2  # phase 3's VAE batch
@@ -80,6 +84,47 @@ def _params(module) -> dict:
     return {n: p.detach().clone() for n, p in module.named_parameters()}
 
 
+def phase1_unet(dev, seed: int = 0) -> UNet:
+    return UNet(channels=(4, 8, 16, 16), attn_max_len=32,
+                down_capacities=(32, 16, 8), group=4, device=dev, seed=seed)
+
+
+def tp_phase(mesh, device, seed: int = 0) -> dict:
+    """Phase 2 on ``mesh`` (``dp_tp_mesh``), every rank calling it: one
+    dp × tp step of phase 1's UNet (seeded alike on every rank) with its
+    kernels sharded on the model axis, on a random latent per data row
+    with that row's draws, the coordinate NLL at its initial (μ, Σ), as
+    JAX's phase 2, and SGD at 1e-3; → ``tp_loss``, ``tp_sharded`` (the
+    conv kernels sharded) and ``tp_kept`` (those that still hold their
+    local Cout slice after the step)."""
+    dev = torch.device(device)
+    data = mesh.get_group("data")
+    row = mesh.get_local_rank("data")
+    gen = split_device_rngs(seed + 2, mesh["data"].size(), dev)[row]
+    unet = shard_model_params(phase1_unet(dev, seed), mesh)
+    convs = [(m.kernel, m.out_channels) for m in unet.modules()
+             if getattr(m, "tp_weight", None) == "kernel" and
+             m.model_shard is not None]
+    sched = md.DDPMScheduler.create(num_train_timesteps=100)
+    nll = md.CoordNLLParams(device=dev)
+
+    def loss_fn(unet, batch):
+        cpad, vpad, feats = (torch.as_tensor(a, device=dev) for a in batch)
+        lat = sparse_tensor(cpad, feats, capacity=CAP, batch_size=B,
+                            stride=STRIDE, valid=vpad,
+                            extent=(RES * STRIDE,) * 3)
+        return md.diffusion_training_loss(
+            unet, sched, lat, nll_params=nll, resolution=RES * STRIDE,
+            generator=gen)
+
+    state = TrainState(unet, torch.optim.SGD(unet.parameters(), 1e-3))
+    loss, _ = make_dp_train_step(loss_fn, data)(
+        state, latent_batch(np.random.RandomState(row)))
+    n = mesh["model"].size()
+    return {"tp_loss": float(loss), "tp_sharded": len(convs),
+            "tp_kept": sum(k.shape[2] * n == c for k, c in convs)}
+
+
 def run_rank(world: int, device, seed: int = 0) -> dict:
     """One rank's phases 1, 3 and 4 inside an initialised process group."""
     dev = torch.device(device)
@@ -89,8 +134,7 @@ def run_rank(world: int, device, seed: int = 0) -> dict:
     rec = {}
 
     # phase 1: a data-parallel diffusion step
-    unet = UNet(channels=(4, 8, 16, 16), attn_max_len=32,
-                down_capacities=(32, 16, 8), group=4, device=dev, seed=seed)
+    unet = phase1_unet(dev, seed)
     model = torch.nn.ModuleDict({"unet": unet,
                                  "nll": md.CoordNLLParams(device=dev)})
     broadcast_module(model, group)
@@ -112,6 +156,10 @@ def run_rank(world: int, device, seed: int = 0) -> dict:
         state, latent_batch(np.random.RandomState(rank)))
     rec["diffusion_loss"] = float(loss)
     rec["diffusion_moved"] = _moved(_params(model), before)
+
+    # phase 2: dp x tp on a (2, world // 2) mesh
+    if world >= 4 and world % 2 == 0:
+        rec.update(tp_phase(dp_tp_mesh(2, world // 2, dev.type), dev, seed))
 
     # phase 3: the full VAE step with SyncBN
     cells = (VRES // 8) ** 3
@@ -179,6 +227,8 @@ def check(rec: dict) -> None:
     bad = [k for k, ok in (
         ("diffusion_loss", np.isfinite(rec["diffusion_loss"])),
         ("diffusion_moved", rec["diffusion_moved"] > 0),
+        ("tp_loss", np.isfinite(rec.get("tp_loss", 0.0))),
+        ("tp_kept", rec.get("tp_kept", 1) > 0),
         ("vae_loss", np.isfinite(rec["vae_loss"])),
         ("vae_moved", rec["vae_moved"] > 0),
         ("finite", rec["finite"]),
@@ -216,9 +266,14 @@ def dryrun_multichip(world_size: int, backend: str = "gloo",
         rec = torch.load(out, weights_only=True)
     check(rec)
     print(f"dryrun_multichip({world_size}): dp loss="
-          f"{rec['diffusion_loss']:.4f}, VAE-dp loss={rec['vae_loss']:.4f} "
-          f"(SyncBN), sampling-dp kept/rank={rec['kept_per_rank']} OK",
-          flush=True)
+          f"{rec['diffusion_loss']:.4f} OK", flush=True)
+    if "tp_loss" in rec:
+        print(f"dryrun_multichip({world_size}): dp×tp loss="
+              f"{rec['tp_loss']:.4f} ({rec['tp_kept']} tp-sharded kernels) "
+              "OK", flush=True)
+    print(f"dryrun_multichip({world_size}): VAE-dp loss="
+          f"{rec['vae_loss']:.4f} (SyncBN), sampling-dp kept/rank="
+          f"{rec['kept_per_rank']} OK", flush=True)
     return rec
 
 

@@ -10,7 +10,11 @@ process group:
   ``jax.distributed.initialize``;
 - ``data_parallel_mesh`` gives the 1-D data group;
 - ``shard_batch`` gives each rank its row of the stacked per-device batch
-  (``data.collate.stack_devices``), JAX's ``shard_batch_pytree``;
+  (``data.collate.stack_devices``), and ``shard_batch_pytree`` the same
+  for every array of a nested batch on a mesh's data axis (JAX's
+  ``shard_batch_pytree``); ``batch_sharding`` and ``replicate`` name the
+  placements (``Shard(0)`` on the data axis, ``Replicate()``), as JAX's
+  ``NamedSharding``s do;
 - ``all_reduce_sum`` is a differentiable sum across the group (JAX's
   ``psum``, whose transpose is a ``psum``), for SyncBN;
 - ``gather_to_host`` gives every rank's tensor, through the host.
@@ -32,6 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from ..data.collate import device_row
 
@@ -121,6 +126,48 @@ def shard_batch(stacked: Sequence[np.ndarray], group=None,
         raise ValueError(f"{len(stacked[0])} device rows for {world} ranks")
     return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device)
                  for x in device_row(stacked, dist.get_rank(group)))
+
+
+def _mesh_axes(mesh, axis_name: str):
+    """(the axis names, ``axis_name``'s group) of a ``DeviceMesh``, or of
+    a process group (None: all ranks) taken as a 1-D mesh on
+    ``axis_name``."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return (axis_name,), mesh
+    return tuple(names), mesh.get_group(axis_name)
+
+
+def batch_sharding(mesh, axis_name: str = "data") -> tuple:
+    """The placements of a batch on ``mesh``: rows (the leading axis)
+    sharded on ``axis_name`` (``Shard(0)``), replicated on every other
+    axis; one placement a mesh axis."""
+    names, _ = _mesh_axes(mesh, axis_name)
+    return tuple(Shard(0) if n == axis_name else Replicate() for n in names)
+
+
+def replicate(mesh) -> tuple:
+    """The placements of a tensor every rank holds whole (parameters,
+    schedulers): ``Replicate()`` on every axis of ``mesh``."""
+    names, _ = _mesh_axes(mesh, "data")
+    return (Replicate(),) * len(names)
+
+
+def shard_batch_pytree(batch, mesh, axis_name: str = "data", device=None):
+    """This rank's block of every array of a nested batch (tuples, lists
+    and dicts of arrays) stacked on a leading axis of one entry a rank of
+    ``mesh``'s ``axis_name`` (``data.collate.stack_devices``), as tensors
+    on ``device``: ``shard_batch`` on each array.  Ranks on the other axes
+    get the same block."""
+    _, group = _mesh_axes(mesh, axis_name)
+
+    def put(x):
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(put(v) for v in x)
+        return shard_batch((x,), group, device)[0]
+    return put(batch)
 
 
 class _AllReduceSum(torch.autograd.Function):

@@ -19,6 +19,8 @@ from typing import Callable, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel.tp import sum_over_model
+
 
 def vae_optimizer(params: Iterable[torch.nn.Parameter],
                   lr: float = 1e-3) -> torch.optim.Adam:
@@ -52,18 +54,42 @@ def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         shards: Optional[Sequence] = None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place: where the global L2 norm of
     ``grads`` is ≥ ``max_norm``, each becomes ``(g / norm) · max_norm``;
     below it they stay exactly as they are (``clip_grad_norm_`` would add
     1e-6 to the norm and scale always).  Returns the norm; nothing waits
-    for the device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    for the device.  Under tensor parallelism ``shards[i]`` is the
+    ``parallel.tp.ModelShard`` of a gradient that is this rank's slice of
+    a parameter (None for a whole one): the slices' squares are summed
+    over the model group, so that every rank clips by the norm of the
+    whole gradients, as JAX's global arrays do."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    sharded = [s for s in (shards or ()) if s is not None]
+    if sharded:
+        on = torch.tensor([s is not None for s in shards],
+                          device=norms.device)
+        sq = norms.square()
+        part = sum_over_model(sq[on].sum(), sharded[0])
+        norm = (sq[~on].sum() + part).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     keep = norm < max_norm
     torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
     torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
     return norm
+
+
+def _clip_grads_(param_groups, max_norm: float) -> None:
+    """``clip_by_global_norm_`` of the groups' gradients, each sharded
+    one's ``ModelShard`` passed along."""
+    params = [p for group in param_groups for p in group["params"]
+              if p.grad is not None]
+    if params:
+        clip_by_global_norm_([p.grad for p in params], max_norm,
+                             [getattr(p, "model_shard", None)
+                              for p in params])
 
 
 class DiffusionOptimizer(torch.optim.AdamW):
@@ -87,10 +113,7 @@ class DiffusionOptimizer(torch.optim.AdamW):
 
     @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
-        if grads:
-            clip_by_global_norm_(grads, self.clip_norm)
+        _clip_grads_(self.param_groups, self.clip_norm)
         for group in self.param_groups:
             group["lr"] = self.schedule(group["update_count"])
             group["update_count"] += 1
@@ -161,10 +184,7 @@ class AdafactorOptimizer(torch.optim.Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
-        grads = [p.grad for group in self.param_groups
-                 for p in group["params"] if p.grad is not None]
-        if grads:
-            clip_by_global_norm_(grads, self.clip_norm)
+        _clip_grads_(self.param_groups, self.clip_norm)
         f = np.float32
         for group in self.param_groups:
             t = group["update_count"]
@@ -177,7 +197,11 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                 g = p.grad
                 g2 = g * g + ADAFACTOR_EPS
                 st = self.state[p]
-                dims = factored_dims(tuple(p.shape))
+                shard = getattr(p, "model_shard", None)
+                shape = list(p.shape)
+                if shard is not None:  # factored as the whole parameter
+                    shape[shard.dim] *= shard.size
+                dims = factored_dims(tuple(shape))
                 if dims is None:
                     if not st:
                         st["v"] = torch.zeros_like(p)
@@ -185,18 +209,33 @@ class AdafactorOptimizer(torch.optim.Optimizer):
                     u = g * st["v"].rsqrt()
                 else:
                     d1, d0 = dims
+                    sd = None if shard is None else shard.dim
+                    mr, sr = _whole_mean(g2, d0, sd, shard)
+                    mc, _ = _whole_mean(g2, d1, sd, shard)
                     if not st:
-                        st["v_row"] = g2.new_zeros(g2.mean(d0).shape)
-                        st["v_col"] = g2.new_zeros(g2.mean(d1).shape)
-                    vr = st["v_row"].mul_(beta).add_(g2.mean(d0),
-                                                      alpha=1.0 - beta)
-                    vc = st["v_col"].mul_(beta).add_(g2.mean(d1),
-                                                      alpha=1.0 - beta)
+                        st["v_row"] = torch.zeros_like(mr)
+                        st["v_col"] = torch.zeros_like(mc)
+                    vr = st["v_row"].mul_(beta).add_(mr, alpha=1.0 - beta)
+                    vc = st["v_col"].mul_(beta).add_(mc, alpha=1.0 - beta)
                     rd1 = d1 - 1 if d1 > d0 else d1
-                    row = (vr / vr.mean(rd1, keepdim=True)).rsqrt()
+                    row = (vr / _whole_mean(vr, rd1, sr, shard, True)[0]
+                           ).rsqrt()
                     u = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
                 p.add_(u * lr, alpha=-1.0)
         return None
+
+
+def _whole_mean(x: torch.Tensor, d: int, sd: Optional[int], shard,
+                keepdim: bool = False):
+    """The mean of ``x`` over dimension ``d`` as the whole tensor has it,
+    and the dimension of the result that is still sharded (or None):
+    where ``x`` is a tensor-parallel slice sharded on ``sd`` and ``d`` is
+    that dimension, the slices' sums are summed over the model group."""
+    if sd is None or d != sd:
+        kept = None if sd is None else sd - (0 if keepdim or sd < d else 1)
+        return x.mean(d, keepdim=keepdim), kept
+    total = sum_over_model(x.sum(d, keepdim=keepdim), shard)
+    return total / (x.shape[d] * shard.size), None
 
 
 def adafactor_diffusion_optimizer(params: Iterable[torch.nn.Parameter],
@@ -242,6 +281,9 @@ class MixedPrecisionParams:
         self.params = list(params)
         self.master = [torch.nn.Parameter(p.detach().float().clone())
                        for p in self.params]
+        for m, p in zip(self.master, self.params):
+            if hasattr(p, "model_shard"):  # a tensor-parallel slice
+                m.model_shard = p.model_shard
         self.inner = make_inner(self.master)
 
     @property

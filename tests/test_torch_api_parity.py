@@ -30,11 +30,6 @@ NOT_PORTED = {
         "train.MixedPrecisionParams"),
     ("ops", "coo_spmm"): ("no module of the JAX package calls it", None),
 }
-for _name in ("batch_sharding", "replicate", "shard_batch_pytree",
-              "param_shardings", "dp_tp_mesh", "shard_model_params"):
-    NOT_PORTED[("parallel", _name)] = (
-        "JAX sharding: the port's data parallelism is torch.distributed, "
-        "and it does not train under tensor parallelism", None)
 
 SUBPACKAGES = ["", "data", "diffusion", "models", "native", "nn", "ops",
                "parallel", "train", "utils"]

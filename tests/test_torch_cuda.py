@@ -1514,3 +1514,55 @@ def test_brick_gate_sends_float32_to_the_brick_kernel():
     ref = conv(mp.SparseTensor(grid=_grid("cpu", n=900, cap=2048, ext=16),
                                features=x.features.cpu()))
     _close_f32(out.features.cpu(), ref.features)
+
+
+@pytest.mark.cuda
+def test_sharded_conv_on_card_matches_unsharded_slice():
+    """Tensor parallelism through the kernels: a k3 conv holding the first
+    half of a 32→64 kernel as its model shard (a 1-rank model group over
+    gloo, so the gather and the dF sum run on CUDA tensors) against its
+    unsharded twin, sliced: B1 at Cout 32 against Cout 64's first 32
+    columns, B2 (dF, the twin's cotangent zero past them) and B3 (dW, the
+    twin's first 32 columns); the bias added after the gather; each
+    within 1e-3·max|ref| + 1e-5 (bf16 compute, fp32 sums in other tile
+    orders)."""
+    import torch.distributed as dist
+    from mink_octtree_stablediffusion_tpu_torch.parallel import tp
+    dev = _card()
+    mp.utils.cuda_build.build()
+    mp.parallel.initialize_distributed(
+        f"127.0.0.1:{mp.parallel.free_port()}", 1, 0, backend="gloo")
+    try:
+        g = _grid(dev, n=900, cap=2048, ext=16)
+        torch.manual_seed(0)
+        full = mp.nn.SparseConv(32, 64, 3, use_bias=True, device=dev)
+        half = mp.nn.SparseConv(32, 32, 3, use_bias=True, device=dev)
+        with torch.no_grad():
+            full.bias.normal_()
+            half.kernel.copy_(full.kernel[:, :, :32])
+            half.bias.copy_(full.bias[:32])
+        half.model_shard = tp.ModelShard(dist.group.WORLD, 0, 1, 2)
+        f = torch.randn(g.capacity, 32, device=dev) * g.valid[:, None]
+        cot = torch.randn(g.capacity, 32, device=dev)
+        count = {n: getattr(fused_conv, n) for n in (
+            "fused_sparse_conv", "fused_conv_dfeatures", "fused_conv_dkernel")}
+        out = {}
+        for name, conv in (("full", full), ("half", half)):
+            x = f.clone().requires_grad_()
+            before = {n: c.launches for n, c in count.items()}
+            tp.reset_comm()
+            y = conv(mp.SparseTensor(grid=g, features=x)).features
+            (y[:, :32] * cot).sum().backward()
+            torch.cuda.synchronize()
+            assert all(c.launches == before[n] + 1 for n, c in count.items())
+            out[name] = (y[:, :32], x.grad, conv.kernel.grad[:, :, :32],
+                         conv.bias.grad[:32], dict(tp.COMM))
+    finally:
+        dist.destroy_process_group()
+    for got, ref in zip(out["half"][:4], out["full"][:4]):
+        assert got.shape == ref.shape
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-3 * ref.abs().max().item() + 1e-5, err
+    comm = out["half"][4]
+    assert comm["gather"]["calls"] == comm["dF_sum"]["calls"] == 1
+    assert out["full"][4]["gather"]["calls"] == 0
