@@ -1,0 +1,9 @@
+"""The host ms of the program's `train.optimizer` span (`optimizer.step()`)
+in each train step of the profiled slice, their median."""
+
+from benchmark import program_trace
+
+
+def read(ctx):
+    return program_trace.host_ms(ctx, "train", "train.step",
+                                 "train.optimizer")

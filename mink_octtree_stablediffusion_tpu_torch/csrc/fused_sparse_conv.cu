@@ -98,6 +98,13 @@
 //     Cout tile run; no weight load, no product);
 //   - kFull:   the conv itself (B1/B2): `full` launches the very
 //     instantiation that B1 launches, so its output is B1's bit for bit.
+//
+// Work counted (`work`, int64 [3], null unless the caller records it;
+// `utils/profiling.py`): the first block of each row tile's cluster adds
+// the tile's matched (output row, offset) pairs into work[0] and its valid
+// output rows into work[2], one atomic add a warp; block (0, 0) adds the
+// valid input keys (`count_valid_keys`) into work[1].  The counting reads
+// sIdx after the cluster's exchange and adds no barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -150,7 +157,7 @@ __global__ void __launch_bounds__(NTHREADS, TA > 1 ? 1 : 2)
     const int* __restrict__ out_coords,
     const unsigned char* __restrict__ out_valid, float* __restrict__ out,
     int n_in, int n_out, int cinf, int cin, int cinw, int cout, int coutp,
-    const Geom g) {
+    const Geom g, unsigned long long* __restrict__ work) {
   using C = Cfg<BN, BK, TA, TB>;
   static_assert(kStage == kFull || (TA == 1 && TB == 1),
                 "the cut stages are bf16 only");
@@ -169,6 +176,9 @@ __global__ void __launch_bounds__(NTHREADS, TA > 1 ? 1 : 2)
   // tiles y, y + C, ... and a C-th of the search
   const int crank = blockIdx.y, csize = gridDim.y;
   const int ntn = (cout + BN - 1) / BN;
+  if (work != nullptr && blockIdx.x == 0 && crank == 0 && tid == 0)
+    atomicAdd(work + 1, (unsigned long long)sparse_conv::count_valid_keys(
+                            in_keys, n_in));
   // out[row0 + r][c] = f(r, c) over the block's rows and Cout tiles
   auto fill = [&](auto f) {
     const int rows = min(BM, n_out - row0);
@@ -227,6 +237,16 @@ __global__ void __launch_bounds__(NTHREADS, TA > 1 ? 1 : 2)
   }
   __syncthreads();
   const unsigned* sLiveMask = csize > 1 ? sMask + 4 : sMask;
+  if (work != nullptr && crank == 0 && half == 0) {  // warps 0-3: row r
+    int n = 0;
+    for (int k = 0; k < g.k; ++k) n += sIdx[k * BM + r] >= 0;
+    n = __reduce_add_sync(0xffffffffu, n);
+    const int v = __reduce_add_sync(0xffffffffu, coord[0] >= 0 ? 1 : 0);
+    if (lane == 0) {
+      atomicAdd(work, (unsigned long long)n);
+      atomicAdd(work + 2, (unsigned long long)v);
+    }
+  }
 
   if constexpr (kStage == kSearch) {
     int* sCnt = reinterpret_cast<int*>(smem);  // the ring is unused
@@ -420,6 +440,7 @@ struct Args {
   const void *feat, *wp, *in_keys, *out_coords, *out_valid;
   void* out;
   int n_in, n_out, cinf, cin, cinw, cout, coutp;
+  void* work;
 };
 
 template <int BN, int BK, int TA, int TB, int kStage>
@@ -447,7 +468,8 @@ int launch(const Args& a, const Geom& g, cudaStream_t stream) {
       &cfg, kernel, (const __nv_bfloat16*)a.feat, (const __nv_bfloat16*)a.wp,
       (const int*)a.in_keys, (const int*)a.out_coords,
       (const unsigned char*)a.out_valid, (float*)a.out, a.n_in, a.n_out,
-      a.cinf, a.cin, a.cinw, a.cout, a.coutp, g);
+      a.cinf, a.cin, a.cinw, a.cout, a.coutp, g,
+      (unsigned long long*)a.work);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -604,13 +626,15 @@ extern "C" int fused_sparse_conv_cast(const void* feat, const void* w,
 // s_in [ndim] and cells [ndim] are host arrays, ndim 2 or 3.  (bn, bk) is
 // the tile and (ta, tb) the terms (`ops/fused_conv.py::tile_shape`,
 // `operand_terms`); `stage` a Stage (see the header), the cut stages with
-// (1, 1) only; transpose only with kFull (B2).
+// (1, 1) only; transpose only with kFull (B2); work int64 [3] zeroed, into
+// which the conv adds its matched pairs and valid rows read and written,
+// or null.
 extern "C" int fused_sparse_conv_forward(
     const void* feat, const void* w, void* fb, void* wp, const void* in_keys,
     const void* out_coords, const void* out_valid, void* out, int n_in,
     int n_out, int cin, int cout, int k, int ndim, const int* offs,
     const int* s_in, const int* cells, int bn, int bk, int ta, int tb,
-    int transpose, int w_bf16, int stage, void* stream) {
+    int transpose, int w_bf16, int stage, void* work, void* stream) {
   if (k < 1 || k > MAX_K || ndim < 2 || ndim > sparse_conv::MAX_D ||
       n_in < 1 || n_out < 1 || cout < 1 || cin < 1 ||
       !valid_tile(bn, bk, ta, tb) || stage < kFull || stage > kGather ||
@@ -622,7 +646,7 @@ extern "C" int fused_sparse_conv_forward(
   if (rc != 0) return rc;
   const Args a{fb, wp, in_keys, out_coords, out_valid, out, n_in, n_out,
                (cin + 7) / 8 * 8, cin, (cin + bk - 1) / bk * bk, cout,
-               (cout + bn - 1) / bn * bn};
+               (cout + bn - 1) / bn * bn, work};
   const Geom g = sparse_conv::make_geom(k, ndim, offs, s_in, cells);
   if (ta == 3) {  // the split-term full conv (float32 compute)
     return tb == 3 ? launch_split<3, 3>(bn, a, g, s)

@@ -138,11 +138,14 @@ __global__ void cast_kernel(const float* __restrict__ f,
 // -- 2. search ---------------------------------------------------------------
 
 // Block (row block t, offset k): map[k][j] = the input row matching output
-// row j for offset k, or -1; cnt[k][t] = the block's matches.
+// row j for offset k, or -1; cnt[k][t] = the block's matches.  With work
+// (int64 [3], or null): offset 0's blocks add their valid output rows into
+// work[2], block (0, 0) the valid input keys into work[1].
 __global__ void __launch_bounds__(ROWS) search_kernel(
     const int* __restrict__ in_keys, const int* __restrict__ out_coords,
     const unsigned char* __restrict__ out_valid, int* __restrict__ map,
-    int* __restrict__ cnt, int n_in, int n_out, const Geom g) {
+    int* __restrict__ cnt, int n_in, int n_out, const Geom g,
+    unsigned long long* __restrict__ work) {
   const int t = blockIdx.x, k = blockIdx.y, j = t * ROWS + threadIdx.x;
   int coord[1 + sparse_conv::MAX_D];
   int f;
@@ -151,6 +154,15 @@ __global__ void __launch_bounds__(ROWS) search_kernel(
     sparse_conv::load_coord<ND>(coord, j, n_out, out_coords, out_valid);
     f = sparse_conv::find_neighbor<ND>(coord, k, g, in_keys, n_in);
   });
+  if (work != nullptr && k == 0) {
+    const int v = __syncthreads_count(coord[0] >= 0);
+    if (threadIdx.x == 0) {
+      atomicAdd(work + 2, (unsigned long long)v);
+      if (t == 0)
+        atomicAdd(work + 1, (unsigned long long)
+                                sparse_conv::count_valid_keys(in_keys, n_in));
+    }
+  }
   if (j < n_out) map[(size_t)k * n_out + j] = f;
   const int n = __syncthreads_count(f >= 0);
   if (threadIdx.x == 0) cnt[k * gridDim.x + t] = n;
@@ -159,9 +171,11 @@ __global__ void __launch_bounds__(ROWS) search_kernel(
 // -- 3. scan -----------------------------------------------------------------
 
 // off[e] = sum of cnt[0..e) for e in [0, m], in one block: each thread sums
-// a contiguous run, the runs' sums are scanned across the block.
+// a contiguous run, the runs' sums are scanned across the block.  With work
+// (or null), the total, the pair list's length, is added into work[0].
 __global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(
-    const int* __restrict__ cnt, int* __restrict__ off, int m) {
+    const int* __restrict__ cnt, int* __restrict__ off, int m,
+    unsigned long long* __restrict__ work) {
   __shared__ int warp_sum[SCAN_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int per = (m + SCAN_THREADS - 1) / SCAN_THREADS;
@@ -191,7 +205,10 @@ __global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(
     off[i] = run;
     run += cnt[i];
   }
-  if (tid == SCAN_THREADS - 1) off[m] = run;
+  if (tid == SCAN_THREADS - 1) {
+    off[m] = run;
+    if (work != nullptr) atomicAdd(work, (unsigned long long)run);
+  }
 }
 
 // -- 4. compaction -----------------------------------------------------------
@@ -541,14 +558,17 @@ using namespace fused_sparse_conv_dw;
 // [splits, k, cin, cout] (unused with splits 1).  offs [k*ndim], s_in
 // [ndim] and cells [ndim] are host arrays, ndim 2 or 3; terms 1 (bf16
 // compute) or 3 (float32); (bi, bo) the GEMM tile and splits S
-// (`ops/fused_conv.py::dw_tile_shape`, `dw_splits`); stage a Stage.
+// (`ops/fused_conv.py::dw_tile_shape`, `dw_splits`); stage a Stage; work
+// int64 [3] zeroed, into which the passes add the pairs compacted and the
+// valid rows read and written (`utils/profiling.py`), or null.
 extern "C" int fused_sparse_conv_dkernel(
     const void* feat, const void* grad, const void* in_keys,
     const void* out_coords, const void* out_valid, void* dw, void* fb,
     void* gb, void* map, void* cnt, void* off, void* pair_in,
     void* pair_out, void* partial, int n_in, int n_out, int cin, int cout,
     int k, int ndim, const int* offs, const int* s_in, const int* cells,
-    int terms, int bi, int bo, int splits, int stage, void* stream) {
+    int terms, int bi, int bo, int splits, int stage, void* work,
+    void* stream) {
   if (k < 1 || k > sparse_conv::MAX_K || ndim < 2 ||
       ndim > sparse_conv::MAX_D || (terms != 1 && terms != 3) || n_in < 1 ||
       n_out < 1 || cin < 1 || cout < 1 || splits < 1 || splits > 65535 ||
@@ -574,9 +594,11 @@ extern "C" int fused_sparse_conv_dkernel(
   const dim3 rgrid(row_blocks, k);
   search_kernel<<<rgrid, ROWS, 0, s>>>(
       (const int*)in_keys, (const int*)out_coords,
-      (const unsigned char*)out_valid, (int*)map, (int*)cnt, n_in, n_out, g);
+      (const unsigned char*)out_valid, (int*)map, (int*)cnt, n_in, n_out, g,
+      (unsigned long long*)work);
   scan_kernel<<<1, SCAN_THREADS, 0, s>>>((const int*)cnt, (int*)off,
-                                         k * row_blocks);
+                                         k * row_blocks,
+                                         (unsigned long long*)work);
   compact_kernel<<<rgrid, ROWS, 0, s>>>((const int*)map, (const int*)cnt,
                                         (const int*)off, (int*)pair_in,
                                         (int*)pair_out, n_out);

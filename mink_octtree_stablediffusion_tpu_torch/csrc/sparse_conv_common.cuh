@@ -83,6 +83,19 @@ __device__ __forceinline__ int find_neighbor(const int coord[1 + MAX_D],
   return (lo < n_in && __ldg(in_keys + lo) == key) ? lo : -1;
 }
 
+// The valid keys of a sorted key array whose padding rows hold INT32_MAX
+// (they sort last): the index of the first INT32_MAX.  One thread's
+// binary search, for the work a launch counts (`work`, see the kernels).
+__device__ __forceinline__ int count_valid_keys(const int* __restrict__ keys,
+                                                int n) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(keys + mid) < 0x7fffffff) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
 // Loads output row r's coordinates (a row of 1 + ND ints) into c (batch
 // -1 if r is past the end or invalid).
 template <int ND>

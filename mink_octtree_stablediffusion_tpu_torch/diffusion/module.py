@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops.coords import device_const
 from ..tensor import SparseTensor
+from ..utils import profiling
 
 
 class CoordNLLParams(nn.Module):
@@ -150,7 +151,9 @@ def sample_latent(unet_apply: Callable, scheduler,
     output tensor.  Classifier-free guidance: with ``guidance_scale != 1``
     and a conditioning ``encoder_hidden_state`` the model runs twice per
     step and the outputs combine as ``uncond + scale·(cond − uncond)``
-    (``uncond_hidden_state`` defaults to zeros)."""
+    (``uncond_hidden_state`` defaults to zeros).  Profiling spans
+    (``utils.profiling``): ``sample.step`` a step, with ``unet.forward``
+    around each model call and ``scheduler.step`` inside it."""
     ts = [int(t) for t in scheduler.timestep_schedule(num_inference_steps,
                                                       steps_offset)]
     prev_ts = ts[1:] + [-1]
@@ -163,18 +166,24 @@ def sample_latent(unet_apply: Callable, scheduler,
         uncond_hidden_state = torch.zeros_like(encoder_hidden_state)
     bsz = latent_template.batch_size
     for i, (t, pt) in enumerate(zip(ts, prev_ts)):
-        noised = latent_template.with_features(x)
-        t_b = torch.full((bsz,), t, dtype=torch.int32, device=feats.device)
-        out = unet_apply(noised, t_b, encoder_hidden_state).features
-        if use_cfg:
-            out_uncond = unet_apply(noised, t_b, uncond_hidden_state).features
-            out = out_uncond + guidance_scale * (out - out_uncond)
-        if step_noises is not None:
-            noise = step_noises[i]
-        elif _needs_step_noise(scheduler):
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                                device=x.device)
-        else:
-            noise = None  # deterministic DDIM (eta = 0) draws nothing
-        x = scheduler.step(out, t, pt, x, noise)
+        with profiling.span("sample.step"):
+            noised = latent_template.with_features(x)
+            t_b = torch.full((bsz,), t, dtype=torch.int32,
+                             device=feats.device)
+            with profiling.span("unet.forward"):
+                out = unet_apply(noised, t_b, encoder_hidden_state).features
+            if use_cfg:
+                with profiling.span("unet.forward"):
+                    out_uncond = unet_apply(noised, t_b,
+                                            uncond_hidden_state).features
+                out = out_uncond + guidance_scale * (out - out_uncond)
+            if step_noises is not None:
+                noise = step_noises[i]
+            elif _needs_step_noise(scheduler):
+                noise = torch.randn(x.shape, generator=generator,
+                                    dtype=x.dtype, device=x.device)
+            else:
+                noise = None  # deterministic DDIM (eta = 0) draws nothing
+            with profiling.span("scheduler.step"):
+                x = scheduler.step(out, t, pt, x, noise)
     return latent_template.with_features(x)

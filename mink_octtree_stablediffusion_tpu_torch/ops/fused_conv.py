@@ -53,11 +53,15 @@ Each wrapper (``fused_sparse_conv``, ``fused_conv_dfeatures``,
 ``ops/library.py``, which launches the kernel for CUDA tensors (or
 raises) and takes the plain PyTorch version only for tensors on the CPU:
 there is no fallback.  Each kernel's launches are counted in its wrapper's
-``.launches``.  The Mosaic mechanics of the TPU kernels (one-hot gather
-as a matmul, lane padding, VMEM budgets, band schedules and the "over
-budget → XLA" fallbacks of the forward and the backward) are not carried
-over: every conv the JAX package would send to ``fused_sparse_conv`` goes
-to the kernels.
+``.launches`` and, while a ``utils.profiling`` record is open, with their
+work: the launcher passes the kernel the slot that ``WORK.slot`` holds
+(set around each launch by ``ops/library.py``), into which B1/B2 add each
+block's matched pairs and valid output rows and the valid input rows, and
+B3 the total of its compacted pair list and the same rows.  The Mosaic
+mechanics of the TPU kernels (one-hot gather as a matmul, lane padding,
+VMEM budgets, band schedules and the "over budget → XLA" fallbacks of the
+forward and the backward) are not carried over: every conv the JAX
+package would send to ``fused_sparse_conv`` goes to the kernels.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -96,6 +101,19 @@ DW_ROWS = 256  # output rows of B3's search and compaction blocks (csrc ROWS)
 # chunk of depth, and partials of at most DW_PARTIAL_BYTES
 DW_FULL_BLOCKS, DW_TARGET_BLOCKS = 264, 528
 DW_MAX_SPLITS, DW_PARTIAL_BYTES = 64, 16 << 20
+
+
+class _Work(threading.local):
+    slot = None  # int64 [3] work slot of the launch being made, or None
+
+
+# the launchers' work slot (``utils.profiling.work_slot``), set by the
+# operators of ``ops/library.py`` around a launch of B1, B2 or B3
+WORK = _Work()
+
+
+def _work_ptr():
+    return None if WORK.slot is None else WORK.slot.data_ptr()
 
 
 def kernel_domain(compute_dtype, ndim: int) -> bool:
@@ -345,12 +363,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GEOM = [ctypes.POINTER(ctypes.c_int)] * 3
 _ENTRIES = {
     "fused_sparse_conv_forward": (SOURCE, [_P] * 8 + [_I] * 6 + _GEOM
-                                  + [_I] * 7 + [_P],
+                                  + [_I] * 7 + [_P, _P],
                                   "fused_sparse_conv_error_string"),
     "fused_sparse_conv_cast": (SOURCE, [_P] * 4 + [_I] * 10 + [_P],
                                "fused_sparse_conv_error_string"),
     "fused_sparse_conv_dkernel": (DW_SOURCE, [_P] * 14 + [_I] * 6 + _GEOM
-                                  + [_I] * 5 + [_P],
+                                  + [_I] * 5 + [_P, _P],
                                   "fused_sparse_conv_dw_error_string"),
 }
 
@@ -503,7 +521,8 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
     (B1; B2 with ``transpose_weight``, where ``kernel`` is the forward's
     [K, Cout, Cin] weight, cast transposed; B8/B9 with ``stage`` other than
     ``full``, bf16 compute).  The weight is float32, or bf16 where the
-    parameters are stored in bf16.  Counts nothing: the wrappers do."""
+    parameters are stored in bf16.  Counts nothing: the wrappers do; the
+    kernel adds its work into ``WORK.slot`` where one is set."""
     if stage not in STAGES:
         raise ValueError(f"stage {stage!r} not in {STAGES}")
     if stage != "full" and (transpose_weight or
@@ -547,7 +566,7 @@ def _launch(features: torch.Tensor, kernel: torch.Tensor,
                 out_valid.data_ptr(), out.data_ptr(), features.shape[0],
                 n_out, cin, cout, k, *_geometry_args(offs, s_in, cells), bn,
                 bk, *terms, int(transpose_weight), int(w_bf16),
-                STAGES.index(stage), stream)
+                STAGES.index(stage), _work_ptr(), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_forward launch failed: "
                            + err(rc).decode())
@@ -620,7 +639,7 @@ def _run_dkernel(features: torch.Tensor, g: torch.Tensor,
                 out_coords.data_ptr(), out_valid.data_ptr(),
                 None if dw is None else dw.data_ptr(), *bufs, n_in, n_out,
                 cin, cout, k, *_geometry_args(offs, s_in, cells), terms, bi,
-                bo, splits, DW_STAGES.index(stage), stream)
+                bo, splits, DW_STAGES.index(stage), _work_ptr(), stream)
     if rc != 0:
         raise RuntimeError("fused_sparse_conv_dkernel launch failed: " +
                            err(rc).decode())
@@ -634,7 +653,8 @@ def _launch_dkernel(features: torch.Tensor, g: torch.Tensor,
     """Allocate the float32 [K, Cin, Cout] output and launch
     ``fused_sparse_conv_dw.cu`` (B3: cast, search, scan, compaction, GEMM
     and, with S > 1, the ordered reduction) on PyTorch's current stream.
-    Counts nothing: the wrapper does."""
+    Counts nothing: the wrapper does; the kernel adds its work into
+    ``WORK.slot`` where one is set."""
     out = torch.empty((offs.shape[0], features.shape[1], g.shape[1]),
                       dtype=torch.float32, device=features.device)
     if _run_dkernel(features, g, in_keys, out_coords, out_valid, offs, s_in,

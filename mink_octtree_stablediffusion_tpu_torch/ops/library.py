@@ -13,7 +13,8 @@ with three implementations:
   counted here, where the kernel launches, and nowhere else.  The fused
   conv's three operators launch once per band of at most
   ``fused_conv.MAX_K`` offsets (``fused_conv.offset_bands``), each launch
-  counted;
+  counted, by ``_launch_fused``, also as ``fused_conv.B1``, ``.B2`` or
+  ``.B3`` with its work on the innermost ``utils.profiling`` span;
 - **CPU**: the kernel's plain PyTorch version;
 - **fake**: the output's shape and dtype, for tracing.
 
@@ -53,6 +54,7 @@ from . import fused_conv as fc
 from . import onehot_conv as oc
 from . import vol_conv as vc
 from .coords import SparseGrid, _cells
+from ..utils import profiling
 
 NS = "mink_torch"
 _LIB = torch.library.Library(NS, "DEF")
@@ -120,16 +122,50 @@ def _bands(offs, stride, kernel=None) -> list:
 # -- B1 (fused_conv) with B2 and B3 as its backward ---------------------------
 
 
+def _launch_fused(wrapper, kind: str, features, operand, in_keys, out_coords,
+                  out_valid, offs, stride, cells, compute_dtype,
+                  **kw) -> torch.Tensor:
+    """One launch of B1, B2 (``kind``; ``operand`` the weight) or B3 (the
+    cotangent) through its module-global launcher, counted where it ran:
+    in ``wrapper.launches`` and, on the innermost profiling span, as
+    ``fused_conv.<kind>`` with its work.  While a profiling record is open
+    the kernel adds its matched pairs and valid rows into a slot of the
+    record (``fc.WORK.slot``, which the launcher reads)."""
+    fc.WORK.slot = slot = profiling.work_slot(features.device)
+    try:
+        if kind == "B3":
+            out = fc._launch_dkernel(features, operand, in_keys, out_coords,
+                                     out_valid, *_geometry(offs, stride,
+                                                           cells),
+                                     compute_dtype)
+            ran, cout = operand.numel(), operand.shape[1]
+            weight_bytes = out.numel() * 4  # dW written, float32
+        else:
+            out = fc._launch(features, operand, in_keys, out_coords,
+                             out_valid, *_geometry(offs, stride, cells),
+                             compute_dtype, **kw)
+            ran, cout = out.numel(), out.shape[1]
+            weight_bytes = operand.numel() * operand.element_size()
+    finally:
+        fc.WORK.slot = None
+    if ran and features.numel():  # an empty conv launches nothing
+        wrapper.launches += 1
+        profiling.count_launch(kind, slot, cin=features.shape[1], cout=cout,
+                               k=len(offs) // len(stride),
+                               weight_bytes=weight_bytes,
+                               coord_cols=out_coords.shape[1])
+    return out
+
+
 def _fused_cuda(features, kernel, in_keys, in_coords, in_valid, out_keys,
                 out_coords, out_valid, offs, in_stride, in_extent, out_stride,
                 out_extent, compute_dtype):
     cells = _cells(in_extent, in_stride)
     out = None
     for band, w in _bands(offs, in_stride, kernel):  # summed in offset order
-        part = fc._launch(features, w, in_keys, out_coords, out_valid,
-                          *_geometry(band, in_stride, cells), compute_dtype)
-        if part.numel() and features.numel():  # an empty conv launches nothing
-            fc.fused_sparse_conv.launches += 1
+        part = _launch_fused(fc.fused_sparse_conv, "B1", features, w,
+                             in_keys, out_coords, out_valid, band, in_stride,
+                             cells, compute_dtype)
         out = part if out is None else out.add_(part)
     return out
 
@@ -184,11 +220,9 @@ def _dfeatures_cuda(g, kernel, out_keys, in_coords, in_valid, offs,
                     out_stride, out_cells, compute_dtype):
     out = None
     for band, w in _bands(offs, out_stride, kernel):
-        part = fc._launch(g, w, out_keys, in_coords, in_valid,
-                          *_geometry(band, out_stride, out_cells),
-                          compute_dtype, transpose_weight=True)
-        if part.numel() and g.numel():
-            fc.fused_conv_dfeatures.launches += 1
+        part = _launch_fused(fc.fused_conv_dfeatures, "B2", g, w, out_keys,
+                             in_coords, in_valid, band, out_stride,
+                             out_cells, compute_dtype, transpose_weight=True)
         out = part if out is None else out.add_(part)
     return out
 
@@ -207,13 +241,10 @@ def _dfeatures_fake(g, kernel, out_keys, in_coords, in_valid, offs,
 
 def _dkernel_cuda(features, g, in_keys, out_coords, out_valid, offs,
                   in_stride, in_cells, compute_dtype):
-    parts = []
-    for band, _ in _bands(offs, in_stride):  # dW's offset bands
-        parts.append(fc._launch_dkernel(
-            features, g, in_keys, out_coords, out_valid,
-            *_geometry(band, in_stride, in_cells), compute_dtype))
-        if features.numel() and g.numel():
-            fc.fused_conv_dkernel.launches += 1
+    parts = [_launch_fused(fc.fused_conv_dkernel, "B3", features, g, in_keys,
+                           out_coords, out_valid, band, in_stride, in_cells,
+                           compute_dtype)
+             for band, _ in _bands(offs, in_stride)]  # dW's offset bands
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

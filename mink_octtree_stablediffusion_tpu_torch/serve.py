@@ -36,6 +36,7 @@ from .diffusion.module import _needs_step_noise, sample_latent
 from .models.unet import UNet
 from .models.vae import VAE
 from .tensor import sparse_tensor
+from .utils import profiling
 from .utils.device import make_generator, resolve_device
 
 
@@ -113,7 +114,9 @@ class GenerationProgram(torch.nn.Module):
     ``valid`` bool [input_capacity]) to fix the latent coordinate set,
     denoises N(0,1) features with the UNet and the scheduler, and decodes
     with the pruning decoder.  The noise is given, or drawn from
-    ``generator`` (``sample_latent``)."""
+    ``generator`` (``sample_latent``).  Profiling spans (``utils.
+    profiling``): ``serve.generate`` around a request, with
+    ``serve.encode``, the sampler's and ``serve.decode`` inside it."""
 
     def __init__(self, vae: VAE, unet: UNet, scheduler, *,
                  input_capacity: int, batch_size: int, resolution: int,
@@ -128,26 +131,30 @@ class GenerationProgram(torch.nn.Module):
 
     def latent(self, cpad: torch.Tensor, valid: torch.Tensor):
         """(the input sparse tensor, the scaled latent template)."""
-        feats = torch.ones((self.input_capacity, 1),
-                           device=cpad.device) * valid[:, None]
-        st = sparse_tensor(cpad, feats, capacity=self.input_capacity,
-                           batch_size=self.batch_size, valid=valid,
-                           extent=(self.resolution,) * 3)
-        mean, _ = self.vae.encode(st)
-        return st, mean.with_features(mean.features * self.vae_scale)
+        with profiling.span("serve.encode"):
+            feats = torch.ones((self.input_capacity, 1),
+                               device=cpad.device) * valid[:, None]
+            st = sparse_tensor(cpad, feats, capacity=self.input_capacity,
+                               batch_size=self.batch_size, valid=valid,
+                               extent=(self.resolution,) * 3)
+            mean, _ = self.vae.encode(st)
+            return st, mean.with_features(mean.features * self.vae_scale)
 
     def forward(self, cpad, valid, init_noise=None, step_noises=None,
                 encoder_hidden_state=None, generator=None):
-        st, latent = self.latent(cpad, valid)
-        z = sample_latent(self.unet, self.scheduler, latent,
-                          num_inference_steps=self.sample_steps,
-                          encoder_hidden_state=encoder_hidden_state,
-                          guidance_scale=self.guidance_scale,
-                          steps_offset=self.steps_offset, generator=generator,
-                          init_noise=init_noise, step_noises=step_noises)
-        z = z.with_features(z.features / self.vae_scale)
-        _, _, sout = self.vae.decode(z, st.grid)
-        return sout.grid.coords, sout.grid.valid
+        with profiling.span("serve.generate"):
+            st, latent = self.latent(cpad, valid)
+            z = sample_latent(self.unet, self.scheduler, latent,
+                              num_inference_steps=self.sample_steps,
+                              encoder_hidden_state=encoder_hidden_state,
+                              guidance_scale=self.guidance_scale,
+                              steps_offset=self.steps_offset,
+                              generator=generator, init_noise=init_noise,
+                              step_noises=step_noises)
+            z = z.with_features(z.features / self.vae_scale)
+            with profiling.span("serve.decode"):
+                _, _, sout = self.vae.decode(z, st.grid)
+            return sout.grid.coords, sout.grid.valid
 
 
 def build_generate_fn(vae: VAE, unet: UNet, scheduler, *,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import profiling
 from .optim import MixedPrecisionParams, cast_params
 
 _CKPT = re.compile(r"step_(\d+)\.pt")
@@ -64,28 +65,32 @@ def make_train_step(loss_fn: Callable):
     step.  The module is whatever the optimizer updates: the VAE, or for
     diffusion a ``ModuleDict`` of the UNet and the coordinate NLL (a
     frozen VAE stays outside it, in the loss); gradient clipping is the
-    optimizer's (``DiffusionOptimizer``).  The returned loss and aux are detached; nothing waits for the
-    device."""
+    optimizer's (``DiffusionOptimizer``).  The returned loss and aux are
+    detached; nothing waits for the device.  Profiling spans (``utils.
+    profiling``): ``train.step`` around the step, with ``train.forward``,
+    ``train.backward`` and ``train.optimizer`` inside it."""
 
     def step(state: TrainState, batch, *args, **kw):
-        state.module.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.module, batch, *args, **kw)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        with profiling.span("train.step"):
+            loss, aux = _forward_backward(loss_fn, state, batch, *args, **kw)
+            with profiling.span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     return step
 
 
 def _forward_backward(loss_fn: Callable, state: TrainState, batch,
                       *args, **kw):
-    """Zero the gradients, run ``loss_fn`` in train mode, backward."""
+    """Zero the gradients, run ``loss_fn`` in train mode (span
+    ``train.forward``), backward (``train.backward``)."""
     state.module.train()
     state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_fn(state.module, batch, *args, **kw)
-    loss.backward()
+    with profiling.span("train.forward"):
+        loss, aux = loss_fn(state.module, batch, *args, **kw)
+    with profiling.span("train.backward"):
+        loss.backward()
     return loss, aux
 
 
@@ -166,45 +171,49 @@ def make_dp_train_step(loss_fn: Callable, group=None):
     forward.  ``step.comm`` holds the last step's collective payload
     (``bytes`` a rank sends into its all-reduces) and the host seconds
     spent in them, counted from a point where the device has finished the
-    backward, so they hold no tail of it."""
+    backward, so they hold no tail of it.  It carries the profiling spans
+    of ``make_train_step``'s step."""
 
     def step(state: TrainState, batch, *args, **kw):
-        module, opt = state.module, state.optimizer
-        loss, aux = _forward_backward(loss_fn, state, batch, *args, **kw)
-        params = _trained_params(opt)
-        dev = params[0].device
-        has = torch.tensor([float(p.grad is not None) for p in params],
-                           device=dev)
-        grads = [p.grad if p.grad is not None else
-                 torch.zeros(p.shape, device=dev) for p in params]
-        keys = sorted(aux)
-        metrics = torch.stack([loss.detach().float()] +
-                              [aux[k].detach().float() for k in keys])
-        buffers = [b for b in module.buffers() if b.is_floating_point()]
-        sent = grads + [has, metrics] + buffers
-        if dev.type == "cuda":
-            # The all-reduce waits for the stream anyway; without this its
-            # seconds would hold the backward's queued kernels.
-            torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        mean = all_reduce_mean(sent, group)
-        step.comm = {"seconds": time.perf_counter() - t0,
-                     "bytes": 4 * sum(t.numel() for t in sent)}
-        n = len(params)
-        grads, has, metrics = mean[:n], mean[n], mean[n + 1]
-        grads = [g if h > 0 else None for g, h in zip(grads, has.tolist())]
-        with torch.no_grad():
-            for b, m in zip(buffers, mean[n + 2:]):
-                if m is not b:  # float32 buffers were averaged in place
-                    b.copy_(m)
-        if isinstance(opt, MixedPrecisionParams):
-            opt.step(grads=grads)
-        else:
-            for p, g in zip(params, grads):
-                p.grad = None if g is None else g.to(p.dtype)
-            opt.step()
-        state.step += 1
-        return metrics[0], dict(zip(keys, metrics[1:]))
+        with profiling.span("train.step"):
+            module, opt = state.module, state.optimizer
+            loss, aux = _forward_backward(loss_fn, state, batch, *args, **kw)
+            params = _trained_params(opt)
+            dev = params[0].device
+            has = torch.tensor([float(p.grad is not None) for p in params],
+                               device=dev)
+            grads = [p.grad if p.grad is not None else
+                     torch.zeros(p.shape, device=dev) for p in params]
+            keys = sorted(aux)
+            metrics = torch.stack([loss.detach().float()] +
+                                  [aux[k].detach().float() for k in keys])
+            buffers = [b for b in module.buffers() if b.is_floating_point()]
+            sent = grads + [has, metrics] + buffers
+            if dev.type == "cuda":
+                # The all-reduce waits for the stream anyway; without this
+                # its seconds would hold the backward's queued kernels.
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            mean = all_reduce_mean(sent, group)
+            step.comm = {"seconds": time.perf_counter() - t0,
+                         "bytes": 4 * sum(t.numel() for t in sent)}
+            n = len(params)
+            grads, has, metrics = mean[:n], mean[n], mean[n + 1]
+            grads = [g if h > 0 else None
+                     for g, h in zip(grads, has.tolist())]
+            with torch.no_grad():
+                for b, m in zip(buffers, mean[n + 2:]):
+                    if m is not b:  # float32 buffers were averaged in place
+                        b.copy_(m)
+            with profiling.span("train.optimizer"):
+                if isinstance(opt, MixedPrecisionParams):
+                    opt.step(grads=grads)
+                else:
+                    for p, g in zip(params, grads):
+                        p.grad = None if g is None else g.to(p.dtype)
+                    opt.step()
+            state.step += 1
+            return metrics[0], dict(zip(keys, metrics[1:]))
 
     step.comm = {"seconds": 0.0, "bytes": 0}
     return step

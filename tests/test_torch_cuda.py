@@ -148,6 +148,46 @@ def test_backward_kernels_match_plain(cin, cout):
             assert err <= 1e-3 * ref.abs().max().item() + 1e-5, name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(5, 7), (96, 130)])
+def test_launches_count_their_work_where_it_happens(cin, cout):
+    """B1, B2 and B3, launched inside a profiling record (the backward's on
+    the autograd engine's thread), count their work in the kernels: each
+    launch's matched pairs and valid rows give the operations and bytes
+    that ``benchmark/work.py::launch_work`` counts from its operands, on
+    the four conv kinds, a K = 343 conv in three bands and a 2-D grid;
+    with no record open nothing is recorded."""
+    from benchmark import work
+    from benchmark.entries import launches as bench_launches
+    from mink_octtree_stablediffusion_tpu_torch.utils import profiling
+
+    dev = _card()
+    g, g2d = _grid(dev), _grid_2d(dev)
+    convs = _grids(dev) + [
+        ("k7", g, g, mp.ops.KernelSpec(7, 1, ndim=3)),
+        ("2d", g2d, g2d, mp.ops.KernelSpec(3, 1, ndim=2))]
+    for name, gi, go, spec in convs:
+        f = (torch.randn(gi.capacity, cin, device=dev) *
+             gi.valid[:, None]).requires_grad_()
+        k = (torch.randn(spec.volume, cin, cout, device=dev) * 0.1
+             ).requires_grad_()
+        gout = torch.randn(go.capacity, cout, device=dev) * go.valid[:, None]
+        profiling.clear_records()
+        with bench_launches.recorded() as calls, profiling.recording(), \
+                profiling.span("conv"):
+            mp.ops.fused_sparse_conv(f, k, gi, go, spec).backward(gout)
+        rec, = profiling.records()
+        bands = len(fused_conv.offset_bands(spec.volume))
+        assert [x.kind for x in rec.launches] == [c[0] for c in calls] == \
+            ["B1"] * bands + ["B2"] * bands + ["B3"] * bands, name
+        for x, call in zip(rec.launches, calls):
+            assert x.pairs > 0, name
+            assert (x.ops, x.bytes) == work.launch_work(*call), (name, x)
+    profiling.clear_records()
+    mp.ops.fused_sparse_conv(f, k, gi, go, spec).backward(gout)
+    assert profiling.records() == []
+
+
 def _fwd_bwd_check(cin, cout, gi, go, spec, name):
     """B1 (forward) and B2 (dF) of ``FusedSparseConv`` on the card, each
     launched once, against their plain versions on the same bf16-rounded
