@@ -199,7 +199,9 @@ conditioned canvas generation (``tiny_canvas_reference``), a VAE train
 step (``tiny_train_reference``) and a diffusion train step with the
 brick gate on (``tiny_diffusion_reference``, which also runs the card
 with the gate off and with the planted fault) must agree within the
-tolerances stated there.
+tolerances stated there.  Every UNet forward that runs as a CUDA graph
+(``models.unet_graph``) must be captured: a capture that fails and leaves
+its signature eager fails the script (``count_fallbacks``).
 
 The generation decoder clamps each level to ``MAX_KEEP`` rows (see there);
 VAE training runs unclamped (see ``train_phase``).
@@ -221,6 +223,7 @@ import statistics
 import sys
 import time
 import traceback
+import weakref
 from collections import Counter
 from pathlib import Path
 
@@ -358,7 +361,12 @@ class LaunchCapture:
     keeps the operands of the first launch of each shape
     (``cases[path][kernel]``), with no extra launches.  A fused-conv shape
     is the forward conv's (N_out, Cin, Cout, K); a brick shape the forward
-    conv's (B, X, Y, Z, Cin, Cout)."""
+    conv's (B, X, Y, Z, Cin, Cout).  A launcher called while a CUDA graph
+    of the UNet is captured (inside ``UNetGraphs._capture``, also wrapped)
+    launches nothing then: its shape is kept as the graph's (``graphs``)
+    and counted at each replay of that graph (``unet_graph._replayed``,
+    also wrapped), where no launcher is called; a capture that fails keeps
+    nothing."""
 
     def __init__(self, mp):
         self.fc, self.vc = mp.ops.fused_conv, mp.ops.vol_conv
@@ -366,6 +374,10 @@ class LaunchCapture:
                      self.vc._launch, self.vc._launch_dw)
         self.cases, self.counts, self.b5_order = {}, {}, {}
         self.path, self.on = None, ()
+        self.ug = mp.models.unet_graph
+        self.orig_graph = (self.ug.UNetGraphs._capture, self.ug._replayed)
+        # the shapes of a capture under way, else None; each graph's shapes
+        self.pending, self.graphs = None, weakref.WeakKeyDictionary()
 
     def at(self, path, on=()):
         self.path, self.on = path, tuple(on)
@@ -379,15 +391,23 @@ class LaunchCapture:
         return Counter({k: c // steps for k, c in total.items()})
 
     def keep(self, name, key, ops):
+        import torch
+        if (self.pending is not None and
+                torch.cuda.is_current_stream_capturing()):
+            self.pending.append((name, key))
+            return
+        self.count(name, key)
+        if self.path is not None and name in self.on:
+            self.cases.setdefault(self.path, {}).setdefault(
+                name, {}).setdefault(key, ops)
+
+    def count(self, name, key):
         if self.path is None:
             return
         self.counts.setdefault(self.path, {}).setdefault(
             name, Counter())[key] += 1
         if name == "B5":
             self.b5_order.setdefault(self.path, []).append(key)
-        if name in self.on:
-            self.cases.setdefault(self.path, {}).setdefault(
-                name, {}).setdefault(key, ops)
 
     def __enter__(self):
         launch, launch_dkernel, vlaunch, vlaunch_dw = self.orig
@@ -420,12 +440,50 @@ class LaunchCapture:
 
         (self.fc._launch, self.fc._launch_dkernel, self.vc._launch,
          self.vc._launch_dw) = (b1_b2, b3, b5, b6)
+        capture, replayed = self.orig_graph
+
+        def graph_capture(graphs, *a):
+            # the shapes the capture called the launchers with are the
+            # graph's launches; its eager warm-up launches and counts
+            self.pending = []
+            try:
+                graph, out = capture(graphs, *a)
+            finally:
+                shapes, self.pending = self.pending, None
+            if graph is not None:
+                self.graphs[graph] = shapes
+            return graph, out
+
+        def graph_replayed(graph):
+            replayed(graph)
+            for name, key in self.graphs.get(graph, ()):
+                self.count(name, key)
+
+        self.ug.UNetGraphs._capture, self.ug._replayed = (graph_capture,
+                                                          graph_replayed)
         return self
 
     def __exit__(self, *exc):
         (self.fc._launch, self.fc._launch_dkernel, self.vc._launch,
          self.vc._launch_dw) = self.orig
+        self.ug.UNetGraphs._capture, self.ug._replayed = self.orig_graph
         self.path = None
+
+
+def count_fallbacks(mp) -> list:
+    """Wrap the UNet graph runner's capture for the rest of the process:
+    the returned list gains the feature shape of each capture that failed
+    (its signature then runs eager, ``unet.graph_fallback``)."""
+    ug, failed = mp.models.unet_graph, []
+    capture = ug.UNetGraphs._capture
+
+    def counted(graphs, module, forward, x, *a):
+        graph, out = capture(graphs, module, forward, x, *a)
+        if graph is None:
+            failed.append(tuple(x.features.shape))
+        return graph, out
+    ug.UNetGraphs._capture = counted
+    return failed
 
 
 def unit_rms(g):
@@ -5359,6 +5417,7 @@ def main(argv) -> int:
     from mink_octtree_stablediffusion_tpu_torch.bench_conv import card
     power = card()
     failed = []  # the checks that did not hold
+    fallbacks = count_fallbacks(mp)  # before any LaunchCapture wraps it
 
     def need(cond, what: str) -> None:
         if not cond:
@@ -5990,6 +6049,9 @@ def main(argv) -> int:
             need(False, ref.__name__)
 
     mark("end")
+    emit({"unet_graph_fallbacks": fallbacks})
+    need(not fallbacks, "every UNet forward captured as a CUDA graph where "
+         "one engages (unet.graph_fallback 0)")
     emit({"card": power, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     print(power, flush=True)

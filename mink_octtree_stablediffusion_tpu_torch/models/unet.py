@@ -20,6 +20,10 @@ condition, CFG's unconditional branch, leaves it exactly as it was).
 ``remat`` rematerializes each ResNet stack in the backward pass
 (``nn.blocks.remat_call``) while gradients are recorded; the parameters
 are the same as without it.
+
+On the card with gradients off, ``forward`` replays the eager forward
+(``eager_forward``) as a CUDA graph captured once per input signature
+(``models.unet_graph``); elsewhere it runs it.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..nn.init import init_parameters
 from ..nn.linear import Dense
 from ..tensor import SparseTensor, cat
 from ..utils.device import make_generator, resolve_device
+from .unet_graph import UNetGraphs, engages
 
 
 class UNet(nn.Module):
@@ -100,13 +105,24 @@ class UNet(nn.Module):
                                    device=dev)
         init_parameters(self, make_generator(seed, dev))
         self.eval()
+        self.graphs = UNetGraphs()
 
     def forward(self, x: SparseTensor, timesteps: torch.Tensor,
                 encoder_hidden_state: Optional[torch.Tensor] = None
                 ) -> SparseTensor:
         """``encoder_hidden_state`` [B, S, cross_attention_dim] is the
         condition; it is unused without cross-attention or
-        ``cond_into_time``, as in the JAX package."""
+        ``cond_into_time``, as in the JAX package.  A graph of
+        ``eager_forward`` where ``unet_graph.engages``, else that."""
+        if engages(x, timesteps):
+            return self.graphs(self, self.eager_forward, x, timesteps,
+                               encoder_hidden_state)
+        return self.eager_forward(x, timesteps, encoder_hidden_state)
+
+    def eager_forward(self, x: SparseTensor, timesteps: torch.Tensor,
+                      encoder_hidden_state: Optional[torch.Tensor] = None
+                      ) -> SparseTensor:
+        """The forward, one operation at a time."""
         ch = self.channels
         ehs = encoder_hidden_state
         temb = self.time_embedding(timesteps_embedding(timesteps, ch[0]))

@@ -170,11 +170,9 @@ def morton_window_attention(x: SparseTensor, attn: SparseAttention,
     n, c = x.features.shape
     w, iv = window_size, interval
     _record("window", x, w)
-    dev = x.features.device
     mcode = morton_encode(x.C[:, 1:], x.tensor_stride)
-    big = torch.tensor(_INT32_MAX, dtype=torch.int64, device=dev)
-    bkey = torch.where(x.valid, x.C[:, 0].long(), big)
-    mkey = torch.where(x.valid, mcode.long(), big)
+    bkey = torch.where(x.valid, x.C[:, 0].long(), _INT32_MAX)
+    mkey = torch.where(x.valid, mcode.long(), _INT32_MAX)
     morder = torch.sort(bkey * (1 << 31) + mkey, stable=True).indices
     f = x.features[morder]
     m = x.valid[morder]

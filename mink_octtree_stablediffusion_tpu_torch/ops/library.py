@@ -461,3 +461,14 @@ torch.library.register_autograd(f"{NS}::onehot_sparse_conv",
                                 lib=_LIB)
 
 OPS = tuple(_SCHEMAS)  # every operator of the namespace
+
+
+def launch_counters() -> tuple:
+    """The wrappers whose ``.launches`` the operators count, each launch
+    where it ran (a CUDA graph's runner advances them on a replay)."""
+    from .pallas_conv import pallas_sparse_conv
+
+    return (fc.fused_sparse_conv, fc.fused_conv_dfeatures,
+            fc.fused_conv_dkernel, fc.fused_conv_stage, vc.vol_conv_tiles,
+            vc.vol_conv_dfeatures, vc.vol_conv_dw, oc.onehot_sparse_conv,
+            pallas_sparse_conv)

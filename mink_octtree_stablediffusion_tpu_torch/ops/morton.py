@@ -31,8 +31,9 @@ def morton_encode(xyz: torch.Tensor, stride=1) -> torch.Tensor:
     n, d = xyz.shape
     bits = bits_per_dim(d)
     half = 1 << (bits - 1)
-    s = torch.as_tensor(_tuplize(stride, d), dtype=torch.int32,
-                        device=xyz.device)
+    from .coords import device_const  # coords imports this module
+
+    s = device_const(_tuplize(stride, d), torch.int32, xyz.device)
     q = torch.div(xyz.to(torch.int32), s, rounding_mode="floor") + half
     q = q.clamp(0, (1 << bits) - 1)
     code = torch.zeros((n,), dtype=torch.int32, device=xyz.device)

@@ -39,12 +39,19 @@ and scheduler, serving's encode and decode, the fused conv's launches):
   the valid rows it reads and writes into a slot of the record's device
   buffer (``work_slot``), read once, by ``records()``, after the record
   has closed.
+- A CUDA graph's launches (``capturing``, ``count_replay``): while a
+  graph is captured, the fused conv launches count nothing on a span and
+  are kept in a ``Record`` of the graph's, their work slots rows of
+  buffers the graph owns and zeroes as its first node; each replay inside
+  an open record counts them on the innermost span as launches, with
+  their work copied from the graph's slots into the record's.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import os
 import sys
 import threading
@@ -211,15 +218,18 @@ class Record:
         return sum(self.spans[j].counters.get(name, 0)
                    for j in self.within(i))
 
-    def _slot(self, device) -> torch.Tensor:
-        if (not self._chunks or self._used == _SLOTS_PER_CHUNK or
-                self._chunks[-1].device != torch.device(device)):
+    def _slots(self, device, n: int = 1) -> torch.Tensor:
+        """``n`` zeroed work slots in a row of one of the record's buffers
+        (a chunk of at least ``_SLOTS_PER_CHUNK``)."""
+        last = self._chunks[-1] if self._chunks else None
+        if (last is None or self._used + n > last.shape[0] or
+                last.device != torch.device(device)):
             self._chunks.append(torch.zeros(
-                (_SLOTS_PER_CHUNK, _SLOT_WORDS), dtype=torch.int64,
+                (max(_SLOTS_PER_CHUNK, n), _SLOT_WORDS), dtype=torch.int64,
                 device=device))
             self._used = 0
-        self._used += 1
-        return self._chunks[-1][self._used - 1]
+        self._used += n
+        return self._chunks[-1][self._used - n:self._used]
 
     def _resolve(self) -> None:
         """Read the kernels' work slots (once: one copy a buffer)."""
@@ -241,6 +251,7 @@ class Record:
 class _Local(threading.local):
     def __init__(self):
         self.stack: list = []  # (record, span index) of the open spans
+        self.graph: Optional[Record] = None  # a graph's, captured now
 
 
 _local = _Local()
@@ -346,21 +357,64 @@ def count(name: str, n: int = 1) -> None:
 def work_slot(device) -> Optional[torch.Tensor]:
     """A zeroed int64 [3] slot on ``device`` in the open record's buffer,
     into which a fused conv kernel adds its matched pairs, valid rows read
-    and valid rows written; None when no record is open."""
-    at = _innermost()
-    return None if at is None else at[0]._slot(device)
+    and valid rows written; None when no record is open.  While this
+    thread captures a graph (``capturing``), a slot of the graph's."""
+    at = _innermost() if _local.graph is None else (_local.graph, None)
+    return None if at is None else at[0]._slots(device)[0]
 
 
 def count_launch(kind: str, slot: Optional[torch.Tensor], *, cin: int,
                  cout: int, k: int, weight_bytes: int,
                  coord_cols: int) -> None:
     """Count a fused conv launch as ``fused_conv.<kind>`` on the innermost
-    open span and keep its work (``Launch``), if a record is open."""
+    open span and keep its work (``Launch``), if a record is open; while
+    this thread captures a graph, keep it as the graph's instead (a
+    capture launches nothing)."""
+    if _local.graph is not None:
+        _local.graph.launches.append(Launch(
+            kind, cin, cout, k, weight_bytes, coord_cols, -1, slot=slot))
+        return
     at = _innermost()
     if at is not None:
         _add(at, "fused_conv." + kind)
         at[0].launches.append(Launch(kind, cin, cout, k, weight_bytes,
                                      coord_cols, at[1], slot=slot))
+
+
+@contextlib.contextmanager
+def capturing(device):
+    """Inside a CUDA graph's capture: the fused conv launches of the block
+    are kept in the graph's ``Record`` (yielded; no span, its launches'
+    ``span`` -1), not counted.  Its first work buffer is made and zeroed
+    here, so that zeroing it is the graph's first node when the block opens
+    the capture."""
+    graph = Record()
+    graph._slots(device, 0)
+    prev, _local.graph = _local.graph, graph
+    try:
+        yield graph
+    finally:
+        _local.graph = prev
+
+
+def count_replay(graph: Record) -> None:
+    """Count a replay of a graph (its ``capturing`` record) on the
+    innermost open span, if a record is open: each of its launches as
+    ``fused_conv.<kind>`` with its work, copied from the graph's slots into
+    the record's (a device copy a buffer of the graph's)."""
+    at = _innermost()
+    if at is None or not graph.launches:
+        return
+    rec, n = at[0], len(graph.launches)
+    rows, done = rec._slots(graph._chunks[0].device, n), 0
+    for buf in graph._chunks:
+        take = min(n - done, buf.shape[0])
+        rows[done:done + take].copy_(buf[:take])
+        done += take
+    for launch, row in zip(graph.launches, rows):
+        _add(at, "fused_conv." + launch.kind)
+        rec.launches.append(dataclasses.replace(launch, span=at[1],
+                                                slot=row))
 
 
 def records() -> List[Record]:

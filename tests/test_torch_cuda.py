@@ -3,8 +3,9 @@ passes of the fused conv; B5 forward and dF pass, B6 dW of the brick conv;
 B4 and B7, the convs given a kernel map; B1's stages, B8/B9) and of small
 VAE and diffusion train steps through them, of data parallelism on the
 card (SyncBN and a DP step, two ranks sharing it over gloo, in processes
-spawned from `torch_dp_worker.py`), and of the hash-table route of
-unbounded grids on the card; they need an NVIDIA GPU.
+spawned from `torch_dp_worker.py`), of the hash-table route of unbounded
+grids on the card, and of the UNet's forward replayed as a CUDA graph
+against its eager forward; they need an NVIDIA GPU.
 
 Marked ``cuda``: without a card each test skips (the decision is made
 inside the test).  This file imports neither JAX nor the JAX package, so on
@@ -1606,3 +1607,288 @@ def test_sharded_conv_on_card_matches_unsharded_slice():
     comm = out["half"][4]
     assert comm["gather"]["calls"] == comm["dF_sum"]["calls"] == 1
     assert out["full"][4]["gather"]["calls"] == 0
+
+
+# -- the UNet's forward as a CUDA graph (models/unet_graph.py) ---------------
+
+
+def _unet_on_card(dev, **kw):
+    return mp.models.UNet(channels=(4, 32, 64, 64), group=4, attn_max_len=256,
+                          down_capacities=(512, 256, 128), device=dev, seed=1,
+                          **kw)
+
+
+def _latent_on_card(dev, seed, cap=1024, bsz=2, res=128):
+    """A latent at stride 8 on a grid with a static extent: 300 random
+    cells an instance, features N(0, 1) on the valid rows."""
+    rng = np.random.RandomState(seed)
+    vox = [np.unique(rng.randint(0, res // 8, (300, 3)), axis=0) * 8
+           for _ in range(bsz)]
+    cpad, valid = mp.ops.pad_to_capacity(mp.ops.batched_coordinates_np(vox),
+                                         cap)
+    grid, _, _ = mp.ops.make_grid(torch.as_tensor(cpad, device=dev),
+                                  torch.as_tensor(valid, device=dev), cap, 8,
+                                  bsz, extent=(res,) * 3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn(cap, 4, device=dev, generator=gen)
+    return mp.SparseTensor(grid=grid, features=feats * grid.valid[:, None])
+
+
+def _graph_counts(rec):
+    return {n: rec.counter("unet.graph_" + n)
+            for n in ("replay", "capture", "fallback")}
+
+
+@pytest.mark.cuda
+def test_unet_graph_equals_the_eager_forward_bit_for_bit():
+    """Two requests (coordinate sets of one signature), 3 consecutive
+    timesteps each: every graphed output equals the eager forward's bit
+    for bit, lies on the caller's grid, aliases no input, and is unchanged
+    by the replays after it; one capture (whose warm-up run answers the
+    first call), five replays."""
+    from mink_octtree_stablediffusion_tpu_torch.utils import profiling
+    dev = _card()
+    mp.utils.cuda_build.build()
+    unet = _unet_on_card(dev)
+    held = []
+    profiling.clear_records()
+    with torch.no_grad(), profiling.recording(), profiling.span("request"):
+        for seed in (0, 1):
+            x = _latent_on_card(dev, seed)
+            x_in = x.features.clone()
+            for t in (981, 961, 941):
+                ts = torch.full((2,), t, dtype=torch.int32, device=dev)
+                got = unet(x, ts)
+                ref = unet.eager_forward(x, ts).features
+                assert got.grid is x.grid
+                assert got.features.data_ptr() != x.features.data_ptr()
+                assert torch.equal(got.features, ref), (seed, t)
+                held.append((got.features, ref.clone()))
+            assert torch.equal(x.features, x_in)
+    assert not torch.equal(held[0][1], held[3][1])  # two requests
+    assert all(torch.equal(a, b) for a, b in held)
+    rec = profiling.records()[-1]
+    assert _graph_counts(rec) == {"replay": 5, "capture": 1, "fallback": 0}
+    assert len(unet.graphs.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_unet_graph_forward_hook_sees_each_steps_own_input_and_output():
+    """``sample_latent`` over the graphed UNet: a forward hook keeps each
+    step's input and output; each step's input differs, and the eager
+    forward on it gives the kept output bit for bit; the final latent
+    equals the eager sampler's."""
+    dev = _card()
+    mp.utils.cuda_build.build()
+    unet = _unet_on_card(dev)
+    x = _latent_on_card(dev, 2)
+    ddim = mp.diffusion.DDIMScheduler.create()
+    kept = []
+    handle = unet.register_forward_hook(
+        lambda m, a, o: kept.append((a[0], a[1], o)))
+    with torch.no_grad():
+        z = mp.diffusion.sample_latent(unet, ddim, x, num_inference_steps=4,
+                                       init_noise=x.features)
+    handle.remove()
+    with torch.no_grad():
+        ref = mp.diffusion.sample_latent(unet.eager_forward, ddim, x,
+                                         num_inference_steps=4,
+                                         init_noise=x.features)
+        assert len(kept) == 4
+        for i, (xi, ti, oi) in enumerate(kept):
+            assert torch.equal(unet.eager_forward(xi, ti).features,
+                               oi.features), i
+            if i:
+                assert not torch.equal(xi.features, kept[i - 1][0].features)
+                assert not torch.equal(ti, kept[i - 1][1])
+    assert torch.equal(z.features, ref.features)
+
+
+@pytest.mark.cuda
+def test_unet_graph_with_cfg_equals_eager():
+    """Classifier-free guidance: the conditioned and the unconditioned
+    call of a step share one signature and one graph, replayed twice a
+    step (the first call captures it); each output equals the eager
+    forward's and the sampled latent the eager sampler's, bit for bit."""
+    from mink_octtree_stablediffusion_tpu_torch.utils import profiling
+    dev = _card()
+    mp.utils.cuda_build.build()
+    unet = _unet_on_card(dev, with_cross_attn=True, cross_attention_dim=32,
+                         cond_into_time=True)
+    x = _latent_on_card(dev, 3)
+    cond = torch.randn(2, 7, 32, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(4))
+    ddim = mp.diffusion.DDIMScheduler.create()
+    kept = []
+    handle = unet.register_forward_hook(
+        lambda m, a, o: kept.append((a[0], a[1], a[2], o)))
+    profiling.clear_records()
+    with torch.no_grad(), profiling.recording(), profiling.span("request"):
+        z = mp.diffusion.sample_latent(unet, ddim, x, num_inference_steps=3,
+                                       encoder_hidden_state=cond,
+                                       guidance_scale=3.0,
+                                       init_noise=x.features)
+    handle.remove()
+    with torch.no_grad():
+        ref = mp.diffusion.sample_latent(unet.eager_forward, ddim, x,
+                                         num_inference_steps=3,
+                                         encoder_hidden_state=cond,
+                                         guidance_scale=3.0,
+                                         init_noise=x.features)
+        assert len(kept) == 6
+        for xi, ti, ci, oi in kept:
+            assert torch.equal(unet.eager_forward(xi, ti, ci).features,
+                               oi.features)
+    assert torch.equal(z.features, ref.features)
+    rec = profiling.records()[-1]
+    assert _graph_counts(rec) == {"replay": 5, "capture": 1, "fallback": 0}
+
+
+@pytest.mark.cuda
+def test_unet_graph_replay_counts_the_launches_and_work_of_an_eager_call():
+    """Inside an open record a replay adds the graph's B1 launches to
+    ``fused_sparse_conv.launches`` and to the record, with the work its
+    kernels counted, equal to an eager call's launch for launch; so does
+    the call that captures the graph (its eager run on the side stream
+    counts; the capture launches and counts nothing)."""
+    from mink_octtree_stablediffusion_tpu_torch.utils import profiling
+    dev = _card()
+    mp.utils.cuda_build.build()
+    unet = _unet_on_card(dev)
+    x = _latent_on_card(dev, 5)
+    ts = torch.full((2,), 500, dtype=torch.int32, device=dev)
+    b1 = fused_conv.fused_sparse_conv
+
+    def call(run):
+        before = b1.launches
+        profiling.clear_records()
+        with torch.no_grad(), profiling.recording(), \
+                profiling.span("unet.forward"):
+            run(x, ts)
+        rec, = profiling.records()
+        return (b1.launches - before, rec.counter("fused_conv.B1"),
+                [(w.kind, w.cin, w.cout, w.k, w.pairs, w.rows_in, w.rows_out)
+                 for w in rec.launches])
+    eager = call(unet.eager_forward)
+    assert eager[0] == eager[1] == len(eager[2]) > 0
+    first = call(unet)  # the side stream's eager run, then the capture
+    replay = call(unet)
+    assert first == replay == eager
+
+
+@pytest.mark.cuda
+def test_unet_graph_capture_failure_runs_eager_and_counts_as_eager(
+        monkeypatch):
+    """A capture that fails on the device (a planted B1 launcher that syncs
+    its stream, illegal while the stream is captured): the call answers
+    with the eager forward's output, and counts what one eager call counts
+    (``fused_sparse_conv.launches``, the record's B1 launches with their
+    work, the conv and attention routes, and ``chip_smoke.py``'s
+    ``LaunchCapture`` shapes), with one ``unet.graph_fallback``; the
+    stream is restored, the default CUDA generator draws again, and later
+    calls of that signature run eager and count the same.  A later
+    signature then captures (into a new pool) and replays as an eager
+    call counts (the failed capture left nothing behind)."""
+    from mink_octtree_stablediffusion_tpu_torch.utils import profiling
+    dev = _card()
+    mp.utils.cuda_build.build()
+    launch, plant = fused_conv._launch, [True]
+
+    def syncing(*a, **kw):
+        if plant[0]:
+            torch.cuda.current_stream().synchronize()
+        return launch(*a, **kw)
+    monkeypatch.setattr(fused_conv, "_launch", syncing)
+    cap = _chip_smoke().LaunchCapture(mp)
+    unet = _unet_on_card(dev)
+    x = _latent_on_card(dev, 6)
+    b1 = fused_conv.fused_sparse_conv
+    stream = torch.cuda.current_stream()
+
+    def call(run, path, ts):
+        before = b1.launches
+        profiling.clear_records()
+        cap.at(path)
+        with torch.no_grad(), mp.nn.record_routes() as routes, \
+                mp.nn.record_attention() as attention, \
+                profiling.recording(), profiling.span("unet.forward"):
+            out = run(x, ts).features
+        rec, = profiling.records()
+        assert torch.cuda.current_stream() == stream
+        return out, {
+            "launches": b1.launches - before,
+            "counted": rec.counter("fused_conv.B1"),
+            "work": [(w.kind, w.cin, w.cout, w.k, w.pairs, w.rows_in,
+                      w.rows_out) for w in rec.launches],
+            "routes": list(routes), "attention": list(attention),
+            "shapes": cap.counts.get(path, {})}, _graph_counts(rec)
+
+    ts = torch.full((2,), 700, dtype=torch.int32, device=dev)
+    with pytest.warns(UserWarning, match="could not be captured"), cap:
+        ref, eager, _ = call(unet.eager_forward, "eager", ts)
+        got, fell, graph = call(unet, "fallback", ts)
+    assert eager["launches"] > 0 and eager["attention"]
+    assert torch.equal(got, ref) and fell == eager
+    assert graph == {"replay": 0, "capture": 0, "fallback": 1}
+    assert torch.randn(8, device=dev).isfinite().all()
+    with cap:
+        for path in ("after", "after2"):
+            got, later, graph = call(unet, path, ts)
+            assert torch.equal(got, ref) and later == eager
+            assert graph == {"replay": 0, "capture": 0, "fallback": 0}
+        plant[0] = False  # a later signature (int64 timesteps) captures
+        ts64 = ts.long()
+        ref64, eager64, _ = call(unet.eager_forward, "eager64", ts64)
+        got, first, graph = call(unet, "capture64", ts64)
+        assert torch.equal(got, ref64) and first == eager64
+        assert graph == {"replay": 0, "capture": 1, "fallback": 0}
+        got, replay, graph = call(unet, "replay64", ts64)
+        assert torch.equal(got, ref64) and replay == eager64
+        assert graph == {"replay": 1, "capture": 0, "fallback": 0}
+    assert len(unet.graphs.graphs) == 2
+
+
+@pytest.mark.cuda
+def test_unet_graph_engages_only_where_a_graph_can_stand_for_the_forward():
+    """Gradients on, a grid with no static extent, or a hook on a
+    submodule (which a replay would not call): the eager forward runs, the
+    hook fires at every call, and no graph is kept.  With none of them one
+    graph is captured; float32 compute switched on process-wide
+    (``ops.set_default_compute_dtype``) captures another, whose outputs
+    equal the eager forward's under that switch, and switched back the
+    first graph answers again."""
+    dev = _card()
+    mp.utils.cuda_build.build()
+    unet = _unet_on_card(dev)
+    x = _latent_on_card(dev, 7)
+    ts = torch.full((2,), 300, dtype=torch.int32, device=dev)
+    unet(x, ts)  # gradients on
+    assert len(unet.graphs.graphs) == 0
+    g = x.grid
+    unbounded = x.replace(grid=mp.ops.coords.SparseGrid(
+        g.coords, g.valid, g.stride, g.batch_size, None))
+    fired = []
+    with torch.no_grad():
+        unet(unbounded, ts)
+        assert len(unet.graphs.graphs) == 0
+        handle = unet.time_embedding.register_forward_hook(
+            lambda *a: fired.append(1))
+        try:
+            unet(x, ts)
+            unet(x, ts)
+        finally:
+            handle.remove()
+        assert fired == [1, 1] and len(unet.graphs.graphs) == 0
+        ref = unet.eager_forward(x, ts).features
+        assert all(torch.equal(unet(x, ts).features, ref) for _ in range(2))
+        assert len(unet.graphs.graphs) == 1
+        mp.ops.set_default_compute_dtype(torch.float32)
+        try:
+            ref32 = unet.eager_forward(x, ts).features
+            got32 = [unet(x, ts).features for _ in range(2)]
+        finally:
+            mp.ops.set_default_compute_dtype(None)
+        assert len(unet.graphs.graphs) == 2 and not torch.equal(ref32, ref)
+        assert all(torch.equal(got, ref32) for got in got32)
+        assert torch.equal(unet(x, ts).features, ref)
+    assert len(fired) == 2

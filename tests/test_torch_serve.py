@@ -16,7 +16,11 @@ save and the load each take tens of seconds here):
 - (d) the program holds no parameter: its state dict is empty, it keeps
   no example inputs (the weights traced it), it lifts no parameter or
   buffer, no constant it holds has a weight's shape, and its constants
-  hold under 1% of the weights' bytes.
+  hold under 1% of the weights' bytes;
+- (e) the export runs the UNet's eager forward: no call of it engages a
+  CUDA graph (``models.unet_graph.engages``; each sees a tracer's tensors
+  or a tracing flag, so none would on the card either), and the UNet
+  keeps no graph.
 """
 
 import numpy as np
@@ -53,11 +57,20 @@ def served(tmp_path_factory):
                                          CAP)
     vae, unet = _models(0)
     fn = _fn(vae, unet)
-    d = mp.serve.save_artifact(str(tmp_path_factory.mktemp("artifact")), fn,
-                               vae.state_dict(), unet.state_dict(),
-                               example=(cpad, valid))
+    engages, seen = mp.models.unet.engages, []
+
+    def spy(x, t):  # what the UNet's forward saw while it was exported
+        seen.append((type(x.features) is torch.Tensor,
+                     mp.models.unet_graph._tracing(), engages(x, t)))
+        return seen[-1][2]
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(mp.models.unet, "engages", spy)
+        d = mp.serve.save_artifact(str(tmp_path_factory.mktemp("artifact")),
+                                   fn, vae.state_dict(), unet.state_dict(),
+                                   example=(cpad, valid))
     return {"fn": fn, "vae": vae, "unet": unet, "cpad": cpad,
-            "valid": valid, "generate": mp.serve.load_artifact(d)}
+            "valid": valid, "generate": mp.serve.load_artifact(d),
+            "export_calls": seen}
 
 
 def _equal(got, ref):
@@ -117,3 +130,10 @@ def test_program_holds_no_parameter(served):
         s["vae"], s["unet"]) for t in m.state_dict().values())
     assert sum(t.numel() * t.element_size() for t in ep.constants.values()
                if isinstance(t, torch.Tensor)) < weight_bytes / 100
+
+
+def test_export_runs_the_eager_unet_forward(served):
+    calls = served["export_calls"]
+    assert calls and not any(engaged for _, _, engaged in calls)
+    assert all(tracing or not plain for plain, tracing, _ in calls)
+    assert len(served["unet"].graphs.graphs) == 0
